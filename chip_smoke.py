@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Smoke test of chomp_tpu_torch on one CUDA GPU (an H100 for sm_90a).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``chomp_tpu_torch/csrc`` and runs, in
+order (any failure exits nonzero; nothing falls back):
+
+1. device: requires CUDA; prints the card's name and power limit;
+2. kernel A (halo_contract) against its plain PyTorch version on the
+   node arrays of the main path's 512 cosmologies at DEFAULT_GRID
+   (float64 on 8 of them to 1e-12, float32 on all to 2e-6, both
+   relative to each output's peak), with both median times;
+3. kernel C (df_contract) against its plain version at (512, 2220) x
+   (64, 2220): float64 to 1e-12; float32 (the main path's two-float
+   kernel) to 1e-6 of peak against the plain version and 1e-7 of peak
+   against the exact float64 contraction of the same float32 inputs
+   (an uncompensated float32 sum misses it by ~100x); and the
+   hostile-cancellation case of tests/test_df32.py (float32 to < 5e-6
+   against float64);
+4. the lattice convolution (float32 in and out, float64 accumulation)
+   on the pipeline's own rows against float64 (1e-6), and its time;
+5. the slice: bench.py configuration A on 512 cosmologies in float32
+   through both kernels; launch counts, finiteness, worst-bin error
+   < 1e-4 against the port's float64 plain path on the card (8
+   cosmologies) and against the committed JAX float64 values
+   (tests/data/torch_slice_reference.json); in float64 the card's
+   kernels against its plain path (1e-12) and the plain path against
+   the JAX values (1e-10); and the median wall time of 5 repetitions.
+
+The last lines are the card (``nvidia-smi``), the kernels' JSON record
+and ``{"ok": true, "device": {...}}``.
+"""
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+N_COSMO = 512
+N_CHECK = 8
+REPO = Path(__file__).resolve().parent
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def gpu_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of ``fn()`` over ``reps`` timed runs (CUDA
+    events, one warm-up)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def rel_to_peak(got, ref):
+    """max over outputs of max|got - ref| / max|ref| (axis 1 = output)."""
+    d = (got - ref).abs().amax(dim=(0, 2))
+    return float((d / ref.abs().amax(dim=(0, 2))).max())
+
+
+def worst_bin(got, ref):
+    return float(np.max(np.abs(np.asarray(got) / np.asarray(ref) - 1.0)))
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Route the slice through the kernels' plain versions."""
+    from chomp_tpu_torch import halo
+    from chomp_tpu_torch.ops import df32, halo_contract
+    from chomp_tpu_torch.parallel import sweep
+
+    saved = halo.halo_contract, sweep.df_contract
+    halo.halo_contract = lambda k, mat, gal, cheb: \
+        halo_contract.halo_contract_ref(k, mat, gal)
+    sweep.df_contract = df32.df_contract_ref
+    try:
+        yield
+    finally:
+        halo.halo_contract, sweep.df_contract = saved
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs "
+             "a CUDA GPU")
+    sys.path.insert(0, str(REPO))
+    from chomp_tpu_torch import (DNdzGaussian, default_cosmo, default_halo,
+                                 default_hod, halo, limber_fft, projection)
+    from chomp_tpu_torch.grids import Statics
+    from chomp_tpu_torch.ops import build, df32, halo_contract as hc
+    from chomp_tpu_torch.params import DEFAULT_GRID
+    from chomp_tpu_torch.parallel.sweep import broadcast_cosmo, make_pipeline
+
+    dev = torch.device("cuda", 0)
+    f32, f64 = torch.float32, torch.float64
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = gpu_line()
+    print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    for name in ("halo_contract", "df_contract"):
+        path, log = build.build(name)
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"[build] {name}: {path.name} | {' ; '.join(regs)}",
+              flush=True)
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    oms = np.linspace(0.24, 0.32, N_COSMO)
+    s8s = np.linspace(0.75, 0.88, N_COSMO)
+    check = np.unique(np.linspace(0, N_COSMO - 1, N_CHECK).round()
+                      ).astype(int)
+
+    def setup(dtype, idx=None):
+        o = oms if idx is None else oms[idx]
+        s = s8s if idx is None else s8s[idx]
+        kw = dict(device=dev, dtype=dtype)
+        batch = broadcast_cosmo(default_cosmo(**kw), omega_m0=o,
+                                omega_l0=1.0 - o, sigma_8=s)
+        dist = DNdzGaussian(*(torch.tensor(v, **kw)
+                              for v in (0.0, 2.0, 1.0, 0.2)))
+        return batch, default_halo(**kw), default_hod(**kw), dist
+
+    # -- 2. kernel A ----------------------------------------------------
+    def model_for(dtype, idx=None):
+        st = Statics(DEFAULT_GRID, device=dev, dtype=dtype)
+        batch, hp, hod, dist = setup(dtype, idx)
+        z = torch.ones(1, device=dev, dtype=dtype)
+        return st, batch, hp, dist, halo.build_halo_model(batch, hp, hod, z,
+                                                          st)
+
+    def nodes(dtype, idx=None):
+        st, batch, hp, dist, model = model_for(dtype, idx)
+        mat, gal = halo.contraction_nodes(batch, hp, model)
+        return st, mat, gal
+
+    st64, mat64, gal64 = nodes(f64, check)
+    got = hc.halo_contract(st64.lattice_k, mat64, gal64, st64.cheb)
+    ref = hc.halo_contract_ref(st64.lattice_k, mat64, gal64)
+    err_a64 = rel_to_peak(got, ref)
+    st32, mat32, gal32 = nodes(f32)
+    k32 = st32.lattice_k
+    got32 = hc.halo_contract(k32, mat32, gal32, st32.cheb)
+    ref32 = hc.halo_contract_ref(k32, mat32, gal32)
+    err_a32 = rel_to_peak(got32, ref32)
+    abs_a32 = float((got32 - ref32).abs().max())
+    ms_a = cuda_ms(lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb),
+                   10)
+    plain_ms_a = cuda_ms(lambda: hc.halo_contract_ref(k32, mat32, gal32), 3)
+    print(f"[halo_contract] B={N_COSMO} NK={k32.numel()} "
+          f"NM={mat32.shape[1]} NG={gal32.shape[1]} | f64 rel_to_peak="
+          f"{err_a64:.3e} (8 cosmologies, gate 1e-12) | f32 rel_to_peak="
+          f"{err_a32:.3e} max_abs={abs_a32:.3e} (gate 2e-6) | kernel "
+          f"{ms_a:.3f} ms, plain {plain_ms_a:.3f} ms (f32, median)",
+          flush=True)
+    if not err_a64 <= 1e-12:
+        fail(f"halo_contract float64 error {err_a64}")
+    if not err_a32 <= 2e-6:
+        fail(f"halo_contract float32 error {err_a32}")
+    del ref32, got32
+
+    # -- 3. kernel C ----------------------------------------------------
+    theta = tuple(np.logspace(-3, 0, 64).tolist())
+    j_lo, j_hi, a_np = limber_fft.wtheta_lattice_operator(
+        theta, DEFAULT_GRID, 0.0)
+    rng = np.random.default_rng(0)
+    c_np = rng.lognormal(0.0, 1.0, (N_COSMO, j_hi - j_lo))
+    c64 = torch.tensor(c_np, device=dev)
+    a64 = torch.tensor(a_np, device=dev)
+    got = df32.df_contract(c64, a64)
+    ref = df32.df_contract_ref(c64, a64)
+    err_c64 = float((got - ref).abs().max() / ref.abs().max())
+    hi_np, lo_np = df32.split_operator(a_np)
+    a_hi = torch.tensor(hi_np, device=dev)
+    a_lo = torch.tensor(lo_np, device=dev)
+    c32 = c64.to(f32)
+    got32 = df32.df_contract(c32, a_hi, a_lo)
+    ref32 = df32.df_contract_ref(c32, a_hi, a_lo)
+    exact = c32.double() @ a64.T
+    err_c32 = float((got32.double() - exact).abs().max()
+                    / exact.abs().max())
+    abs_c32 = float((got32 - ref32).abs().max())
+    rel_c32 = abs_c32 / float(ref32.abs().max())
+    rng = np.random.default_rng(1)
+    n, m = 1024, 8
+    hc64 = rng.lognormal(0.0, 2.0, n)
+    ha64 = rng.normal(0.0, 1.0, (m, n))
+    w_true = ha64 @ hc64
+    ha64 -= np.outer(w_true / (hc64 @ hc64) * 0.9999, hc64)
+    hc32 = hc64.astype(np.float32)
+    h_ref = ha64 @ hc32.astype(np.float64)
+    h_hi, h_lo = df32.split_operator(ha64)
+    h_got = df32.df_contract(torch.tensor(hc32[None], device=dev),
+                             torch.tensor(h_hi, device=dev),
+                             torch.tensor(h_lo, device=dev))
+    hostile = worst_bin(h_got[0].double().cpu().numpy(), h_ref)
+    plain32 = torch.tensor(hc32[None], device=dev) @ torch.tensor(
+        ha64.astype(np.float32), device=dev).T
+    hostile_plain = worst_bin(plain32[0].double().cpu().numpy(), h_ref)
+    ms_c = cuda_ms(lambda: df32.df_contract(c32, a_hi, a_lo), 20)
+    plain_ms_c = cuda_ms(lambda: df32.df_contract_ref(c32, a_hi, a_lo), 5)
+    print(f"[df_contract] ({N_COSMO}, {j_hi - j_lo}) x ({a_np.shape[0]}, "
+          f"{j_hi - j_lo}) | f64 rel_to_peak={err_c64:.3e} (gate 1e-12) | "
+          f"f32 vs plain rel_to_peak={rel_c32:.3e} max_abs={abs_c32:.3e} "
+          f"(gate 1e-6) | f32 vs exact rel_to_peak={err_c32:.3e} (gate "
+          f"1e-7) | hostile f32 worst={hostile:.3e} (gate 5e-6; plain f32 "
+          f"matmul {hostile_plain:.3e}) | kernel {ms_c:.4f} ms, plain "
+          f"{plain_ms_c:.4f} ms (f32, median)", flush=True)
+    if not err_c64 <= 1e-12:
+        fail(f"df_contract float64 error {err_c64}")
+    if not rel_c32 <= 1e-6:
+        fail(f"df_contract float32 vs its plain version: {rel_c32}")
+    if not err_c32 <= 1e-7:
+        fail(f"df_contract float32 vs the exact contraction: {err_c32}")
+    if not hostile < 5e-6:
+        fail(f"df_contract hostile-cancellation error {hostile}")
+
+    # -- 4. convolution precision ---------------------------------------
+    # The pipeline's own lattice rows (float64, 8 cosmologies), rounded
+    # to float32: the comparison isolates the float32 accumulation.
+    st, batch, hp, dist, model = model_for(f64, check)
+    p_all = limber_fft.p_lattice_halo_all(batch, hp, model, st)
+    wins = (projection.WindowGalaxy(dist), projection.WindowConvergence(dist))
+    g_rows = limber_fft._lattice_g_rows(
+        batch, [(wins[0], wins[0]), (wins[1], wins[0])], st,
+        model.mass.growth)
+    p32 = torch.stack([p_all["power_gg"], p_all["power_gm"]], 1).to(f32)
+    g32 = g_rows.to(f32)
+    n_k, n_chi = p32.shape[-1], g32.shape[-1]
+    conv64 = limber_fft._conv_direct_rows(p32.double(), g32.double(),
+                                          j_lo, j_hi)
+    conv32 = limber_fft._conv_direct_rows(p32, g32, j_lo, j_hi)
+    err_conv = float((conv32.double() / conv64 - 1.0).abs().max())
+    del p_all, model
+    p32 = p32.repeat(N_COSMO // len(check), 1, 1)
+    g32 = g32.repeat(N_COSMO // len(check), 1, 1)
+    ms_conv = cuda_ms(lambda: limber_fft._conv_direct_rows(
+        p32, g32, j_lo, j_hi), 5)
+    print(f"[conv1d] ({len(check)}, 2, {n_k}) * ({len(check)}, 2, {n_chi}) "
+          f"-> {j_hi - j_lo}, the pipeline's rows | float32 in/out, float64 "
+          f"accumulation: worst rel={err_conv:.3e} (gate 1e-6) | "
+          f"{ms_conv:.3f} ms at B={N_COSMO}", flush=True)
+    if not err_conv <= 1e-6:
+        fail(f"conv1d float32 error {err_conv}")
+
+    # -- 5. the slice ---------------------------------------------------
+    batch, hp, hod, dist = setup(f32)
+    pipe = make_pipeline(hp, hod, dist, power_spec="power_gg",
+                         grid=DEFAULT_GRID, include_lensing=True,
+                         z_pivot=1.0, device=dev, dtype=f32)
+    hc.halo_contract.launches = 0
+    df32.df_contract.launches = 0
+    out = pipe(batch)
+    torch.cuda.synchronize()
+    launches = {"halo_contract": hc.halo_contract.launches,
+                "df_contract": df32.df_contract.launches}
+    w32 = out["w_theta"].double().cpu().numpy()
+    g32 = out["gamma_t"].double().cpu().numpy()
+    finite = bool(np.all(np.isfinite(w32)) and np.all(np.isfinite(g32)))
+    shape_ok = w32.shape == g32.shape == (N_COSMO, DEFAULT_GRID.n_theta)
+
+    batch64, hp64, hod64, dist64 = setup(f64, check)
+    pipe64 = make_pipeline(hp64, hod64, dist64, power_spec="power_gg",
+                           grid=DEFAULT_GRID, include_lensing=True,
+                           z_pivot=1.0, device=dev, dtype=f64)
+    with plain_path():
+        out64 = pipe64(batch64)
+    w64 = out64["w_theta"].cpu().numpy()
+    g64 = out64["gamma_t"].cpu().numpy()
+    err_plain = max(worst_bin(w32[check], w64), worst_bin(g32[check], g64))
+    out64k = pipe64(batch64)
+    err_k64 = max(worst_bin(out64k["w_theta"].cpu().numpy(), w64),
+                  worst_bin(out64k["gamma_t"].cpu().numpy(), g64))
+
+    ref = json.loads((REPO / "tests" / "data"
+                      / "torch_slice_reference.json").read_text())
+    idx = np.asarray(ref["indices"])
+    if ref["n_cosmo"] != N_COSMO or not np.allclose(ref["omega_m0"],
+                                                    oms[idx]):
+        fail("reference file does not match this run's cosmologies")
+    err_jax = max(worst_bin(w32[idx], ref["w_theta"]),
+                  worst_bin(g32[idx], ref["gamma_t"]))
+    both = [i for i, c in enumerate(check) if c in set(idx.tolist())]
+    jpos = [idx.tolist().index(check[i]) for i in both]
+    if not both:
+        fail("no checked cosmology is in the reference file")
+    err_jax64 = max(
+        worst_bin(w64[both], np.asarray(ref["w_theta"])[jpos]),
+        worst_bin(g64[both], np.asarray(ref["gamma_t"])[jpos]))
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    print(f"[slice] bench config A, DEFAULT_GRID, B={N_COSMO}, float32 | "
+          f"launches {launches} | finite={finite} shape_ok={shape_ok} | "
+          f"worst bin vs card f64 plain path={err_plain:.3e} (8 cosmologies"
+          f", gate 1e-4) | vs JAX f64 reference={err_jax:.3e} (3 "
+          f"cosmologies, gate 1e-4) | card f64 plain vs JAX f64="
+          f"{err_jax64:.3e} (gate 1e-10) | card f64 kernels vs f64 plain="
+          f"{err_k64:.3e} (gate 1e-12) | "
+          f"wall median of 5 = {wall * 1e3:.1f} ms "
+          f"({wall / N_COSMO * 1e3:.4f} ms/cosmology)", flush=True)
+    if not (finite and shape_ok):
+        fail("slice outputs not finite or of the wrong shape")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the main path was not launched: {launches}")
+    if not err_plain < 1e-4:
+        fail(f"slice float32 vs float64 plain path: {err_plain}")
+    if not err_jax < 1e-4:
+        fail(f"slice float32 vs JAX float64 reference: {err_jax}")
+    if not err_k64 <= 1e-12:
+        fail(f"slice float64 through the kernels vs plain path: {err_k64}")
+    if not err_jax64 <= 1e-10:
+        fail(f"slice float64 plain path vs JAX float64 reference: "
+             f"{err_jax64}")
+
+    kernels = [
+        {"name": "halo_contract", "route": "cuda",
+         "source": "chomp_tpu_torch/csrc/halo_contract.cu",
+         "replaces": "chomp_tpu/ops/halo_pallas.py:77",
+         "launches": launches["halo_contract"], "max_abs_err": abs_a32,
+         "ms": ms_a, "plain_ms": plain_ms_a},
+        {"name": "df_contract", "route": "cuda",
+         "source": "chomp_tpu_torch/csrc/df_contract.cu",
+         "replaces": "chomp_tpu/ops/df32.py:94",
+         "launches": launches["df_contract"], "max_abs_err": abs_c32,
+         "ms": ms_c, "plain_ms": plain_ms_c},
+    ]
+    print(gpu_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

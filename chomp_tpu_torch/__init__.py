@@ -1,0 +1,19 @@
+"""chomp_tpu_torch: the PyTorch + CUDA port of the JAX package.
+
+The first slice is the separable-growth, flat-sky w(theta) + gamma_t
+pipeline (``parallel.sweep.make_pipeline``), with hand-written CUDA
+kernels for the halo-model mass contraction (``ops.halo_contract``) and
+the compensated operator contraction (``ops.df32``).  The package
+imports torch and numpy only; the JAX package beside it is its reference
+in the tests.
+"""
+
+from chomp_tpu_torch.hod import HODZheng, default_hod
+from chomp_tpu_torch.params import (DEFAULT_GRID, CosmoParams, GridSpec,
+                                    HaloParams, default_cosmo, default_halo)
+from chomp_tpu_torch.parallel.sweep import broadcast_cosmo, make_pipeline
+from chomp_tpu_torch.projection import DNdzGaussian
+
+__all__ = ["CosmoParams", "DEFAULT_GRID", "DNdzGaussian", "GridSpec",
+           "HODZheng", "HaloParams", "broadcast_cosmo", "default_cosmo",
+           "default_halo", "default_hod", "make_pipeline"]

@@ -1,0 +1,128 @@
+"""Quadrature nodes, interpolation primitives and the static tensors of a grid.
+
+PyTorch counterpart of the JAX package's ``grids.py``.  The node builders are
+float64 numpy (copied: the JAX module imports jax); :func:`gl_integrate`
+is the batched torch contraction; :class:`Statics` holds every static
+numpy table of one :class:`~chomp_tpu_torch.params.GridSpec` as module
+buffers on one device and dtype, so the pipeline converts them once.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@lru_cache(maxsize=None)
+def gauss_legendre(n: int):
+    """GL nodes/weights on [-1, 1] (float64 numpy, cached)."""
+    x, w = np.polynomial.legendre.leggauss(n)
+    return x, w
+
+
+@lru_cache(maxsize=None)
+def gl_fixed(a: float, b: float, n: int):
+    """GL nodes/weights mapped to the static interval [a, b] (numpy)."""
+    x, w = gauss_legendre(n)
+    half = 0.5 * (b - a)
+    return 0.5 * (b + a) + half * x, half * w
+
+
+@lru_cache(maxsize=None)
+def gl_composite(a: float, b: float, panels: int, n: int):
+    """Composite GL: ``panels`` equal subintervals of [a, b], ``n`` nodes
+    each (numpy)."""
+    edges = np.linspace(a, b, panels + 1)
+    xs, ws = [], []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        x, w = gl_fixed(float(lo), float(hi), n)
+        xs.append(x)
+        ws.append(w)
+    return np.concatenate(xs), np.concatenate(ws)
+
+
+def catmull_rom_weights_np(n: int, t):
+    """(len(t), n) Catmull-Rom weight matrix on a UNIFORM grid (numpy):
+    row q interpolates grid values at fractional index t[q], with the
+    4-tap stencil clipped to [1, n-3]."""
+    t = np.asarray(t, dtype=np.float64)
+    i = np.clip(np.floor(t).astype(int), 1, n - 3)
+    f = t - i
+    w = np.zeros((len(t), n))
+    rows = np.arange(len(t))
+    w[rows, i - 1] = 0.5 * (-f + 2 * f**2 - f**3)
+    w[rows, i] = 0.5 * (2 - 5 * f**2 + 3 * f**3)
+    w[rows, i + 1] = 0.5 * (f + 4 * f**2 - 3 * f**3)
+    w[rows, i + 2] = 0.5 * (-(f**2) + f**3)
+    return w
+
+
+def gl_integrate(f, a, b, x: torch.Tensor, w: torch.Tensor):
+    """``∫_a^b f`` with per-element limits ``a``/``b`` (broadcast tensors)
+    on the GL rule (``x``, ``w``) of [-1, 1]: ``f`` is evaluated on
+    ``broadcast(a, b).shape + (n,)`` and the last axis contracted."""
+    half = 0.5 * (b - a)
+    mid = 0.5 * (b + a)
+    t = mid[..., None] + half[..., None] * x
+    return torch.sum(f(t) * w, dim=-1) * half
+
+
+class Statics(nn.Module):
+    """Every static table of one grid as buffers on one device and dtype:
+    GL rules, the mass and sigma(R) nodes, the Limber lattices with their
+    fiducial Newton seeds, and the Chebyshev table of halo_contract.
+
+    ``gl(n)`` adds a GL rule the first time an order is asked for."""
+
+    def __init__(self, grid, device=None, dtype=torch.float64):
+        super().__init__()
+        from chomp_tpu_torch import limber_fft
+        from chomp_tpu_torch.ops.halo_contract import cheb_table
+
+        self.grid = grid
+        t = self._t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                                device=device)
+        self.register_buffer("ref", t(0.0), persistent=False)
+        ln_m, w_m = gl_fixed(float(np.log(grid.m_min)),
+                             float(np.log(grid.m_max)), grid.n_mass)
+        self.register_buffer("mass_ln_m", t(ln_m), persistent=False)
+        self.register_buffer("mass_w", t(w_m), persistent=False)
+        ln_k, w_k = gl_composite(float(np.log(grid.sigma_k_min)),
+                                 float(np.log(grid.sigma_k_max)),
+                                 grid.sigma_panels, grid.sigma_n_per_panel)
+        self.register_buffer("sigma_ln_k", t(ln_k), persistent=False)
+        self.register_buffer("sigma_w", t(w_k), persistent=False)
+        key = limber_fft._lattice_key(grid)
+        lat_ln_k, lat_ln_chi = limber_fft._lattices(grid)
+        self.register_buffer("lattice_k", t(np.exp(lat_ln_k)),
+                             persistent=False)
+        self.register_buffer("lattice_chi", t(np.exp(lat_ln_chi)),
+                             persistent=False)
+        self.register_buffer("z_seed", t(limber_fft._fiducial_z_seed(key)),
+                             persistent=False)
+        self.register_buffer("z_seed_mid",
+                             t(limber_fft._fiducial_z_seed(key, mid=True)),
+                             persistent=False)
+        self.register_buffer("cheb", t(cheb_table()), persistent=False)
+
+    @property
+    def device(self):
+        return self.ref.device
+
+    @property
+    def dtype(self):
+        return self.ref.dtype
+
+    def gl(self, n: int):
+        """(x, w) GL rule of order ``n`` on [-1, 1]."""
+        name = f"gl{n}"
+        if not hasattr(self, name + "_x"):
+            x, w = gauss_legendre(n)
+            self.register_buffer(name + "_x", self._t(x).to(self.ref),
+                                 persistent=False)
+            self.register_buffer(name + "_w", self._t(w).to(self.ref),
+                                 persistent=False)
+        return getattr(self, name + "_x"), getattr(self, name + "_w")

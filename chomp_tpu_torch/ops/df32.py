@@ -1,0 +1,160 @@
+"""Kernel C: the two-float ("double-single") compensated contraction.
+
+``out = c @ A.T`` with ``A`` a static float64 operator whose rows
+oscillate through sign (the fused lattice -> Hankel -> theta-bins map of
+the w(theta) pipeline), so a plain float32 sum loses ~eps x the ~100x
+cancellation.  In float32 every product is carried as an exact (p, e)
+pair and the sum in two-float arithmetic (~2^-48); float64 inputs take a
+plain float64 sum.  ``A`` is split once, by :func:`split_operator`, into
+float32 hi + lo.
+
+Replaces the JAX package's ``ops/df32.py::df_contract``; the CUDA source is
+``chomp_tpu_torch/csrc/df_contract.cu``.  :func:`df_contract_ref` is the
+plain PyTorch version: Dekker two_prod and the balanced-tree ``df_sum``
+of the JAX module (each eager op is its own launch, so the error-free
+transforms stay exact on CPU and GPU alike).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from chomp_tpu_torch.ops.build import device_index, load
+
+_SPLIT = 4097.0  # 2^12 + 1: Dekker split constant for float32
+
+
+def split_operator(a_np: np.ndarray):
+    """(hi, lo) float32 numpy pair with hi + lo == A to ~2^-48."""
+    a_np = np.asarray(a_np, dtype=np.float64)
+    hi = a_np.astype(np.float32)
+    lo = (a_np - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+def two_sum(a, b):
+    """Error-free a + b: (s, e) with s + e == a + b exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    c = _SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def two_prod(a, b):
+    """Error-free a * b (Dekker): (p, e) with p + e == a * b exactly."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, e
+
+
+def _df_add(s1, e1, s2, e2):
+    s, e = two_sum(s1, s2)
+    return s, e + (e1 + e2)
+
+
+def df_sum(hi, lo):
+    """Balanced-tree two-float reduction over the last axis; returns the
+    rounded sum hi + lo."""
+    n = hi.shape[-1]
+    m = 1
+    while m < n:
+        m *= 2
+    if m != n:
+        hi = torch.nn.functional.pad(hi, (0, m - n))
+        lo = torch.nn.functional.pad(lo, (0, m - n))
+    while m > 1:
+        m //= 2
+        hi, lo = _df_add(hi[..., :m], lo[..., :m], hi[..., m:], lo[..., m:])
+    return (hi + lo)[..., 0]
+
+
+def df_contract_ref(c, a_hi, a_lo=None):
+    """Plain version: ``c`` (R, n); float64 ``c`` with the float64
+    operator ``a_hi`` (T, n) is a plain matmul, float32 ``c`` with the
+    float32 split (``a_hi``, ``a_lo``) the two-float contraction."""
+    if c.dtype == torch.float64:
+        return torch.matmul(c, a_hi.T)
+    ce = c[..., None, :]
+    p, e = two_prod(ce, a_hi)
+    e = e + ce * a_lo
+    return df_sum(p, e)
+
+
+def _check(c, a_hi, a_lo):
+    if c.dim() != 2 or a_hi.dim() != 2 or c.shape[1] != a_hi.shape[1]:
+        raise ValueError(f"df_contract: need c (R, n) and A (T, n), got "
+                         f"{tuple(c.shape)} and {tuple(a_hi.shape)}")
+    if c.dtype == torch.float64:
+        if a_hi.dtype != torch.float64 or a_lo is not None:
+            raise TypeError("df_contract: float64 c takes the float64 "
+                            "operator and no lo part")
+    elif c.dtype == torch.float32:
+        if (a_lo is None or a_hi.dtype != torch.float32
+                or a_lo.dtype != torch.float32 or a_lo.shape != a_hi.shape):
+            raise TypeError("df_contract: float32 c takes the float32 "
+                            "hi/lo split of the operator")
+    else:
+        raise TypeError(f"df_contract: unsupported dtype {c.dtype}")
+    ts = (c, a_hi) + ((a_lo,) if a_lo is not None else ())
+    if any(t.device != c.device for t in ts):
+        raise ValueError("df_contract: all inputs must be on one device")
+    return ts
+
+
+@lru_cache(maxsize=None)
+def _lib():
+    lib = load("df_contract")
+    lib.df_contract_launch.restype = ctypes.c_int
+    lib.df_contract_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.df_contract_error.restype = ctypes.c_char_p
+    lib.df_contract_error.argtypes = [ctypes.c_int]
+    return lib
+
+
+def df_contract(c, a_hi, a_lo=None):
+    """Kernel C on CUDA tensors; the plain version for CPU tensors.
+    ``c`` (R, n); ``a_hi``/``a_lo`` as :func:`df_contract_ref`.  Returns
+    (R, T).  Forward only: a CUDA input that requires grad raises."""
+    ts = _check(c, a_hi, a_lo)
+    if c.device.type == "cpu":
+        return df_contract_ref(c, a_hi, a_lo)
+    if c.device.type != "cuda":
+        raise ValueError(f"df_contract: unsupported device {c.device}")
+    if any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "df_contract: the CUDA kernel is forward-only (backward kernel: "
+            "ROADMAP queue 2, kernel C)")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("df_contract: inputs must be contiguous")
+    lib = _lib()
+    rows, n = c.shape
+    t = a_hi.shape[0]
+    out = torch.empty((rows, t), dtype=c.dtype, device=c.device)
+    if rows == 0 or t == 0:
+        return out
+    rc = lib.df_contract_launch(
+        device_index(c), int(c.dtype == torch.float64), c.data_ptr(),
+        a_hi.data_ptr(), a_lo.data_ptr() if a_lo is not None else None,
+        out.data_ptr(), rows, n, t,
+        torch.cuda.current_stream(c.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("df_contract launch failed: "
+                           + lib.df_contract_error(rc).decode())
+    df_contract.launches += 1
+    return out
+
+
+df_contract.launches = 0

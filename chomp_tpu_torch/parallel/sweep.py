@@ -1,0 +1,234 @@
+"""Batched w(theta) + gamma_t pipeline: the flat, separable-growth slice.
+
+PyTorch counterpart of the JAX package's ``parallel/sweep.py``'s
+``broadcast_cosmo`` and ``make_pipeline`` (fused branch, flat geometry,
+sweep.py:343-406) with ``_fused_probe_rows`` (sweep.py:452-501).  The
+pipeline is an ``nn.Module`` whose forward takes a batch of cosmologies
+(:class:`~chomp_tpu_torch.params.CosmoParams` with ``(B,)`` fields) in
+place of ``jit(vmap(fn))``:
+
+    halo model -> P_gg, P_gm on the k lattice (kernel A) -> lattice
+    window weights -> one grouped direct convolution -> one compensated
+    contraction per operator (kernel C) -> w(theta), gamma_t.
+
+The static numpy operators live in module buffers, on the device and in
+the dtype chosen at construction (float32 is the serving precision;
+float64 is the reference mode).  Options of the JAX ``make_pipeline``
+outside this slice raise ``NotImplementedError`` naming their ROADMAP
+item; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import torch
+from torch import nn
+
+from chomp_tpu_torch import correlation, halo, limber_fft, projection
+from chomp_tpu_torch.grids import Statics
+from chomp_tpu_torch.ops.df32 import df_contract, split_operator
+from chomp_tpu_torch.params import DEFAULT_GRID, CosmoParams, GridSpec
+
+
+def broadcast_cosmo(base: CosmoParams, **param_arrays) -> CosmoParams:
+    """Batch of cosmologies: named 1-D arrays override ``base`` fields,
+    every other field is broadcast.  Fields are ``(B,)`` on ``base``'s
+    device and dtype."""
+    if not param_arrays:
+        raise ValueError("need at least one varying parameter")
+    ref = base.omega_m0
+    arrays = {k: torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
+              for k, v in param_arrays.items()}
+    n = next(iter(arrays.values())).shape[0]
+    full = {}
+    for f in dataclasses.fields(base):
+        v = arrays.get(f.name, getattr(base, f.name))
+        full[f.name] = v.reshape(-1).expand(n).contiguous()
+    return CosmoParams(**full)
+
+
+def _warn_if_separable_bias(dist, z_pivot: float, threshold: float = 0.5):
+    """Host-side warning when the separable-growth pivot is far from the
+    window's mean redshift (a >10% C_ell bias for deep kernels, measured
+    in the JAX package's tests/test_exact_z_lattice.py).  Skipped for a
+    batched dist."""
+    if dist.z_min.numel() != 1 or dist.z_max.numel() != 1:
+        return
+    z_lo, z_hi = float(dist.z_min), float(dist.z_max)
+    zg = torch.linspace(z_lo, z_hi, 257, dtype=torch.float64,
+                        device=dist.z_min.device)
+    p = dist.to(dtype=torch.float64).raw_dndz(zg).cpu().numpy()
+    zg = zg.cpu().numpy()
+    den = float(np.trapezoid(p, zg))
+    if den <= 0.0:
+        return
+    z_bar = float(np.trapezoid(p * zg, zg)) / den
+    if abs(z_bar - z_pivot) > threshold:
+        warnings.warn(
+            f"make_pipeline: separable growth with z_pivot={z_pivot} but "
+            f"the window's mean redshift is ~{z_bar:.2f}; the frozen "
+            "halo-model shape biases C_ell at the >10% level for such "
+            "deep kernels.  Set z_pivot near the kernel mean (exact-z "
+            "anchors are ROADMAP queue 1, item 6).", stacklevel=3)
+
+
+def _unported(option: str, item: str):
+    raise NotImplementedError(
+        f"make_pipeline({option}) is not ported to chomp_tpu_torch yet: "
+        f"ROADMAP {item}")
+
+
+def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
+                  theta_deg=None, z_pivot: float = 0.0,
+                  with_bao: bool = False, grid: GridSpec = DEFAULT_GRID,
+                  include_lensing: bool = True, method: str = "fft",
+                  exact_z_anchors: int | None = None,
+                  geometry: str = "flat", include_shear: bool = False,
+                  include_cmb_lensing=False,
+                  nonlimber_ell_switch: int | None = None,
+                  nonlimber_rsd: bool = False, matter_power: str = "halo",
+                  *, device, dtype) -> "Pipeline":
+    """The flagship program as an ``nn.Module``: ``pipe(cosmo)`` ->
+    dict with ``theta_deg``, ``n_g`` (B,), ``w_theta`` and (with
+    ``include_lensing``) ``gamma_t``, each (B, n_theta).  Same arguments
+    as the JAX ``make_pipeline``, plus the explicit ``device`` and
+    ``dtype`` every buffer and output lives in."""
+    if geometry not in ("flat", "curved"):
+        raise ValueError(f"geometry must be 'flat' or 'curved', got "
+                         f"{geometry!r}")
+    if method not in ("fft", "table"):
+        raise ValueError(f"method must be 'fft' or 'table', got {method!r}")
+    if matter_power not in ("halo", "halofit", "linear"):
+        raise ValueError(f"matter_power must be halo|halofit|linear, "
+                         f"got {matter_power!r}")
+    if power_spec not in ("linear_power", "power_mm", "power_gm",
+                          "power_mg", "power_gg"):
+        raise ValueError(f"unknown power_spec {power_spec!r}")
+    if method == "table":
+        _unported("method='table'",
+                  "queue 2, kernel B (hankel_matmul_pallas, with the "
+                  "method='table' route)")
+    if exact_z_anchors:
+        _unported("exact_z_anchors", "queue 1, item 6 (exact-z slice)")
+    options = (("include_shear", include_shear),
+               ("include_cmb_lensing", include_cmb_lensing not in (False,
+                                                                   None)),
+               ("geometry='curved'", geometry == "curved"),
+               ("nonlimber_ell_switch", bool(nonlimber_ell_switch)),
+               ("nonlimber_rsd", nonlimber_rsd),
+               (f"matter_power={matter_power!r}", matter_power != "halo"),
+               ("with_bao=True", with_bao),
+               ("halo_params.mass_fn != 0",
+                bool(torch.any(halo_params.mass_fn != 0.0))))
+    for name, on in options:
+        if on:
+            _unported(name, "queue 1, item 7 (make_pipeline options)")
+    _warn_if_separable_bias(dist, z_pivot)
+    return Pipeline(halo_params, hod, dist, power_spec, theta_deg, z_pivot,
+                    grid, include_lensing, device=device, dtype=dtype)
+
+
+class Pipeline(nn.Module):
+    """Separable-growth, flat-sky w(theta) (+ gamma_t) for a cosmology
+    batch (see :func:`make_pipeline`).  Device and dtype are fixed at
+    construction: build a second pipeline for another precision."""
+
+    def __init__(self, halo_params, hod, dist, power_spec, theta_deg,
+                 z_pivot, grid, include_lensing, *, device, dtype):
+        super().__init__()
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+        self.st = Statics(grid, device=device, dtype=dtype)
+        self.halo_params = halo_params.to(device, dtype)
+        self.hod = hod.to(device, dtype)
+        self.dist = dist.to(device, dtype)
+        self.power_spec = power_spec
+        self.z_pivot = float(z_pivot)
+        self.include_lensing = include_lensing
+        self.win_g = projection.WindowGalaxy(dist=self.dist)
+        self.win_k = projection.WindowConvergence(dist=self.dist)
+        if theta_deg is None:
+            theta_deg = correlation.theta_bins_deg(grid)
+        theta_np = np.asarray(theta_deg, dtype=np.float64)
+        self.register_buffer("theta_deg", torch.as_tensor(
+            theta_np, dtype=dtype, device=device), persistent=False)
+        theta_key = tuple(theta_np.tolist())
+        self.mus = (0.0, 2.0) if include_lensing else (0.0,)
+        self.windows = []
+        for i, mu in enumerate(self.mus):
+            j_lo, j_hi, a = limber_fft.wtheta_lattice_operator(
+                theta_key, grid, mu)
+            self.windows.append((j_lo, j_hi))
+            if dtype == torch.float32:
+                hi, lo = split_operator(a)
+            else:
+                hi, lo = a, None
+            self.register_buffer(f"op{i}_hi", torch.as_tensor(
+                hi, device=device), persistent=False)
+            self.register_buffer(f"op{i}_lo", None if lo is None else
+                                 torch.as_tensor(lo, device=device),
+                                 persistent=False)
+
+    def operator(self, i: int):
+        """(j_lo, j_hi, a_hi, a_lo) of the i-th operator (mu of
+        ``self.mus``); ``a_lo`` is None in float64."""
+        j_lo, j_hi = self.windows[i]
+        return j_lo, j_hi, getattr(self, f"op{i}_hi"), \
+            getattr(self, f"op{i}_lo")
+
+    def forward(self, cosmo: CosmoParams) -> dict:
+        st = self.st
+        cosmo = cosmo.batched()
+        if cosmo.omega_m0.dtype != st.dtype or \
+                cosmo.omega_m0.device != st.device:
+            raise ValueError(
+                f"cosmology batch is {cosmo.omega_m0.dtype} on "
+                f"{cosmo.omega_m0.device}; this pipeline runs {st.dtype} "
+                f"on {st.device}")
+        z = torch.full((1,), self.z_pivot, dtype=st.dtype, device=st.device)
+        model = halo.build_halo_model(cosmo, self.halo_params, self.hod, z,
+                                      st)
+        p_all = limber_fft.p_lattice_halo_all(cosmo, self.halo_params,
+                                              model, st)
+        rows = [(self.win_g, self.win_g, p_all[self.power_spec], [0])]
+        if self.include_lensing:
+            rows.append((self.win_k, self.win_g, p_all["power_gm"], [1]))
+        outs = _fused_probe_rows(cosmo, st, model.mass.growth, rows,
+                                 self.operator)
+        out = {"theta_deg": self.theta_deg, "n_g": model.n_g,
+               "w_theta": outs[0][0]}
+        if self.include_lensing:
+            out["gamma_t"] = outs[1][0]
+        return out
+
+
+def _fused_probe_rows(cosmo, st, piv, rows, operator):
+    """ONE grouped lattice convolution for all probe rows, then one
+    compensated contraction (kernel C) per distinct operator over every
+    row requesting it.  ``rows``: (win_a, win_b, p_row (B, n_k), [op
+    index, ...]); ``operator(i)`` -> (j_lo, j_hi, a_hi, a_lo).  Returns,
+    per row, the list of (B, n_theta) outputs matching its requests."""
+    ops = {i: operator(i) for _wa, _wb, _p, specs in rows for i in specs}
+    j_lo = min(o[0] for o in ops.values())
+    j_hi = max(o[1] for o in ops.values())
+    g_rows = limber_fft._lattice_g_rows(
+        cosmo, [(wa, wb) for wa, wb, _p, _s in rows], st, piv)
+    p_rows = torch.stack([p for _wa, _wb, p, _s in rows], dim=1)
+    conv = limber_fft._conv_direct_rows(p_rows, g_rows, j_lo, j_hi)
+    by_op = {}
+    for r, row in enumerate(rows):
+        for spec in row[3]:
+            by_op.setdefault(spec, []).append(r)
+    res = {}
+    b = conv.shape[0]
+    for spec, rlist in by_op.items():
+        lo, hi, a_hi, a_lo = ops[spec]
+        sub = conv[:, rlist, lo - j_lo:hi - j_lo]
+        vals = df_contract(sub.reshape(b * len(rlist), hi - lo).contiguous(),
+                           a_hi, a_lo).reshape(b, len(rlist), -1)
+        for i, r in enumerate(rlist):
+            res[(r, spec)] = vals[:, i]
+    return [[res[(r, spec)] for spec in row[3]] for r, row in enumerate(rows)]

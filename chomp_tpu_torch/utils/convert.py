@@ -1,0 +1,59 @@
+"""Conversion of parameters between the JAX package and the port.
+
+The inputs are any objects (or mappings) carrying the JAX package's
+field names with array-like values — a JAX-package pytree dataclass
+works as is, since ``np.asarray`` reads its leaves — so this module
+needs no jax.  :func:`to_numpy` goes the other way, to a dict of numpy
+arrays that the JAX package's constructors accept as keywords.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from chomp_tpu_torch.hod import HODZheng
+from chomp_tpu_torch.params import CosmoParams, HaloParams
+from chomp_tpu_torch.projection import DNdzGaussian
+
+
+def _get(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def _convert(cls, src, device, dtype):
+    return cls(**{f.name: torch.as_tensor(np.array(_get(src, f.name),
+                                                   dtype=np.float64),
+                                          dtype=dtype, device=device)
+                  for f in dataclasses.fields(cls)})
+
+
+def cosmo_params(src, *, device, dtype) -> CosmoParams:
+    """CosmoParams (all 14 leaves) from a JAX-package CosmoParams."""
+    return _convert(CosmoParams, src, device, dtype)
+
+
+def cosmo_batch(src, *, device, dtype) -> CosmoParams:
+    """A cosmology batch: every field broadcast to one ``(B,)`` shape."""
+    return cosmo_params(src, device=device, dtype=dtype).batched()
+
+
+def halo_params(src, *, device, dtype) -> HaloParams:
+    return _convert(HaloParams, src, device, dtype)
+
+
+def hod_zheng(src, *, device, dtype) -> HODZheng:
+    return _convert(HODZheng, src, device, dtype)
+
+
+def dndz_gaussian(src, *, device, dtype) -> DNdzGaussian:
+    return _convert(DNdzGaussian, src, device, dtype)
+
+
+def to_numpy(params) -> dict:
+    """Field name -> float64 numpy array, for any of the port's
+    parameter dataclasses."""
+    return {f.name: getattr(params, f.name).detach().cpu().numpy().astype(
+        np.float64) for f in dataclasses.fields(params)}
