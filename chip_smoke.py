@@ -20,16 +20,33 @@ order (any failure exits nonzero; nothing falls back):
    against float64);
 4. the lattice convolution (float32 in and out, float64 accumulation)
    on the pipeline's own rows against float64 (1e-6), and its time;
-5. the slice: bench.py configuration A on 512 cosmologies in float32
-   through both kernels; launch counts, finiteness, worst-bin error
+5. the lattice slice: bench.py configuration A (``method="fft"``) on
+   512 cosmologies in float32 through kernels A and C; launch counts, finiteness, worst-bin error
    < 1e-4 against the port's float64 plain path on the card (8
    cosmologies) and against the committed JAX float64 values
    (tests/data/torch_slice_reference.json); in float64 the card's
    kernels against its plain path (1e-12) and the plain path against
-   the JAX values (1e-10); and the median wall time of 5 repetitions.
+   the JAX values (1e-10); and the median wall time of 5 repetitions;
+6. kernel B (hankel_matmul) on the table route's own C_ell rows of the
+   512 cosmologies against its plain version (float64 to 1e-12 of each
+   row's peak; float32 to 2e-5 per element) and, in float32, against
+   the exact float64 product of the same inputs (no worse than 2x the
+   float32 ``torch.matmul``), with the kernel's, plain and library times;
+7. the table slice: the same configuration with ``method="table"`` on
+   512 cosmologies in float32; one launch of kernel A and two of kernel
+   B; finiteness; worst bin < 1e-4 against the card's float64 plain path
+   and the committed JAX float64 values
+   (tests/data/torch_table_reference.json); float64 kernels vs plain
+   path (1e-12) and plain path vs JAX (1e-10); the float64 table route
+   against phase 5's float64 lattice route (3e-5, or 2x the JAX
+   package's own gap at DEFAULT_GRID where that is larger); peak device
+   memory and the median wall time of 5 repetitions.
 
-The last lines are the card (``nvidia-smi``), the kernels' JSON record
-and ``{"ok": true, "device": {...}}``.
+Each main path (phases 5 and 7) runs with every launch count set to 0
+just before it and read just after.  The last lines are the card
+(``nvidia-smi``), the kernels' JSON record (times, launches, and the
+least time the card could take, from the H100 SXM's published 67 TFLOP/s
+FP32 and 3.35 TB/s) and ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -44,6 +61,8 @@ import numpy as np
 N_COSMO = 512
 N_CHECK = 8
 REPO = Path(__file__).resolve().parent
+FP32_FLOPS = 67e12   # H100 SXM, FP32 outside the tensor cores
+HBM_BYTES = 3.35e12  # H100 SXM, device memory
 
 
 def fail(msg):
@@ -85,21 +104,76 @@ def worst_bin(got, ref):
     return float(np.max(np.abs(np.asarray(got) / np.asarray(ref) - 1.0)))
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the FP32 operation time and
+    the device-memory time of the work."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def halo_contract_flops(k, mat, gal, lens):
+    """Floating-point operations kernel A does on these inputs, counted
+    from csrc/halo_contract.cu per evaluation branch (series x <= 4,
+    Chebyshev x <= 16 and x <= 64, asymptotic beyond; sincos and log as
+    one operation each), for the branch each (cosmology, k, node) takes.
+    The double-precision accumulations are counted at the FP32 rate, so
+    the bound stays a lower one."""
+    import torch
+
+    afm, ag, bfm, bg, series, g_asym = lens
+
+    def aux(x, cheb_lo, cheb_hi, tail, fm):
+        return torch.where(
+            x <= 4, 4 * series + (12 if fm else 10), torch.where(
+                x <= 16, 4 * cheb_lo + (4 if fm else 5), torch.where(
+                    x <= 64, 4 * cheb_hi + (4 if fm else 5), tail)))
+
+    def profile(x, c):
+        b = (1.0 + c) * x
+        return (9 + aux(x, ag, bg, 2 * g_asym + 3, False)
+                + aux(b, afm, bfm, 16, True) + aux(b, ag, bg, 2 * g_asym + 3,
+                                                   False))
+
+    total = 0.0
+    for i in range(0, k.numel(), 64):
+        kk = k[i:i + 64][None, :, None]
+        total += float(profile(kk * mat[:, None, :, 0],
+                               mat[:, None, :, 1]).double().sum()
+                       + 6 * mat.shape[0] * kk.numel() * mat.shape[1])
+        total += float((profile(kk * gal[:, None, :, 0], gal[:, None, :, 1])
+                        + profile(kk * gal[:, None, :, 2],
+                                  gal[:, None, :, 3])).double().sum()
+                       + 14 * gal.shape[0] * kk.numel() * gal.shape[1])
+    return total
+
+
+def max_rel(got, ref):
+    """max over elements of |got - ref| / |ref|."""
+    return float(((got - ref).abs() / ref.abs()).max())
+
+
+def row_peak_rel(got, ref):
+    """max over rows of max|got - ref| / max|ref| (axis 1 = columns)."""
+    return float(((got - ref).abs().amax(1) / ref.abs().amax(1)).max())
+
+
 @contextlib.contextmanager
 def plain_path():
     """Route the slice through the kernels' plain versions."""
     from chomp_tpu_torch import halo
-    from chomp_tpu_torch.ops import df32, halo_contract
+    from chomp_tpu_torch.ops import df32, halo_contract, hankel_matmul
     from chomp_tpu_torch.parallel import sweep
 
-    saved = halo.halo_contract, sweep.df_contract
+    saved = halo.halo_contract, sweep.df_contract, sweep.hankel_matmul
     halo.halo_contract = lambda k, mat, gal, cheb: \
         halo_contract.halo_contract_ref(k, mat, gal)
     sweep.df_contract = df32.df_contract_ref
+    sweep.hankel_matmul = hankel_matmul.hankel_matmul_ref
     try:
         yield
     finally:
-        halo.halo_contract, sweep.df_contract = saved
+        halo.halo_contract, sweep.df_contract, sweep.hankel_matmul = saved
 
 
 def main():
@@ -113,6 +187,7 @@ def main():
                                  default_hod, halo, limber_fft, projection)
     from chomp_tpu_torch.grids import Statics
     from chomp_tpu_torch.ops import build, df32, halo_contract as hc
+    from chomp_tpu_torch.ops import hankel_matmul as hm
     from chomp_tpu_torch.params import DEFAULT_GRID
     from chomp_tpu_torch.parallel.sweep import broadcast_cosmo, make_pipeline
 
@@ -124,12 +199,14 @@ def main():
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    for name in ("halo_contract", "df_contract"):
-        path, log = build.build(name)
+    builds = build.build_all(["halo_contract", "df_contract",
+                              "hankel_matmul"])
+    for name, (path, log) in builds.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: {path.name} | {' ; '.join(regs)}",
               flush=True)
-    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] {time.perf_counter() - t0:.1f} s (in parallel)",
+          flush=True)
 
     oms = np.linspace(0.24, 0.32, N_COSMO)
     s8s = np.linspace(0.75, 0.88, N_COSMO)
@@ -172,12 +249,16 @@ def main():
     ms_a = cuda_ms(lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb),
                    10)
     plain_ms_a = cuda_ms(lambda: hc.halo_contract_ref(k32, mat32, gal32), 3)
+    bound_a = bound(
+        halo_contract_flops(k32, mat32, gal32, hc._lens(f32)),
+        4 * (k32.numel() + mat32.numel() + gal32.numel()
+             + st32.cheb.numel() + got32.numel()))
     print(f"[halo_contract] B={N_COSMO} NK={k32.numel()} "
           f"NM={mat32.shape[1]} NG={gal32.shape[1]} | f64 rel_to_peak="
           f"{err_a64:.3e} (8 cosmologies, gate 1e-12) | f32 rel_to_peak="
           f"{err_a32:.3e} max_abs={abs_a32:.3e} (gate 2e-6) | kernel "
-          f"{ms_a:.3f} ms, plain {plain_ms_a:.3f} ms (f32, median)",
-          flush=True)
+          f"{ms_a:.3f} ms, plain {plain_ms_a:.3f} ms (f32, median) | bound "
+          f"{bound_a[0]:.4f} ms by {bound_a[1]}", flush=True)
     if not err_a64 <= 1e-12:
         fail(f"halo_contract float64 error {err_a64}")
     if not err_a32 <= 2e-6:
@@ -224,13 +305,22 @@ def main():
     hostile_plain = worst_bin(plain32[0].double().cpu().numpy(), h_ref)
     ms_c = cuda_ms(lambda: df32.df_contract(c32, a_hi, a_lo), 20)
     plain_ms_c = cuda_ms(lambda: df32.df_contract_ref(c32, a_hi, a_lo), 5)
+    c32_as64 = c32.double()
+    lib_ms_c = cuda_ms(lambda: c32_as64 @ a64.T, 20)
+    # Per term: the product, its exact error, the lo term and a two-float
+    # addition (13 flops); each input read once, the output written once.
+    bound_c = bound(13.0 * c32.numel() * a_hi.shape[0],
+                    4 * (c32.numel() + a_hi.numel() + a_lo.numel()
+                         + c32.shape[0] * a_hi.shape[0]))
     print(f"[df_contract] ({N_COSMO}, {j_hi - j_lo}) x ({a_np.shape[0]}, "
           f"{j_hi - j_lo}) | f64 rel_to_peak={err_c64:.3e} (gate 1e-12) | "
           f"f32 vs plain rel_to_peak={rel_c32:.3e} max_abs={abs_c32:.3e} "
           f"(gate 1e-6) | f32 vs exact rel_to_peak={err_c32:.3e} (gate "
           f"1e-7) | hostile f32 worst={hostile:.3e} (gate 5e-6; plain f32 "
           f"matmul {hostile_plain:.3e}) | kernel {ms_c:.4f} ms, plain "
-          f"{plain_ms_c:.4f} ms (f32, median)", flush=True)
+          f"{plain_ms_c:.4f} ms, library (f64 matmul) {lib_ms_c:.4f} ms "
+          f"(f32, median) | bound {bound_c[0]:.4f} ms by {bound_c[1]}",
+          flush=True)
     if not err_c64 <= 1e-12:
         fail(f"df_contract float64 error {err_c64}")
     if not rel_c32 <= 1e-6:
@@ -273,12 +363,14 @@ def main():
     pipe = make_pipeline(hp, hod, dist, power_spec="power_gg",
                          grid=DEFAULT_GRID, include_lensing=True,
                          z_pivot=1.0, device=dev, dtype=f32)
-    hc.halo_contract.launches = 0
-    df32.df_contract.launches = 0
+    kernels_of = {"halo_contract": hc.halo_contract,
+                  "df_contract": df32.df_contract,
+                  "hankel_matmul": hm.hankel_matmul}
+    for fn in kernels_of.values():
+        fn.launches = 0
     out = pipe(batch)
     torch.cuda.synchronize()
-    launches = {"halo_contract": hc.halo_contract.launches,
-                "df_contract": df32.df_contract.launches}
+    launches = {name: fn.launches for name, fn in kernels_of.items()}
     w32 = out["w_theta"].double().cpu().numpy()
     g32 = out["gamma_t"].double().cpu().numpy()
     finite = bool(np.all(np.isfinite(w32)) and np.all(np.isfinite(g32)))
@@ -332,7 +424,7 @@ def main():
           f"({wall / N_COSMO * 1e3:.4f} ms/cosmology)", flush=True)
     if not (finite and shape_ok):
         fail("slice outputs not finite or of the wrong shape")
-    if min(launches.values()) <= 0:
+    if launches["halo_contract"] <= 0 or launches["df_contract"] <= 0:
         fail(f"a kernel of the main path was not launched: {launches}")
     if not err_plain < 1e-4:
         fail(f"slice float32 vs float64 plain path: {err_plain}")
@@ -344,17 +436,155 @@ def main():
         fail(f"slice float64 plain path vs JAX float64 reference: "
              f"{err_jax64}")
 
+    # -- 6. kernel B ----------------------------------------------------
+    # The table route's own C_ell rows (w: gg, gamma_t: kappa-g) of the
+    # 512 cosmologies, float32, with the route's operators.
+    pipe_t = make_pipeline(hp, hod, dist, power_spec="power_gg",
+                           grid=DEFAULT_GRID, include_lensing=True,
+                           z_pivot=1.0, method="table", device=dev,
+                           dtype=f32)
+    cosmo_t, model_t = pipe_t.halo_model(batch)
+    tabs = projection.power_tables_halo(cosmo_t, pipe_t.halo_params, model_t,
+                                        ("power_gg", "power_gm"), pipe_t.st)
+    pairs = [(pipe_t.win_g, pipe_t.win_g, "power_gg", pipe_t.op0_t),
+             (pipe_t.win_k, pipe_t.win_g, "power_gm", pipe_t.op1_t)]
+    err_b64 = err_b32 = abs_b32 = err_b_exact = err_lib_exact = 0.0
+    for wa, wb, kind, op_t in pairs:
+        cl = projection.limber_cl(cosmo_t, wa, wb, pipe_t.ells, tabs[kind],
+                                  pipe_t.st).contiguous()
+        got = hm.hankel_matmul(cl, op_t)
+        plain = hm.hankel_matmul_ref(cl, op_t)
+        exact = cl.double() @ op_t.double()
+        err_b32 = max(err_b32, max_rel(got, plain))
+        abs_b32 = max(abs_b32, float((got - plain).abs().max()))
+        err_b_exact = max(err_b_exact, max_rel(got.double(), exact))
+        err_lib_exact = max(err_lib_exact, max_rel(plain.double(), exact))
+        cl64, op64 = cl.double(), op_t.double()
+        err_b64 = max(err_b64, row_peak_rel(hm.hankel_matmul(cl64, op64),
+                                            hm.hankel_matmul_ref(cl64, op64)))
+    cl_b, op_b = cl, op_t
+    ms_b = cuda_ms(lambda: hm.hankel_matmul(cl_b, op_b), 50)
+    plain_ms_b = cuda_ms(lambda: hm.hankel_matmul_ref(cl_b, op_b), 50)
+    lib_ms_b = cuda_ms(lambda: torch.matmul(cl_b, op_b), 50)
+    r, n = cl_b.shape
+    t = op_b.shape[1]
+    bound_b = bound(2.0 * r * n * t, 4 * (r * n + n * t + r * t))
+    print(f"[hankel_matmul] ({r}, {n}) @ ({n}, {t}), the table route's C_ell "
+          f"rows (w and gamma_t) | f64 rel_to_row_peak={err_b64:.3e} (gate "
+          f"1e-12) | f32 vs plain max rel={err_b32:.3e} max_abs="
+          f"{abs_b32:.3e} (gate 2e-5) | f32 vs exact f64 product max rel="
+          f"{err_b_exact:.3e}, torch.matmul f32 {err_lib_exact:.3e} (gate "
+          f"2x) | kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, library "
+          f"{lib_ms_b:.4f} ms (f32, median) | bound {bound_b[0]:.5f} ms by "
+          f"{bound_b[1]}", flush=True)
+    if not err_b64 <= 1e-12:
+        fail(f"hankel_matmul float64 error {err_b64}")
+    if not err_b32 <= 2e-5:
+        fail(f"hankel_matmul float32 vs its plain version: {err_b32}")
+    if not err_b_exact <= 2.0 * err_lib_exact:
+        fail(f"hankel_matmul float32 vs the exact product: {err_b_exact} "
+             f"(torch.matmul: {err_lib_exact})")
+    del tabs, cosmo_t, model_t
+
+    # -- 7. the table slice ---------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels_of.values():
+        fn.launches = 0
+    out_t = pipe_t(batch)
+    torch.cuda.synchronize()
+    launches_t = {name: fn.launches for name, fn in kernels_of.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wt32 = out_t["w_theta"].double().cpu().numpy()
+    gt32 = out_t["gamma_t"].double().cpu().numpy()
+    finite_t = bool(np.all(np.isfinite(wt32)) and np.all(np.isfinite(gt32)))
+    shape_t = wt32.shape == gt32.shape == (N_COSMO, DEFAULT_GRID.n_theta)
+
+    pipe_t64 = make_pipeline(hp64, hod64, dist64, power_spec="power_gg",
+                             grid=DEFAULT_GRID, include_lensing=True,
+                             z_pivot=1.0, method="table", device=dev,
+                             dtype=f64)
+    with plain_path():
+        out_t64 = pipe_t64(batch64)
+    wt64 = out_t64["w_theta"].cpu().numpy()
+    gt64 = out_t64["gamma_t"].cpu().numpy()
+    err_t_plain = max(worst_bin(wt32[check], wt64),
+                      worst_bin(gt32[check], gt64))
+    out_t64k = pipe_t64(batch64)
+    err_t_k64 = max(worst_bin(out_t64k["w_theta"].cpu().numpy(), wt64),
+                    worst_bin(out_t64k["gamma_t"].cpu().numpy(), gt64))
+    cross = max(worst_bin(wt64, w64), worst_bin(gt64, g64))
+
+    ref_t = json.loads((REPO / "tests" / "data"
+                        / "torch_table_reference.json").read_text())
+    if ref_t["indices"] != ref["indices"] or \
+            not np.allclose(ref_t["omega_m0"], oms[idx]):
+        fail("table reference file does not match this run's cosmologies")
+    err_t_jax = max(worst_bin(wt32[idx], ref_t["w_theta"]),
+                    worst_bin(gt32[idx], ref_t["gamma_t"]))
+    err_t_jax64 = max(
+        worst_bin(wt64[both], np.asarray(ref_t["w_theta"])[jpos]),
+        worst_bin(gt64[both], np.asarray(ref_t["gamma_t"])[jpos]))
+    jax_cross = ref_t["jax_table_vs_lattice_worst_bin"]
+    cross_gate = max(3e-5, 2.0 * jax_cross)
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe_t(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_t = float(np.median(walls))
+    print(f"[table] bench config A with method='table', DEFAULT_GRID, B="
+          f"{N_COSMO}, float32 | launches {launches_t} | finite={finite_t} "
+          f"shape_ok={shape_t} | worst bin vs card f64 plain path="
+          f"{err_t_plain:.3e} (8 cosmologies, gate 1e-4) | vs JAX f64 "
+          f"reference={err_t_jax:.3e} (3 cosmologies, gate 1e-4; JAX's own "
+          f"f32 table route: {ref_t['jax_f32_vs_f64_worst_bin']:.3e}) | card "
+          f"f64 plain vs JAX f64={err_t_jax64:.3e} (gate 1e-10) | card f64 "
+          f"kernels vs f64 plain={err_t_k64:.3e} (gate 1e-12) | f64 table vs "
+          f"lattice route={cross:.3e} (gate {cross_gate:.3e}; JAX at "
+          f"DEFAULT_GRID {jax_cross:.3e}) | peak device memory "
+          f"{peak_gb:.2f} GB | wall median of 5 = {wall_t * 1e3:.1f} ms "
+          f"({wall_t / N_COSMO * 1e3:.4f} ms/cosmology)", flush=True)
+    if not (finite_t and shape_t):
+        fail("table outputs not finite or of the wrong shape")
+    if launches_t["halo_contract"] != 1 or launches_t["hankel_matmul"] != 2:
+        fail(f"table route launches {launches_t}: want halo_contract 1 and "
+             f"hankel_matmul 2")
+    if not err_t_plain < 1e-4:
+        fail(f"table float32 vs float64 plain path: {err_t_plain}")
+    if not err_t_jax < 1e-4:
+        fail(f"table float32 vs JAX float64 reference: {err_t_jax}")
+    if not err_t_k64 <= 1e-12:
+        fail(f"table float64 through the kernels vs plain path: {err_t_k64}")
+    if not err_t_jax64 <= 1e-10:
+        fail(f"table float64 plain path vs JAX float64 reference: "
+             f"{err_t_jax64}")
+    if not cross < cross_gate:
+        fail(f"table vs lattice route in float64: {cross}")
+
+    paths = {"lattice": launches, "table": launches_t}
+
+    def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms):
+        by_path = {p: c[name] for p, c in paths.items()}
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     kernels = [
-        {"name": "halo_contract", "route": "cuda",
-         "source": "chomp_tpu_torch/csrc/halo_contract.cu",
-         "replaces": "chomp_tpu/ops/halo_pallas.py:77",
-         "launches": launches["halo_contract"], "max_abs_err": abs_a32,
-         "ms": ms_a, "plain_ms": plain_ms_a},
-        {"name": "df_contract", "route": "cuda",
-         "source": "chomp_tpu_torch/csrc/df_contract.cu",
-         "replaces": "chomp_tpu/ops/df32.py:94",
-         "launches": launches["df_contract"], "max_abs_err": abs_c32,
-         "ms": ms_c, "plain_ms": plain_ms_c},
+        record("halo_contract", "chomp_tpu_torch/csrc/halo_contract.cu",
+               "chomp_tpu/ops/halo_pallas.py:77", abs_a32, ms_a, plain_ms_a,
+               bound_a, None),
+        record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
+               "chomp_tpu/ops/df32.py:94", abs_c32, ms_c, plain_ms_c,
+               bound_c, lib_ms_c),
+        record("hankel_matmul", "chomp_tpu_torch/csrc/hankel_matmul.cu",
+               "chomp_tpu/ops/fftlog_pallas.py:47", abs_b32, ms_b,
+               plain_ms_b, bound_b, lib_ms_b),
     ]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,13 @@
 """chomp_tpu_torch: the PyTorch + CUDA port of the JAX package.
 
-The first slice is the separable-growth, flat-sky w(theta) + gamma_t
-pipeline (``parallel.sweep.make_pipeline``), with hand-written CUDA
-kernels for the halo-model mass contraction (``ops.halo_contract``) and
-the compensated operator contraction (``ops.df32``).  The package
+The port so far is the separable-growth, flat-sky w(theta) + gamma_t
+pipeline (``parallel.sweep.make_pipeline``) on both of its routes: the
+lattice route (``method="fft"``) and the GL + cubic-table route
+(``method="table"``, with ``correlation``'s public surface).  Three
+hand-written CUDA kernels carry them: the halo-model mass contraction
+(``ops.halo_contract``), the compensated operator contraction
+(``ops.df32``) and the Hankel-operator product (``ops.hankel_matmul``).
+The package
 imports torch and numpy only; the JAX package beside it is its reference
 in the tests.
 """

@@ -4,8 +4,9 @@ Copy of the numpy half of the JAX package's ``fftlog.py`` (the JAX
 module imports jax): Hamilton 2000's log-convolution Hankel transform
 collapsed into one dense real operator by pushing the identity through
 the FFT pipeline.
-The port applies it only inside the composed lattice operator
-(``limber_fft.wtheta_lattice_operator``).
+The port applies it through ``correlation.wtheta_operator`` and the
+composed operators built on it (``correlation.wtheta_bins_operator``,
+``limber_fft.wtheta_lattice_operator``).
 """
 
 from __future__ import annotations

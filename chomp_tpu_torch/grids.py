@@ -2,7 +2,8 @@
 
 PyTorch counterpart of the JAX package's ``grids.py``.  The node builders are
 float64 numpy (copied: the JAX module imports jax); :func:`gl_integrate`
-is the batched torch contraction; :class:`Statics` holds every static
+is the batched torch contraction and :func:`interp_loglog_cubic` the
+batched table lookup; :class:`Statics` holds every static
 numpy table of one :class:`~chomp_tpu_torch.params.GridSpec` as module
 buffers on one device and dtype, so the pipeline converts them once.
 """
@@ -44,6 +45,44 @@ def gl_composite(a: float, b: float, panels: int, n: int):
     return np.concatenate(xs), np.concatenate(ws)
 
 
+def loggrid(lo: float, hi: float, n: int):
+    """Uniform grid in ln x over [lo, hi] (numpy float64): (ln_x, dln)."""
+    ln = np.linspace(np.log(lo), np.log(hi), n)
+    return ln, float(ln[1] - ln[0])
+
+
+def interp_loglog_cubic(ln_xq, ln_x0, dln, ln_yg):
+    """Catmull-Rom cubic of ln y on a uniform ln x grid, with linear
+    (power-law) extrapolation from the end slopes outside the grid.
+
+    Batched form of the JAX function (written there for one table under
+    ``vmap``): ``ln_yg`` (B|1, n) holds one table per row and ``ln_xq``
+    (B|1, ...) that row's queries; the result has the broadcast shape
+    (B, ...).  ``ln_x0`` and ``dln`` are scalars (floats or 0-d
+    tensors)."""
+    n = ln_yg.shape[-1]
+    rows = max(ln_yg.shape[0], ln_xq.shape[0])
+    shape = (rows,) + tuple(ln_xq.shape[1:])
+    t_all = ((ln_xq - ln_x0) / dln).expand(shape).reshape(rows, -1)
+    table = ln_yg.expand(rows, n)
+    # Interior Catmull-Rom on the clamped index: the four stencil taps.
+    i = torch.clamp(torch.floor(t_all).long(), 1, n - 3)
+    t = t_all - i.to(t_all.dtype)
+    ym1 = torch.gather(table, 1, i - 1)
+    y0 = torch.gather(table, 1, i)
+    y1 = torch.gather(table, 1, i + 1)
+    y2 = torch.gather(table, 1, i + 2)
+    a1 = 0.5 * (y1 - ym1)
+    a2 = ym1 - 2.5 * y0 + 2.0 * y1 - 0.5 * y2
+    a3 = 0.5 * (y2 - ym1) + 1.5 * (y0 - y1)
+    out = y0 + t * (a1 + t * (a2 + t * a3))
+    lo = table[:, :1] + (table[:, 1:2] - table[:, :1]) * t_all
+    hi = table[:, -1:] + (table[:, -1:] - table[:, -2:-1]) * (t_all - (n - 1))
+    out = torch.where(t_all < 0.0, lo, out)
+    out = torch.where(t_all > n - 1.0, hi, out)
+    return out.reshape(shape)
+
+
 def catmull_rom_weights_np(n: int, t):
     """(len(t), n) Catmull-Rom weight matrix on a UNIFORM grid (numpy):
     row q interpolates grid values at fractional index t[q], with the
@@ -73,9 +112,11 @@ def gl_integrate(f, a, b, x: torch.Tensor, w: torch.Tensor):
 class Statics(nn.Module):
     """Every static table of one grid as buffers on one device and dtype:
     GL rules, the mass and sigma(R) nodes, the Limber lattices with their
-    fiducial Newton seeds, and the Chebyshev table of halo_contract.
+    fiducial Newton seeds, the Chebyshev table of halo_contract and the k
+    nodes of the ln P tables (``k_table``).
 
-    ``gl(n)`` adds a GL rule the first time an order is asked for."""
+    ``gl(n)`` and ``gl_unit(n)`` add a GL rule the first time an order is
+    asked for."""
 
     def __init__(self, grid, device=None, dtype=torch.float64):
         super().__init__()
@@ -107,6 +148,10 @@ class Statics(nn.Module):
                              t(limber_fft._fiducial_z_seed(key, mid=True)),
                              persistent=False)
         self.register_buffer("cheb", t(cheb_table()), persistent=False)
+        ln_k_table, _ = loggrid(grid.k_table_min, grid.k_table_max,
+                                grid.n_k_table)
+        self.register_buffer("k_table", t(np.exp(ln_k_table)),
+                             persistent=False)
 
     @property
     def device(self):
@@ -116,13 +161,20 @@ class Statics(nn.Module):
     def dtype(self):
         return self.ref.dtype
 
-    def gl(self, n: int):
-        """(x, w) GL rule of order ``n`` on [-1, 1]."""
-        name = f"gl{n}"
+    def _rule(self, name: str, make):
         if not hasattr(self, name + "_x"):
-            x, w = gauss_legendre(n)
+            x, w = make()
             self.register_buffer(name + "_x", self._t(x).to(self.ref),
                                  persistent=False)
             self.register_buffer(name + "_w", self._t(w).to(self.ref),
                                  persistent=False)
         return getattr(self, name + "_x"), getattr(self, name + "_w")
+
+    def gl(self, n: int):
+        """(x, w) GL rule of order ``n`` on [-1, 1]."""
+        return self._rule(f"gl{n}", lambda: gauss_legendre(n))
+
+    def gl_unit(self, n: int):
+        """(x, w) GL rule of order ``n`` mapped to [0, 1] in float64
+        before the cast (``gl_fixed(0, 1, n)``)."""
+        return self._rule(f"gl_unit{n}", lambda: gl_fixed(0.0, 1.0, n))

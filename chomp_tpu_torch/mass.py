@@ -20,13 +20,19 @@ from chomp_tpu_torch.params import CosmoParams, HaloParams, col
 
 
 def interp(x, xp, fp):
-    """Batched ``jnp.interp``: row b interpolates ``x[b]`` in the sorted
-    row ``xp[b]`` with values ``fp[b]`` (``fp`` may be one shared row).
-    Same searchsorted side, tie guard and end clamps as jnp.interp."""
+    """Batched ``jnp.interp``: row b interpolates its queries in the
+    sorted row ``xp[b]`` with values ``fp[b]``; ``xp`` and ``fp`` are
+    (B|1, n), one shared row broadcasting.  ``x`` is (B|1,), one query
+    per row (result (B,)), or (B|1, Q) (result (B, Q)).  Same
+    searchsorted side, tie guard and end clamps as jnp.interp."""
     n = xp.shape[-1]
-    fp = fp.expand_as(xp)
-    xq = x.reshape(-1, 1).expand(xp.shape[0], 1).contiguous()
-    i = torch.clamp(torch.searchsorted(xp.contiguous(), xq, right=True),
+    one = x.dim() < 2
+    xq = x.reshape(-1, 1) if one else x
+    rows = max(xp.shape[0], fp.shape[0], xq.shape[0])
+    xq = xq.expand(rows, xq.shape[1]).contiguous()
+    xp = xp.expand(rows, n).contiguous()
+    fp = fp.expand(rows, n)
+    i = torch.clamp(torch.searchsorted(xp, xq, right=True),
                     1, n - 1)
     x0, x1 = torch.gather(xp, 1, i - 1), torch.gather(xp, 1, i)
     f0, f1 = torch.gather(fp, 1, i - 1), torch.gather(fp, 1, i)
@@ -39,7 +45,7 @@ def interp(x, xp, fp):
     f = torch.where(dx0, f0, f0 + (delta / torch.where(dx0, 1.0, dx)) * df)
     f = torch.where(xq < xp[:, :1], fp[:, :1], f)
     f = torch.where(xq > xp[:, -1:], fp[:, -1:], f)
-    return f[:, 0]
+    return f[:, 0] if one else f
 
 
 @dataclasses.dataclass(frozen=True)

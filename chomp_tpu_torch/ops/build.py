@@ -43,21 +43,40 @@ def library_path(name: str) -> Path:
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` (if not built yet); returns the library
     path and nvcc's register/shared-memory report (``-Xptxas -v``)."""
-    out = library_path(name)
-    log = out.with_suffix(".log")
-    if out.exists():
-        return out, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {name}.cu "
-                           f"(rc {res.returncode}):\n{res.stderr}")
-    log.write_text(res.stderr)
-    os.replace(tmp, out)
-    return out, res.stderr
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """:func:`build` for several sources, one ``nvcc`` each, all started
+    together and then waited for.  A failed build raises, naming every
+    failure, once all compilers have ended."""
+    done, running = {}, {}
+    for name in names:
+        out = library_path(name)
+        log = out.with_suffix(".log")
+        if out.exists():
+            done[name] = out, log.read_text() if log.exists() else ""
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *ARCH, "-std=c++17", "-O3", "-Xptxas", "-v",
+               "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        running[name] = out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    failed = []
+    for name, (out, tmp, proc) in running.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {name}.cu (rc "
+                          f"{proc.returncode}):\n{err}")
+            continue
+        out.with_suffix(".log").write_text(err)
+        os.replace(tmp, out)
+        done[name] = out, err
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
 
 
 @lru_cache(maxsize=None)

@@ -1,15 +1,20 @@
-"""Batched w(theta) + gamma_t pipeline: the flat, separable-growth slice.
+"""Batched w(theta) + gamma_t pipelines: the flat, separable-growth routes.
 
 PyTorch counterpart of the JAX package's ``parallel/sweep.py``'s
-``broadcast_cosmo`` and ``make_pipeline`` (fused branch, flat geometry,
-sweep.py:343-406) with ``_fused_probe_rows`` (sweep.py:452-501).  The
-pipeline is an ``nn.Module`` whose forward takes a batch of cosmologies
+``broadcast_cosmo`` and ``make_pipeline``: the fused lattice branch
+(``method="fft"``, flat geometry, sweep.py:343-406, with
+``_fused_probe_rows`` sweep.py:452-501) and the GL + cubic-table branch
+(``method="table"``, sweep.py:303-306 and 407-411).  Each pipeline is an
+``nn.Module`` whose forward takes a batch of cosmologies
 (:class:`~chomp_tpu_torch.params.CosmoParams` with ``(B,)`` fields) in
 place of ``jit(vmap(fn))``:
 
-    halo model -> P_gg, P_gm on the k lattice (kernel A) -> lattice
-    window weights -> one grouped direct convolution -> one compensated
-    contraction per operator (kernel C) -> w(theta), gamma_t.
+    fft:   halo model -> P_gg, P_gm on the k lattice (kernel A) -> lattice
+           window weights -> one grouped direct convolution -> one
+           compensated contraction per operator (kernel C) -> w, gamma_t;
+    table: halo model -> P_gg, P_gm on the ln k table (kernel A) -> GL
+           Limber C_ell per probe -> one Hankel + theta-binning product
+           per probe (kernel B) -> w, gamma_t.
 
 The static numpy operators live in module buffers, on the device and in
 the dtype chosen at construction (float32 is the serving precision;
@@ -30,6 +35,7 @@ from torch import nn
 from chomp_tpu_torch import correlation, halo, limber_fft, projection
 from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.ops.df32 import df_contract, split_operator
+from chomp_tpu_torch.ops.hankel_matmul import hankel_matmul
 from chomp_tpu_torch.params import DEFAULT_GRID, CosmoParams, GridSpec
 
 
@@ -90,12 +96,14 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
                   include_cmb_lensing=False,
                   nonlimber_ell_switch: int | None = None,
                   nonlimber_rsd: bool = False, matter_power: str = "halo",
-                  *, device, dtype) -> "Pipeline":
+                  *, device, dtype) -> nn.Module:
     """The flagship program as an ``nn.Module``: ``pipe(cosmo)`` ->
     dict with ``theta_deg``, ``n_g`` (B,), ``w_theta`` and (with
     ``include_lensing``) ``gamma_t``, each (B, n_theta).  Same arguments
     as the JAX ``make_pipeline``, plus the explicit ``device`` and
-    ``dtype`` every buffer and output lives in."""
+    ``dtype`` every buffer and output lives in.  ``method="fft"`` builds
+    :class:`Pipeline` (the lattice route), ``method="table"``
+    :class:`TablePipeline` (the GL + cubic-table route)."""
     if geometry not in ("flat", "curved"):
         raise ValueError(f"geometry must be 'flat' or 'curved', got "
                          f"{geometry!r}")
@@ -108,9 +116,13 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
                           "power_mg", "power_gg"):
         raise ValueError(f"unknown power_spec {power_spec!r}")
     if method == "table":
-        _unported("method='table'",
-                  "queue 2, kernel B (hankel_matmul_pallas, with the "
-                  "method='table' route)")
+        # The JAX make_pipeline's own refusals (sweep.py:233-251).
+        if geometry == "curved":
+            raise ValueError("geometry='curved' requires method='fft'")
+        if nonlimber_ell_switch:
+            raise ValueError("nonlimber_ell_switch requires method='fft'")
+        if matter_power != "halo":
+            raise ValueError("matter_power overrides need method='fft'")
     if exact_z_anchors:
         _unported("exact_z_anchors", "queue 1, item 6 (exact-z slice)")
     options = (("include_shear", include_shear),
@@ -127,14 +139,16 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
         if on:
             _unported(name, "queue 1, item 7 (make_pipeline options)")
     _warn_if_separable_bias(dist, z_pivot)
-    return Pipeline(halo_params, hod, dist, power_spec, theta_deg, z_pivot,
-                    grid, include_lensing, device=device, dtype=dtype)
+    cls = Pipeline if method == "fft" else TablePipeline
+    return cls(halo_params, hod, dist, power_spec, theta_deg, z_pivot, grid,
+               include_lensing, device=device, dtype=dtype)
 
 
-class Pipeline(nn.Module):
-    """Separable-growth, flat-sky w(theta) (+ gamma_t) for a cosmology
-    batch (see :func:`make_pipeline`).  Device and dtype are fixed at
-    construction: build a second pipeline for another precision."""
+class _PipelineBase(nn.Module):
+    """What both routes share: the statics, the parameters, the windows
+    and the theta bins on one device and dtype, fixed at construction
+    (build a second pipeline for another precision), and the halo model
+    at the pivot redshift."""
 
     def __init__(self, halo_params, hod, dist, power_spec, theta_deg,
                  z_pivot, grid, include_lensing, *, device, dtype):
@@ -155,12 +169,37 @@ class Pipeline(nn.Module):
         theta_np = np.asarray(theta_deg, dtype=np.float64)
         self.register_buffer("theta_deg", torch.as_tensor(
             theta_np, dtype=dtype, device=device), persistent=False)
-        theta_key = tuple(theta_np.tolist())
+        self.theta_key = tuple(theta_np.tolist())
         self.mus = (0.0, 2.0) if include_lensing else (0.0,)
+
+    def halo_model(self, cosmo: CosmoParams):
+        """(the batch with (B,) fields, the halo model at z_pivot); a batch
+        of another dtype or device raises."""
+        st = self.st
+        cosmo = cosmo.batched()
+        if cosmo.omega_m0.dtype != st.dtype or \
+                cosmo.omega_m0.device != st.device:
+            raise ValueError(
+                f"cosmology batch is {cosmo.omega_m0.dtype} on "
+                f"{cosmo.omega_m0.device}; this pipeline runs {st.dtype} "
+                f"on {st.device}")
+        z = torch.full((1,), self.z_pivot, dtype=st.dtype, device=st.device)
+        return cosmo, halo.build_halo_model(cosmo, self.halo_params,
+                                            self.hod, z, st)
+
+
+class Pipeline(_PipelineBase):
+    """The lattice route (``method="fft"``): separable-growth, flat-sky
+    w(theta) (+ gamma_t) for a cosmology batch (see
+    :func:`make_pipeline`)."""
+
+    def __init__(self, *args, device, dtype):
+        super().__init__(*args, device=device, dtype=dtype)
+        grid = self.st.grid
         self.windows = []
         for i, mu in enumerate(self.mus):
             j_lo, j_hi, a = limber_fft.wtheta_lattice_operator(
-                theta_key, grid, mu)
+                self.theta_key, grid, mu)
             self.windows.append((j_lo, j_hi))
             if dtype == torch.float32:
                 hi, lo = split_operator(a)
@@ -181,16 +220,7 @@ class Pipeline(nn.Module):
 
     def forward(self, cosmo: CosmoParams) -> dict:
         st = self.st
-        cosmo = cosmo.batched()
-        if cosmo.omega_m0.dtype != st.dtype or \
-                cosmo.omega_m0.device != st.device:
-            raise ValueError(
-                f"cosmology batch is {cosmo.omega_m0.dtype} on "
-                f"{cosmo.omega_m0.device}; this pipeline runs {st.dtype} "
-                f"on {st.device}")
-        z = torch.full((1,), self.z_pivot, dtype=st.dtype, device=st.device)
-        model = halo.build_halo_model(cosmo, self.halo_params, self.hod, z,
-                                      st)
+        cosmo, model = self.halo_model(cosmo)
         p_all = limber_fft.p_lattice_halo_all(cosmo, self.halo_params,
                                               model, st)
         rows = [(self.win_g, self.win_g, p_all[self.power_spec], [0])]
@@ -202,6 +232,44 @@ class Pipeline(nn.Module):
                "w_theta": outs[0][0]}
         if self.include_lensing:
             out["gamma_t"] = outs[1][0]
+        return out
+
+
+class TablePipeline(_PipelineBase):
+    """The GL + cubic-table route (``method="table"``, the JAX
+    sweep.py:303-306): per probe, a ln P table on the static ln k grid,
+    the Gauss-Legendre Limber C_ell on the ell grid, and the fused Hankel
+    + theta-binning operator applied by kernel B (the ``"pallas"`` engine
+    of ``correlation.wtheta_from_cl_fused``, with the operators held as
+    buffers).  ``halo.powers`` runs once per forward for both probes."""
+
+    def __init__(self, *args, device, dtype):
+        super().__init__(*args, device=device, dtype=dtype)
+        grid = self.st.grid
+        self.register_buffer("ells", torch.as_tensor(
+            correlation.ell_grid(grid)[0], dtype=dtype, device=device),
+            persistent=False)
+        for i, mu in enumerate(self.mus):
+            op = correlation.wtheta_bins_operator(self.theta_key, grid, mu)
+            self.register_buffer(f"op{i}_t", torch.as_tensor(
+                op.T, dtype=dtype, device=device).contiguous(),
+                persistent=False)
+
+    def forward(self, cosmo: CosmoParams) -> dict:
+        st = self.st
+        cosmo, model = self.halo_model(cosmo)
+        kinds = (self.power_spec,) + (("power_gm",) if self.include_lensing
+                                      else ())
+        tables = projection.power_tables_halo(cosmo, self.halo_params, model,
+                                              kinds, st)
+        probes = [(self.win_g, self.win_g, self.power_spec, "w_theta")]
+        if self.include_lensing:
+            probes.append((self.win_k, self.win_g, "power_gm", "gamma_t"))
+        out = {"theta_deg": self.theta_deg, "n_g": model.n_g}
+        for i, (wa, wb, kind, key) in enumerate(probes):
+            cl = projection.limber_cl(cosmo, wa, wb, self.ells, tables[kind],
+                                      st)
+            out[key] = hankel_matmul(cl, getattr(self, f"op{i}_t"))
         return out
 
 

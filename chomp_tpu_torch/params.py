@@ -58,6 +58,13 @@ class _Params:
         return dataclasses.replace(self, **{
             k: col(v, nd) for k, v in self.fields().items()})
 
+    def rows(self, lo: int, hi: int):
+        """Batch rows ``lo:hi``: every field with a batch axis longer
+        than 1 is sliced; 0-d and length-1 fields broadcast as before."""
+        return dataclasses.replace(self, **{
+            k: v[lo:hi] if v.dim() and v.shape[0] > 1 else v
+            for k, v in self.fields().items()})
+
 
 @dataclasses.dataclass(frozen=True)
 class CosmoParams(_Params):

@@ -1,9 +1,12 @@
-"""Redshift distributions and radial windows.
+"""Redshift distributions, radial windows, power tables and Limber C_ell.
 
-PyTorch counterpart of the slice's part of the JAX package's ``projection.py``:
-the Gaussian dN/dz, its normalization, and the galaxy and convergence
-windows.  The convergence window is evaluated only on the Limber lattice
-(cumulative Simpson, ``limber_fft._window_on_lattice``).
+PyTorch counterpart of the JAX package's ``projection.py`` on the port's
+paths: the Gaussian dN/dz, its normalization, the galaxy and convergence
+windows (the convergence window's nested-GL form here; the lattice route
+evaluates it by cumulative Simpson in ``limber_fft._window_on_lattice``),
+the window-weighted mean redshift, the ln P tables on the static ln k
+grid and the Gauss-Legendre Limber integral of the ``method="table"``
+route.  Arrays carry the cosmology batch as their first axis.
 """
 
 from __future__ import annotations
@@ -12,9 +15,14 @@ import dataclasses
 
 import torch
 
-from chomp_tpu_torch import background
-from chomp_tpu_torch.grids import gl_integrate
+from chomp_tpu_torch import background, linear
+from chomp_tpu_torch.grids import gl_integrate, interp_loglog_cubic, loggrid
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams, _Params, col
+
+#: Elements of the (B, N, n_z_lens, n_dist) integrand of the nested
+#: convergence window evaluated at once: the cosmology axis is cut into
+#: chunks of at most this size (0.5 GB per float32 temporary).
+NESTED_CHUNK_ELEMENTS = 1 << 27
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +60,9 @@ class WindowGalaxy:
 
     dist: object
 
+    def support(self):
+        return self.dist.z_min, self.dist.z_max
+
     def window_z(self, cosmo: CosmoParams, z, st):
         return dndz(self.dist, z, st) * background.ez(cosmo, z) / C_OVER_H0
 
@@ -59,6 +70,142 @@ class WindowGalaxy:
 @dataclasses.dataclass(frozen=True)
 class WindowConvergence:
     """Lensing efficiency W_kappa(chi) = (3/2) Omega_m (H0/c)^2 (1+z) chi
-    ∫_z^{z_max} dz' p(z') (chi'-chi)/chi' (evaluated on the lattice)."""
+    ∫_z^{z_max} dz' p(z') (chi'-chi)/chi'."""
 
     dist: object
+
+    def support(self):
+        return torch.zeros_like(self.dist.z_min), self.dist.z_max
+
+    def window_z(self, cosmo: CosmoParams, z, st):
+        """Nested GL (n_z_lens outer nodes, each chi' by n_dist nodes) at
+        ``z`` (B|1, N) -> (B, N), as the JAX form.  The integrand is
+        (B, N, n_z_lens, n_dist), so the cosmology axis is evaluated in
+        chunks of at most NESTED_CHUNK_ELEMENTS."""
+        g = st.grid
+        per_cosmo = z[0].numel() * g.n_z_lens * g.n_dist
+        step = max(1, NESTED_CHUNK_ELEMENTS // per_cosmo)
+        b = max(cosmo.batch, z.shape[0])
+        if b <= step:
+            return self._window_z(cosmo, z, st)
+        return torch.cat([
+            WindowConvergence(self.dist.rows(lo, lo + step))._window_z(
+                cosmo.rows(lo, lo + step),
+                z[lo:lo + step] if z.shape[0] > 1 else z, st)
+            for lo in range(0, b, step)])
+
+    def _window_z(self, cosmo, z, st):
+        g = st.grid
+        nd = z.dim() - 1
+        chi = background.comoving_distance(cosmo, z, st, g.n_dist)
+
+        def efficiency(zp):
+            chip = background.comoving_distance(cosmo, zp, st, g.n_dist)
+            p = dndz(self.dist, zp, st)
+            return p * (chip - chi[..., None]) / torch.clamp_min(chip, 1e-12)
+
+        x, w = st.gl(g.n_z_lens)
+        integral = gl_integrate(efficiency, z, col(self.dist.z_max, nd), x, w)
+        pref = col(1.5 * cosmo.omega_m0 / C_OVER_H0**2, nd)
+        return pref * (1.0 + z) * chi * integral
+
+
+def _limits(win_a, win_b, top):
+    """The shared integration range of two windows, (B|1, 1) each: lower
+    end the larger lower support (at least 1e-4), upper end ``top`` of
+    the upper supports."""
+    lo_a, hi_a = win_a.support()
+    lo_b, hi_b = win_b.support()
+    lo = torch.clamp_min(torch.maximum(lo_a, lo_b), 1e-4)
+    return lo.reshape(-1, 1), top(hi_a, hi_b).reshape(-1, 1)
+
+
+def z_bar(cosmo: CosmoParams, win_a, win_b, st):
+    """W_a W_b-weighted mean redshift, (B,)."""
+    lo, hi = _limits(win_a, win_b, torch.maximum)
+    x, w = st.gl(st.grid.n_z_proj)
+
+    def wprod(z):
+        return win_a.window_z(cosmo, z, st) * win_b.window_z(cosmo, z, st)
+
+    num = gl_integrate(lambda z: wprod(z) * z, lo[:, 0], hi[:, 0], x, w)
+    den = gl_integrate(wprod, lo[:, 0], hi[:, 0], x, w)
+    return num / den
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerTable:
+    """ln P on a uniform ln k grid plus the pivot growth factor, for the
+    separable P(k, z) = exp(ln_p(k)) (D(z)/growth_pivot)^2.  ``ln_k0`` and
+    ``dln`` are 0-d, ``ln_p`` is (B, n_k_table), ``growth_pivot`` (B,)
+    or 0-d."""
+
+    ln_k0: torch.Tensor
+    dln: torch.Tensor
+    ln_p: torch.Tensor
+    growth_pivot: torch.Tensor
+
+    def __call__(self, k):
+        """P at ``k`` (B|1, ...) -> (B, ...)."""
+        return torch.exp(interp_loglog_cubic(torch.log(k), self.ln_k0,
+                                             self.dln, self.ln_p))
+
+
+def _k_table(grid):
+    """The static ln k grid of the power tables (numpy): (ln_k, dln)."""
+    return loggrid(grid.k_table_min, grid.k_table_max, grid.n_k_table)
+
+
+def _table(ln_p, growth_pivot, st):
+    ln_k, dln = _k_table(st.grid)
+    return PowerTable(ln_k0=st.ref.new_tensor(ln_k[0]),
+                      dln=st.ref.new_tensor(dln), ln_p=ln_p,
+                      growth_pivot=growth_pivot)
+
+
+def power_table_linear(cosmo: CosmoParams, st) -> PowerTable:
+    """Linear P(k, z=0) table (pivot D = 1) on ``st.k_table``."""
+    z = torch.zeros(1, dtype=st.dtype, device=st.device)
+    p = linear.linear_power(cosmo, st.k_table[None, :], z, st)
+    return _table(torch.log(p), torch.ones_like(st.ref), st)
+
+
+def power_tables_halo(cosmo: CosmoParams, halo_params, model, kinds, st):
+    """Halo-model P(k) tables at the model's redshift for every spectrum
+    in ``kinds`` (linear_power, power_mm, power_gm, power_mg, power_gg),
+    from ONE ``halo.powers`` evaluation on ``st.k_table`` (one launch of
+    kernel A on the card).  A zero P gives ln P = -inf in float32, as
+    the JAX ``log(max(p, 1e-300))`` does."""
+    from chomp_tpu_torch import halo as halo_mod
+
+    p = halo_mod.powers(cosmo, halo_params, model, st.k_table, st)
+    return {kind: _table(torch.log(torch.clamp_min(p[kind], 1e-300)),
+                         model.mass.growth, st) for kind in kinds}
+
+
+def power_table_halo(cosmo: CosmoParams, halo_params, model, kind: str,
+                     st) -> PowerTable:
+    """One halo-model P(k) table (see :func:`power_tables_halo`)."""
+    return power_tables_halo(cosmo, halo_params, model, (kind,), st)[kind]
+
+
+def limber_cl(cosmo: CosmoParams, win_a, win_b, ells, p_table: PowerTable,
+              st, ell_offset: float = 0.5):
+    """Limber C_ell = ∫ dchi W_a W_b / chi^2 P((ell+offset)/chi, z) by
+    Gauss-Legendre over z (grid.n_z_proj nodes) with the separable
+    growth of ``p_table``: (B, n_ell) at ``ells`` (n_ell,)."""
+    g = st.grid
+    ells = torch.as_tensor(ells, dtype=st.dtype, device=st.device).reshape(-1)
+    lo, hi = _limits(win_a, win_b, torch.minimum)
+    x, w = st.gl_unit(g.n_z_proj)
+    z = lo + (hi - lo) * x                                    # (B|1, nz)
+    wz = w * (hi - lo)
+    chi = background.comoving_distance(cosmo, z, st, g.n_dist)
+    d = (background.growth_factor(cosmo, z, st, g.n_growth)
+         / col(p_table.growth_pivot, 1))
+    wa = win_a.window_z(cosmo, z, st)
+    wb = win_b.window_z(cosmo, z, st)
+    dchi_dz = C_OVER_H0 / background.ez(cosmo, z)
+    kern = wa * wb * dchi_dz / chi**2 * d * d * wz            # (B, nz)
+    k = (ells[None, :, None] + ell_offset) / chi[:, None, :]  # (B, nl, nz)
+    return torch.sum(p_table(k) * kern[:, None, :], dim=-1)

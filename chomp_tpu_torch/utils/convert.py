@@ -16,7 +16,7 @@ import torch
 
 from chomp_tpu_torch.hod import HODZheng
 from chomp_tpu_torch.params import CosmoParams, HaloParams
-from chomp_tpu_torch.projection import DNdzGaussian
+from chomp_tpu_torch.projection import DNdzGaussian, PowerTable
 
 
 def _get(src, name):
@@ -50,6 +50,17 @@ def hod_zheng(src, *, device, dtype) -> HODZheng:
 
 def dndz_gaussian(src, *, device, dtype) -> DNdzGaussian:
     return _convert(DNdzGaussian, src, device, dtype)
+
+
+def power_table(src, *, device, dtype) -> PowerTable:
+    """PowerTable from a JAX-package PowerTable (one table, ``ln_p``
+    (n_k_table,), or a vmapped batch, (B, n_k_table)): ``ln_p`` becomes
+    (B, n_k_table), ``growth_pivot`` (B,) or 0-d, and the grid's
+    ``ln_k0`` / ``dln`` (repeated per row by vmap) 0-d."""
+    table = _convert(PowerTable, src, device, dtype)
+    return dataclasses.replace(table, ln_k0=table.ln_k0.reshape(-1)[0],
+                               dln=table.dln.reshape(-1)[0],
+                               ln_p=torch.atleast_2d(table.ln_p))
 
 
 def to_numpy(params) -> dict:

@@ -116,12 +116,13 @@ def test_pipeline_rejects_mismatched_batch():
 
 
 @pytest.mark.parametrize("option", [
-    dict(method="table"), dict(exact_z_anchors=6),
-    dict(include_shear=True), dict(include_cmb_lensing=True),
+    dict(exact_z_anchors=6), dict(method="table", exact_z_anchors=6),
+    dict(include_shear=True), dict(method="table", include_shear=True),
+    dict(include_cmb_lensing=True),
     dict(geometry="curved"), dict(nonlimber_ell_switch=40),
     dict(nonlimber_ell_switch=40, nonlimber_rsd=True),
     dict(matter_power="halofit"), dict(matter_power="linear"),
-    dict(with_bao=True)])
+    dict(with_bao=True), dict(method="table", with_bao=True)])
 def test_unported_options_raise(option):
     """Options outside the slice raise and name their ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -139,8 +140,13 @@ def test_unported_mass_function_raises():
 
 @pytest.mark.parametrize("option", [
     dict(geometry="spherical"), dict(method="fast"),
-    dict(matter_power="emulated"), dict(power_spec="power_xx")])
+    dict(matter_power="emulated"), dict(power_spec="power_xx"),
+    dict(method="table", geometry="curved"),
+    dict(method="table", nonlimber_ell_switch=40),
+    dict(method="table", matter_power="linear")])
 def test_invalid_options_raise_value_error(option):
+    """Bad values, and the combinations the JAX make_pipeline refuses
+    for the table route (sweep.py:233-251), raise ValueError."""
     with pytest.raises(ValueError):
         _pipeline(**option)
 

@@ -1,14 +1,19 @@
 """Where the time of the port's slice goes on one CUDA GPU.
 
-    python3 tools/torch_slice_profile.py [--n-cosmo 512] [--reps 5]
+    python3 tools/torch_slice_profile.py [--method fft|table]
+                                         [--n-cosmo 512] [--reps 5]
 
 Runs bench.py configuration A (DEFAULT_GRID, float32) through
-``chomp_tpu_torch`` and prints, for the same batch:
+``chomp_tpu_torch`` on the lattice route (``--method fft``, the default)
+or the GL + cubic-table route (``--method table``) and prints, for the
+same batch:
 
-- the wall time of each stage of ``Pipeline.forward`` (halo model, the
-  lattice spectra with kernel A, the lattice window weights, the grouped
-  convolution, the two kernel C contractions), median over ``--reps``
-  runs, each stage timed on the host clock between synchronizations;
+- the wall time of each stage of the forward, median over ``--reps``
+  runs, each stage timed on the host clock between synchronizations:
+  fft: halo model, the lattice spectra with kernel A, the lattice window
+  weights, the grouped convolution, the two kernel C contractions;
+  table: halo model, the ln P tables with kernel A, the galaxy-galaxy
+  and the convergence-galaxy Limber C_ell, the two kernel B products;
 - a ``torch.profiler`` table of device time by kernel over one run,
   and that device time as a share of the unprofiled median wall time
   (the device's busy share; the rest is idle, waiting on the host).
@@ -29,6 +34,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--method", choices=("fft", "table"), default="fft")
     ap.add_argument("--n-cosmo", type=int, default=512)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -43,7 +49,9 @@ def main():
 
     from chomp_tpu_torch import (DNdzGaussian, broadcast_cosmo,
                                  default_cosmo, default_halo, default_hod,
-                                 halo, limber_fft, make_pipeline)
+                                 halo, limber_fft, make_pipeline,
+                                 projection)
+    from chomp_tpu_torch.ops.hankel_matmul import hankel_matmul
     from chomp_tpu_torch.parallel.sweep import _fused_probe_rows
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -58,11 +66,11 @@ def main():
                           for v in (0.0, 2.0, 1.0, 0.2)))
     pipe = make_pipeline(default_halo(**kw), default_hod(**kw), dist,
                          power_spec="power_gg", include_lensing=True,
-                         z_pivot=1.0, **kw)
+                         z_pivot=1.0, method=args.method, **kw)
     st, z = pipe.st, torch.ones(1, **kw)
 
     def stages():
-        """Pipeline.forward, cut at its layer boundaries."""
+        """The forward, cut at its layer boundaries."""
         t = {}
 
         def mark(name, fn):
@@ -73,6 +81,21 @@ def main():
             t[name] = (time.perf_counter() - t0) * 1e3
             return out
 
+        if args.method == "table":
+            model = mark("halo_model", lambda: halo.build_halo_model(
+                batch, pipe.halo_params, pipe.hod, z, st))
+            tabs = mark("ln P tables (kernel A)",
+                        lambda: projection.power_tables_halo(
+                            batch, pipe.halo_params, model,
+                            ("power_gg", "power_gm"), st))
+            cls = [mark(f"limber_cl {name}", lambda: projection.limber_cl(
+                batch, wa, pipe.win_g, pipe.ells, tabs[kind], st))
+                for name, wa, kind in (("gg", pipe.win_g, "power_gg"),
+                                       ("kappa-g", pipe.win_k, "power_gm"))]
+            mark("kernel B x2", lambda: [hankel_matmul(cl, op) for cl, op
+                                         in zip(cls, (pipe.op0_t,
+                                                      pipe.op1_t))])
+            return t
         model = mark("halo_model", lambda: halo.build_halo_model(
             batch, pipe.halo_params, pipe.hod, z, st))
         p_all = mark("spectra (kernel A)", lambda: limber_fft
@@ -98,7 +121,7 @@ def main():
         pipe(batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    print(f"forward wall, B={args.n_cosmo}: median {np.median(walls):.2f} ms"
+    print(f"{args.method} route forward wall, B={args.n_cosmo}: median {np.median(walls):.2f} ms"
           f" (quartiles {np.percentile(walls, 25):.2f}, "
           f"{np.percentile(walls, 75):.2f}; {args.reps} runs)")
     for name in runs[0]:

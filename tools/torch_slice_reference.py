@@ -1,13 +1,22 @@
-"""Write the JAX float64 reference values of the port's slice.
+"""Write the JAX reference values of the port's two routes.
 
-Runs the JAX package on the CPU in float64: bench.py configuration A
+Runs the JAX package on the CPU: bench.py configuration A
 (``make_pipeline(default_halo(), default_hod(), DNdzGaussian(0, 2, 1,
 0.2), power_spec="power_gg", include_lensing=True, z_pivot=1.0)`` on
-DEFAULT_GRID) for 3 cosmologies taken from bench.py's 512-point
-linspaces (omega_m 0.24..0.32 with omega_l = 1 - omega_m, sigma_8
-0.75..0.88), and writes w(theta) and gamma_t to
-``tests/data/torch_slice_reference.json``.  ``chip_smoke.py`` holds the
-port's float32 run on the GPU against these numbers.
+DEFAULT_GRID) for cosmologies taken from bench.py's 512-point linspaces
+(omega_m 0.24..0.32 with omega_l = 1 - omega_m, sigma_8 0.75..0.88), and
+writes
+
+- ``tests/data/torch_slice_reference.json``: the lattice route
+  (``method="fft"``), float64, w(theta) and gamma_t at 3 cosmologies;
+- ``tests/data/torch_table_reference.json``: the GL + cubic-table route
+  (``method="table"``), float64, at the same 3 cosmologies, plus two
+  figures measured on the 9 cosmologies that ``chip_smoke.py`` compares
+  (its 8 checked ones and the 3 above): the worst-bin error of the JAX
+  package's own float32 table route against its float64 one, and the
+  worst-bin gap between the float64 table and lattice routes.
+
+``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
     python tools/torch_slice_reference.py
 """
@@ -17,21 +26,32 @@ import os
 import sys
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent.parent
-OUT = REPO / "tests" / "data" / "torch_slice_reference.json"
+DATA = REPO / "tests" / "data"
 N_COSMO = 512
 INDICES = (0, 255, 511)
+N_CHECK = 8          # chip_smoke.py's float64 check set
 
 
-def main():
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    sys.path.insert(0, str(REPO))
+def measured_indices():
+    """INDICES and chip_smoke.py's checked cosmologies, sorted."""
+    check = np.unique(np.linspace(0, N_COSMO - 1, N_CHECK).round())
+    return sorted(set(check.astype(int).tolist()) | set(INDICES))
+
+
+def cosmologies(idx):
+    oms = np.linspace(0.24, 0.32, N_COSMO)[list(idx)]
+    s8s = np.linspace(0.75, 0.88, N_COSMO)[list(idx)]
+    return oms, s8s
+
+
+def run(method, idx):
+    """{"w_theta", "gamma_t", "theta_deg"} of one route at the JAX
+    package's current precision (x64 on or off)."""
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
-    import numpy as np
 
     from chomp_tpu import default_cosmo, default_halo, projection
     from chomp_tpu.hod import default_hod
@@ -43,26 +63,61 @@ def main():
         z0=jnp.asarray(1.0), sigma_z=jnp.asarray(0.2))
     fn = make_pipeline(default_halo(), default_hod(), dist,
                        power_spec="power_gg", grid=DEFAULT_GRID,
-                       include_lensing=True, z_pivot=1.0)
-    oms = np.linspace(0.24, 0.32, N_COSMO)[list(INDICES)]
-    s8s = np.linspace(0.75, 0.88, N_COSMO)[list(INDICES)]
+                       include_lensing=True, z_pivot=1.0, method=method)
+    oms, s8s = cosmologies(idx)
     batch = broadcast_cosmo(default_cosmo(), omega_m0=jnp.asarray(oms),
                             omega_l0=jnp.asarray(1.0 - oms),
                             sigma_8=jnp.asarray(s8s))
     out = jax.jit(jax.vmap(fn))(batch)
-    data = {
-        "config": "bench.py configuration A, DEFAULT_GRID, JAX float64 CPU",
-        "n_cosmo": N_COSMO,
-        "indices": list(INDICES),
-        "omega_m0": oms.tolist(),
-        "sigma_8": s8s.tolist(),
-        "theta_deg": np.asarray(out["theta_deg"][0]).tolist(),
-        "w_theta": np.asarray(out["w_theta"]).tolist(),
-        "gamma_t": np.asarray(out["gamma_t"]).tolist(),
-    }
-    OUT.parent.mkdir(parents=True, exist_ok=True)
-    OUT.write_text(json.dumps(data, indent=1) + "\n")
-    print(f"wrote {OUT}")
+    return {k: np.asarray(out[k], dtype=np.float64)
+            for k in ("w_theta", "gamma_t", "theta_deg")}
+
+
+def worst_bin(got, ref):
+    return float(max(np.max(np.abs(got[k] / ref[k] - 1.0))
+                     for k in ("w_theta", "gamma_t")))
+
+
+def write(name, config, idx, out, **extra):
+    oms, s8s = cosmologies(idx)
+    pos = [measured_indices().index(i) for i in idx]
+    data = {"config": config, "n_cosmo": N_COSMO, "indices": list(idx),
+            "omega_m0": oms.tolist(), "sigma_8": s8s.tolist(),
+            "theta_deg": out["theta_deg"][0].tolist(),
+            "w_theta": out["w_theta"][pos].tolist(),
+            "gamma_t": out["gamma_t"][pos].tolist(), **extra}
+    path = DATA / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(data, indent=1) + "\n")
+    print(f"wrote {path}")
+
+
+def main():
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, str(REPO))
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    idx = measured_indices()
+    # The float32 leg runs first, before 64-bit mode is switched on.
+    jax.config.update("jax_enable_x64", False)
+    table32 = run("table", idx)
+    jax.config.update("jax_enable_x64", True)
+    lattice = run("fft", idx)
+    table = run("table", idx)
+    f32_err = worst_bin(table32, table)
+    cross = worst_bin(table, lattice)
+    print(f"JAX float32 table route vs float64: worst bin {f32_err:.3e}; "
+          f"float64 table vs lattice route: worst bin {cross:.3e} "
+          f"({len(idx)} cosmologies)")
+    write("torch_slice_reference.json",
+          "bench.py configuration A, DEFAULT_GRID, JAX float64 CPU",
+          INDICES, lattice)
+    write("torch_table_reference.json",
+          "bench.py configuration A with method='table', DEFAULT_GRID, "
+          "JAX float64 CPU", INDICES, table,
+          measured_on=idx, jax_f32_vs_f64_worst_bin=f32_err,
+          jax_table_vs_lattice_worst_bin=cross)
 
 
 if __name__ == "__main__":
