@@ -10,14 +10,16 @@ order (any failure exits nonzero; nothing falls back):
 2. kernel A (halo_contract) against its plain PyTorch version on the
    node arrays of the main path's 512 cosmologies at DEFAULT_GRID
    (float64 on 8 of them to 1e-12, float32 on all to 2e-6, both
-   relative to each output's peak), with both median times;
+   relative to each output's peak), with its times;
 3. kernel C (df_contract) against its plain version at (512, 2220) x
-   (64, 2220): float64 to 1e-12; float32 (the main path's two-float
-   kernel) to 1e-6 of peak against the plain version and 1e-7 of peak
-   against the exact float64 contraction of the same float32 inputs
-   (an uncompensated float32 sum misses it by ~100x); and the
-   hostile-cancellation case of tests/test_df32.py (float32 to < 5e-6
-   against float64);
+   (64, 2220): float64 to 1e-12; float32 (the main path's kernel) to
+   1e-6 of peak against the plain version and 1e-7 of peak against the
+   exact float64 contraction of the same float32 inputs (an
+   uncompensated float32 sum misses it by ~100x); two launches on the
+   same inputs bit for bit (float32 and float64); the same gates at the
+   ragged (8, 2220) x (64, 2220) and on the hostile-cancellation case of
+   tests/test_df32.py, (1, 1024) x (8, 1024), which must also stay
+   < 5e-6 against float64; with its times and launch geometry;
 4. the lattice convolution (float32 in and out, float64 accumulation)
    on the pipeline's own rows against float64 (1e-6), and its time;
 5. the lattice slice: bench.py configuration A (``method="fft"``) on
@@ -31,7 +33,10 @@ order (any failure exits nonzero; nothing falls back):
    512 cosmologies against its plain version (float64 to 1e-12 of each
    row's peak; float32 to 2e-5 per element) and, in float32, against
    the exact float64 product of the same inputs (no worse than 2x the
-   float32 ``torch.matmul``), with the kernel's, plain and library times;
+   float32 ``torch.matmul``); two launches bit for bit; the ragged
+   (37, 1000) @ (1000, 13) and (1, 1024) @ (1024, 64), cut from the same
+   rows and operator, at the same float64 and plain-version gates; with
+   its times and launch geometry;
 7. the table slice: the same configuration with ``method="table"`` on
    512 cosmologies in float32; one launch of kernel A and two of kernel
    B; finiteness; worst bin < 1e-4 against the card's float64 plain path
@@ -42,11 +47,17 @@ order (any failure exits nonzero; nothing falls back):
    package's own gap at DEFAULT_GRID where that is larger); peak device
    memory and the median wall time of 5 repetitions.
 
+Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
+over 100 (kernel A's plain version: 2 calls), taken in turns with the
+library call or plain version (other, kernel, kernel, other); after
+phase 7, each kernel's and library call's device time per call from
+torch.profiler's kernel records ("not measured" where it records none).
 Each main path (phases 5 and 7) runs with every launch count set to 0
 just before it and read just after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
-FP32 and 3.35 TB/s) and ``{"ok": true, "device": {...}}``.
+FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
+"device": {...}}``.
 """
 
 import contextlib
@@ -61,7 +72,7 @@ import numpy as np
 N_COSMO = 512
 N_CHECK = 8
 REPO = Path(__file__).resolve().parent
-FP32_FLOPS = 67e12   # H100 SXM, FP32 outside the tensor cores
+PEAK_FLOPS = 67e12   # H100 SXM: FP32 CUDA cores and FP64 tensor cores alike
 HBM_BYTES = 3.35e12  # H100 SXM, device memory
 
 
@@ -76,22 +87,53 @@ def gpu_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn()`` over ``reps`` timed runs (CUDA
-    events, one warm-up)."""
+def events_ms(fn, reps=100):
+    """Milliseconds per call of ``fn()`` from CUDA events around ``reps``
+    back-to-back calls (after one warm-up call)."""
     import torch
 
     fn()
-    times = []
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def in_turns_ms(kernel, other, reps=100, other_reps=100):
+    """(kernel ms, other ms): :func:`events_ms` in the order other, kernel,
+    kernel, other, each the mean of its two turns."""
+    o1 = events_ms(other, other_reps)
+    k1, k2 = events_ms(kernel, reps), events_ms(kernel, reps)
+    o2 = events_ms(other, other_reps)
+    return (k1 + k2) / 2, (o1 + o2) / 2
+
+
+def device_ms(fn, reps=20):
+    """Device milliseconds per call of ``fn()``: the CUDA kernel time that
+    torch.profiler's ``key_averages()`` records over ``reps`` calls, over
+    ``reps``; None where it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def rel_to_peak(got, ref):
@@ -105,9 +147,9 @@ def worst_bin(got, ref):
 
 
 def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the FP32 operation time and
-    the device-memory time of the work."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    """(bound_ms, bound_by): the larger of the operation time at 67
+    TFLOP/s and the device-memory time of the work."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -146,6 +188,16 @@ def halo_contract_flops(k, mat, gal, lens):
                                   gal[:, None, :, 3])).double().sum()
                        + 14 * gal.shape[0] * kk.numel() * gal.shape[1])
     return total
+
+
+def geometry(rows, n, t):
+    """The launch geometry kernels B and C use at this shape."""
+    from chomp_tpu_torch.ops.tiles import split_k
+
+    g = split_k(rows, n, t)
+    last = g.bounds[-1][1] - g.bounds[-1][0]
+    return (f"grid {g.grid} = {g.ctas} CTAs in clusters of {g.cluster}, K "
+            f"per rank {g.kc} (last {last})")
 
 
 def max_rel(got, ref):
@@ -201,9 +253,13 @@ def main():
     t0 = time.perf_counter()
     builds = build.build_all(["halo_contract", "df_contract",
                               "hankel_matmul"])
+    smem = {"df_contract": df32._lib().df_contract_smem_bytes,
+            "hankel_matmul": hm._lib().hankel_matmul_smem_bytes}
     for name, (path, log) in builds.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"[build] {name}: {path.name} | {' ; '.join(regs)}",
+        dyn = (f" | dynamic shared memory f32 {smem[name](0)} B, f64 "
+               f"{smem[name](1)} B" if name in smem else "")
+        print(f"[build] {name}: {path.name} | {' ; '.join(regs)}{dyn}",
               flush=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s (in parallel)",
           flush=True)
@@ -246,9 +302,16 @@ def main():
     ref32 = hc.halo_contract_ref(k32, mat32, gal32)
     err_a32 = rel_to_peak(got32, ref32)
     abs_a32 = float((got32 - ref32).abs().max())
-    ms_a = cuda_ms(lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb),
-                   10)
-    plain_ms_a = cuda_ms(lambda: hc.halo_contract_ref(k32, mat32, gal32), 3)
+    # 100 back-to-back launches of the kernel; 2 of its plain version
+    # (2.2 s a call), in turns.
+    ms_a, plain_ms_a = in_turns_ms(
+        lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb),
+        lambda: hc.halo_contract_ref(k32, mat32, gal32), other_reps=2)
+    # Device times (torch.profiler) are taken after phase 7: a profiler
+    # session leaves CUPTI attached, which slows every later launch from
+    # the host and would inflate the walls and event times that follow.
+    profiled = {"halo_contract": (
+        lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb), None, 5)}
     bound_a = bound(
         halo_contract_flops(k32, mat32, gal32, hc._lens(f32)),
         4 * (k32.numel() + mat32.numel() + gal32.numel()
@@ -256,9 +319,10 @@ def main():
     print(f"[halo_contract] B={N_COSMO} NK={k32.numel()} "
           f"NM={mat32.shape[1]} NG={gal32.shape[1]} | f64 rel_to_peak="
           f"{err_a64:.3e} (8 cosmologies, gate 1e-12) | f32 rel_to_peak="
-          f"{err_a32:.3e} max_abs={abs_a32:.3e} (gate 2e-6) | kernel "
-          f"{ms_a:.3f} ms, plain {plain_ms_a:.3f} ms (f32, median) | bound "
-          f"{bound_a[0]:.4f} ms by {bound_a[1]}", flush=True)
+          f"{err_a32:.3e} max_abs={abs_a32:.3e} (gate 2e-6) | f32 kernel "
+          f"{ms_a:.3f} ms, plain {plain_ms_a:.3f} ms (CUDA events over "
+          f"back-to-back calls) | bound {bound_a[0]:.4f} ms by {bound_a[1]}",
+          flush=True)
     if not err_a64 <= 1e-12:
         fail(f"halo_contract float64 error {err_a64}")
     if not err_a32 <= 2e-6:
@@ -269,24 +333,38 @@ def main():
     theta = tuple(np.logspace(-3, 0, 64).tolist())
     j_lo, j_hi, a_np = limber_fft.wtheta_lattice_operator(
         theta, DEFAULT_GRID, 0.0)
+
+    def check_c(c64, a_np, with_f64=True):
+        """Kernel C on c64 (R, n) and the operator a_np (T, n): float64
+        and float32 against the plain version (relative to the peak),
+        float32 against the exact contraction of its inputs, and two
+        launches on the same inputs bit for bit."""
+        a64 = torch.tensor(a_np, device=dev)
+        hi, lo = (torch.tensor(x, device=dev)
+                  for x in df32.split_operator(a_np))
+        c32 = c64.to(f32)
+        got = df32.df_contract(c32, hi, lo)
+        ref = df32.df_contract_ref(c32, hi, lo)
+        exact = c32.double() @ a64.T
+        r = {"abs": float((got - ref).abs().max()),
+             "exact": float((got.double() - exact).abs().max()
+                            / exact.abs().max()),
+             "same": torch.equal(got, df32.df_contract(c32, hi, lo)),
+             "f64": 0.0}
+        r["plain"] = r["abs"] / float(ref.abs().max())
+        if with_f64:
+            got = df32.df_contract(c64, a64)
+            ref = df32.df_contract_ref(c64, a64)
+            r["f64"] = float((got - ref).abs().max() / ref.abs().max())
+            r["same"] &= torch.equal(got, df32.df_contract(c64, a64))
+        return r
+
     rng = np.random.default_rng(0)
-    c_np = rng.lognormal(0.0, 1.0, (N_COSMO, j_hi - j_lo))
-    c64 = torch.tensor(c_np, device=dev)
-    a64 = torch.tensor(a_np, device=dev)
-    got = df32.df_contract(c64, a64)
-    ref = df32.df_contract_ref(c64, a64)
-    err_c64 = float((got - ref).abs().max() / ref.abs().max())
-    hi_np, lo_np = df32.split_operator(a_np)
-    a_hi = torch.tensor(hi_np, device=dev)
-    a_lo = torch.tensor(lo_np, device=dev)
-    c32 = c64.to(f32)
-    got32 = df32.df_contract(c32, a_hi, a_lo)
-    ref32 = df32.df_contract_ref(c32, a_hi, a_lo)
-    exact = c32.double() @ a64.T
-    err_c32 = float((got32.double() - exact).abs().max()
-                    / exact.abs().max())
-    abs_c32 = float((got32 - ref32).abs().max())
-    rel_c32 = abs_c32 / float(ref32.abs().max())
+    c64 = torch.tensor(rng.lognormal(0.0, 1.0, (N_COSMO, j_hi - j_lo)),
+                       device=dev)
+    main_c = check_c(c64, a_np)
+    # The hostile-cancellation case of tests/test_df32.py: float32 to
+    # < 5e-6 against float64 where a plain float32 matmul loses ~1e-2.
     rng = np.random.default_rng(1)
     n, m = 1024, 8
     hc64 = rng.lognormal(0.0, 2.0, n)
@@ -303,30 +381,56 @@ def main():
     plain32 = torch.tensor(hc32[None], device=dev) @ torch.tensor(
         ha64.astype(np.float32), device=dev).T
     hostile_plain = worst_bin(plain32[0].double().cpu().numpy(), h_ref)
-    ms_c = cuda_ms(lambda: df32.df_contract(c32, a_hi, a_lo), 20)
-    plain_ms_c = cuda_ms(lambda: df32.df_contract_ref(c32, a_hi, a_lo), 5)
+    ragged_c = {  # (rows, n, T) -> check_c
+        (8, j_hi - j_lo, a_np.shape[0]): check_c(c64[:8].contiguous(), a_np),
+        (1, n, m): check_c(torch.tensor(hc32[None].astype(np.float64),
+                                        device=dev), ha64, with_f64=False)}
+
+    c32 = c64.to(f32)
+    a64 = torch.tensor(a_np, device=dev)
+    a_hi, a_lo = (torch.tensor(x, device=dev)
+                  for x in df32.split_operator(a_np))
     c32_as64 = c32.double()
-    lib_ms_c = cuda_ms(lambda: c32_as64 @ a64.T, 20)
-    # Per term: the product, its exact error, the lo term and a two-float
-    # addition (13 flops); each input read once, the output written once.
-    bound_c = bound(13.0 * c32.numel() * a_hi.shape[0],
-                    4 * (c32.numel() + a_hi.numel() + a_lo.numel()
-                         + c32.shape[0] * a_hi.shape[0]))
-    print(f"[df_contract] ({N_COSMO}, {j_hi - j_lo}) x ({a_np.shape[0]}, "
-          f"{j_hi - j_lo}) | f64 rel_to_peak={err_c64:.3e} (gate 1e-12) | "
-          f"f32 vs plain rel_to_peak={rel_c32:.3e} max_abs={abs_c32:.3e} "
-          f"(gate 1e-6) | f32 vs exact rel_to_peak={err_c32:.3e} (gate "
-          f"1e-7) | hostile f32 worst={hostile:.3e} (gate 5e-6; plain f32 "
-          f"matmul {hostile_plain:.3e}) | kernel {ms_c:.4f} ms, plain "
-          f"{plain_ms_c:.4f} ms, library (f64 matmul) {lib_ms_c:.4f} ms "
-          f"(f32, median) | bound {bound_c[0]:.4f} ms by {bound_c[1]}",
+    ms_c, lib_ms_c = in_turns_ms(lambda: df32.df_contract(c32, a_hi, a_lo),
+                                 lambda: c32_as64 @ a64.T)
+    plain_ms_c = events_ms(lambda: df32.df_contract_ref(c32, a_hi, a_lo), 20)
+    profiled["df_contract"] = (lambda: df32.df_contract(c32, a_hi, a_lo),
+                               lambda: c32_as64 @ a64.T, 20)
+    r, n = c32.shape
+    t = a_hi.shape[0]
+    # The function is c @ (a_hi + a_lo)^T exact to float32 output: 2 flops
+    # a term, whatever arithmetic a kernel uses to get there; each input
+    # read once, the output written once.
+    bound_c = bound(2.0 * r * n * t,
+                    4 * (c32.numel() + a_hi.numel() + a_lo.numel() + r * t))
+    print(f"[df_contract] ({r}, {n}) x ({t}, {n}) | f64 rel_to_peak="
+          f"{main_c['f64']:.3e} (gate 1e-12) | f32 vs plain rel_to_peak="
+          f"{main_c['plain']:.3e} max_abs={main_c['abs']:.3e} (gate 1e-6) | "
+          f"f32 vs exact rel_to_peak={main_c['exact']:.3e} (gate 1e-7) | "
+          f"hostile f32 worst={hostile:.3e} (gate 5e-6; plain f32 matmul "
+          f"{hostile_plain:.3e}) | deterministic={main_c['same']} | f32 "
+          f"kernel {ms_c:.4f} ms, library (f64 matmul) {lib_ms_c:.4f} ms, "
+          f"plain {plain_ms_c:.4f} ms (CUDA events over 100 back-to-back "
+          f"calls; plain 20) | bound {bound_c[0]:.5f} ms by {bound_c[1]} | "
+          f"{geometry(r, n, t)}",
           flush=True)
-    if not err_c64 <= 1e-12:
-        fail(f"df_contract float64 error {err_c64}")
-    if not rel_c32 <= 1e-6:
-        fail(f"df_contract float32 vs its plain version: {rel_c32}")
-    if not err_c32 <= 1e-7:
-        fail(f"df_contract float32 vs the exact contraction: {err_c32}")
+    for (rr, nn, tt), q in ragged_c.items():
+        print(f"[df_contract] ragged ({rr}, {nn}) x ({tt}, {nn}) | f64 "
+              f"rel_to_peak={q['f64']:.3e} | f32 vs plain rel_to_peak="
+              f"{q['plain']:.3e} | f32 vs exact rel_to_peak={q['exact']:.3e}"
+              f" | deterministic={q['same']} | {geometry(rr, nn, tt)}",
+              flush=True)
+    for shape, q in [("main", main_c), *ragged_c.items()]:
+        if not q["f64"] <= 1e-12:
+            fail(f"df_contract {shape}: float64 error {q['f64']}")
+        if not q["plain"] <= 1e-6:
+            fail(f"df_contract {shape}: float32 vs its plain version: "
+                 f"{q['plain']}")
+        if not q["exact"] <= 1e-7:
+            fail(f"df_contract {shape}: float32 vs the exact contraction: "
+                 f"{q['exact']}")
+        if not q["same"]:
+            fail(f"df_contract {shape}: two launches differ")
     if not hostile < 5e-6:
         fail(f"df_contract hostile-cancellation error {hostile}")
 
@@ -349,7 +453,7 @@ def main():
     del p_all, model
     p32 = p32.repeat(N_COSMO // len(check), 1, 1)
     g32 = g32.repeat(N_COSMO // len(check), 1, 1)
-    ms_conv = cuda_ms(lambda: limber_fft._conv_direct_rows(
+    ms_conv = events_ms(lambda: limber_fft._conv_direct_rows(
         p32, g32, j_lo, j_hi), 5)
     print(f"[conv1d] ({len(check)}, 2, {n_k}) * ({len(check)}, 2, {n_chi}) "
           f"-> {j_hi - j_lo}, the pipeline's rows | float32 in/out, float64 "
@@ -448,42 +552,75 @@ def main():
                                         ("power_gg", "power_gm"), pipe_t.st)
     pairs = [(pipe_t.win_g, pipe_t.win_g, "power_gg", pipe_t.op0_t),
              (pipe_t.win_k, pipe_t.win_g, "power_gm", pipe_t.op1_t)]
-    err_b64 = err_b32 = abs_b32 = err_b_exact = err_lib_exact = 0.0
-    for wa, wb, kind, op_t in pairs:
-        cl = projection.limber_cl(cosmo_t, wa, wb, pipe_t.ells, tabs[kind],
-                                  pipe_t.st).contiguous()
+
+    def check_b(cl, op_t):
+        """Kernel B on cl (R, N) and op_t (N, T): float32 against the
+        plain version (per element) and against the exact product of its
+        inputs beside torch.matmul's float32 error, float64 against the
+        plain version (relative to each row's peak), and two launches on
+        the same inputs bit for bit."""
         got = hm.hankel_matmul(cl, op_t)
         plain = hm.hankel_matmul_ref(cl, op_t)
         exact = cl.double() @ op_t.double()
-        err_b32 = max(err_b32, max_rel(got, plain))
-        abs_b32 = max(abs_b32, float((got - plain).abs().max()))
-        err_b_exact = max(err_b_exact, max_rel(got.double(), exact))
-        err_lib_exact = max(err_lib_exact, max_rel(plain.double(), exact))
         cl64, op64 = cl.double(), op_t.double()
-        err_b64 = max(err_b64, row_peak_rel(hm.hankel_matmul(cl64, op64),
-                                            hm.hankel_matmul_ref(cl64, op64)))
+        got64 = hm.hankel_matmul(cl64, op64)
+        return {"plain": max_rel(got, plain),
+                "abs": float((got - plain).abs().max()),
+                "exact": max_rel(got.double(), exact),
+                "lib_exact": max_rel(plain.double(), exact),
+                "f64": row_peak_rel(got64, hm.hankel_matmul_ref(cl64, op64)),
+                "same": (torch.equal(got, hm.hankel_matmul(cl, op_t))
+                         and torch.equal(got64,
+                                         hm.hankel_matmul(cl64, op64)))}
+
+    main_b = {}
+    for wa, wb, kind, op_t in pairs:
+        cl = projection.limber_cl(cosmo_t, wa, wb, pipe_t.ells, tabs[kind],
+                                  pipe_t.st).contiguous()
+        for key, v in check_b(cl, op_t).items():
+            main_b[key] = (main_b.get(key, True) and v if key == "same"
+                           else max(main_b.get(key, 0.0), v))
     cl_b, op_b = cl, op_t
-    ms_b = cuda_ms(lambda: hm.hankel_matmul(cl_b, op_b), 50)
-    plain_ms_b = cuda_ms(lambda: hm.hankel_matmul_ref(cl_b, op_b), 50)
-    lib_ms_b = cuda_ms(lambda: torch.matmul(cl_b, op_b), 50)
+    # Ragged shapes, cut from the route's own rows and operator.
+    ragged_b = {(rr, nn, tt): check_b(cl_b[:rr, :nn].contiguous(),
+                                      op_b[:nn, :tt].contiguous())
+                for rr, nn, tt in ((37, 1000, 13), (1, 1024, 64))}
+    ms_b, lib_ms_b = in_turns_ms(lambda: hm.hankel_matmul(cl_b, op_b),
+                                 lambda: torch.matmul(cl_b, op_b))
+    plain_ms_b = events_ms(lambda: hm.hankel_matmul_ref(cl_b, op_b))
+    profiled["hankel_matmul"] = (lambda: hm.hankel_matmul(cl_b, op_b),
+                                 lambda: torch.matmul(cl_b, op_b), 20)
     r, n = cl_b.shape
     t = op_b.shape[1]
     bound_b = bound(2.0 * r * n * t, 4 * (r * n + n * t + r * t))
     print(f"[hankel_matmul] ({r}, {n}) @ ({n}, {t}), the table route's C_ell "
-          f"rows (w and gamma_t) | f64 rel_to_row_peak={err_b64:.3e} (gate "
-          f"1e-12) | f32 vs plain max rel={err_b32:.3e} max_abs="
-          f"{abs_b32:.3e} (gate 2e-5) | f32 vs exact f64 product max rel="
-          f"{err_b_exact:.3e}, torch.matmul f32 {err_lib_exact:.3e} (gate "
-          f"2x) | kernel {ms_b:.4f} ms, plain {plain_ms_b:.4f} ms, library "
-          f"{lib_ms_b:.4f} ms (f32, median) | bound {bound_b[0]:.5f} ms by "
-          f"{bound_b[1]}", flush=True)
-    if not err_b64 <= 1e-12:
-        fail(f"hankel_matmul float64 error {err_b64}")
-    if not err_b32 <= 2e-5:
-        fail(f"hankel_matmul float32 vs its plain version: {err_b32}")
-    if not err_b_exact <= 2.0 * err_lib_exact:
-        fail(f"hankel_matmul float32 vs the exact product: {err_b_exact} "
-             f"(torch.matmul: {err_lib_exact})")
+          f"rows (w and gamma_t) | f64 rel_to_row_peak={main_b['f64']:.3e} "
+          f"(gate 1e-12) | f32 vs plain max rel={main_b['plain']:.3e} "
+          f"max_abs={main_b['abs']:.3e} (gate 2e-5) | f32 vs exact f64 "
+          f"product max rel={main_b['exact']:.3e}, torch.matmul f32 "
+          f"{main_b['lib_exact']:.3e} (gate 2x) | deterministic="
+          f"{main_b['same']} | f32 kernel {ms_b:.4f} ms, library "
+          f"(torch.matmul f32) {lib_ms_b:.4f} ms, plain {plain_ms_b:.4f} ms "
+          f"(CUDA events over 100 back-to-back calls) | bound "
+          f"{bound_b[0]:.5f} ms by {bound_b[1]} | {geometry(r, n, t)}",
+          flush=True)
+    for (rr, nn, tt), q in ragged_b.items():
+        print(f"[hankel_matmul] ragged ({rr}, {nn}) @ ({nn}, {tt}) | f64 "
+              f"rel_to_row_peak={q['f64']:.3e} | f32 vs plain max rel="
+              f"{q['plain']:.3e} | f32 vs exact max rel={q['exact']:.3e}, "
+              f"torch.matmul f32 {q['lib_exact']:.3e} | deterministic="
+              f"{q['same']} | {geometry(rr, nn, tt)}", flush=True)
+    for shape, q in [("main", main_b), *ragged_b.items()]:
+        if not q["f64"] <= 1e-12:
+            fail(f"hankel_matmul {shape}: float64 error {q['f64']}")
+        if not q["plain"] <= 2e-5:
+            fail(f"hankel_matmul {shape}: float32 vs its plain version: "
+                 f"{q['plain']}")
+        if not q["same"]:
+            fail(f"hankel_matmul {shape}: two launches differ")
+    if not main_b["exact"] <= 2.0 * main_b["lib_exact"]:
+        fail(f"hankel_matmul float32 vs the exact product: "
+             f"{main_b['exact']} (torch.matmul: {main_b['lib_exact']})")
     del tabs, cosmo_t, model_t
 
     # -- 7. the table slice ---------------------------------------------
@@ -565,26 +702,38 @@ def main():
     if not cross < cross_gate:
         fail(f"table vs lattice route in float64: {cross}")
 
+    # -- device time of each kernel and its library call ----------------
+    dev = {}
+    for name, (kernel, library, reps) in profiled.items():
+        dev[name] = (device_ms(kernel, reps),
+                     device_ms(library, reps) if library else None)
+        print(f"[device time] {name}: kernel {fmt_ms(dev[name][0])}"
+              + (f", library {fmt_ms(dev[name][1])}" if library else "")
+              + f" per call (torch.profiler kernel records over {reps} "
+              f"calls)", flush=True)
+
     paths = {"lattice": launches, "table": launches_t}
 
-    def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms):
+    def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
+               dev, library_dev):
         by_path = {p: c[name] for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": library_ms}
+                "library_ms": library_ms, "device_ms": dev,
+                "library_device_ms": library_dev}
 
     kernels = [
         record("halo_contract", "chomp_tpu_torch/csrc/halo_contract.cu",
                "chomp_tpu/ops/halo_pallas.py:77", abs_a32, ms_a, plain_ms_a,
-               bound_a, None),
+               bound_a, None, *dev["halo_contract"]),
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
-               "chomp_tpu/ops/df32.py:94", abs_c32, ms_c, plain_ms_c,
-               bound_c, lib_ms_c),
+               "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
+               bound_c, lib_ms_c, *dev["df_contract"]),
         record("hankel_matmul", "chomp_tpu_torch/csrc/hankel_matmul.cu",
-               "chomp_tpu/ops/fftlog_pallas.py:47", abs_b32, ms_b,
-               plain_ms_b, bound_b, lib_ms_b),
+               "chomp_tpu/ops/fftlog_pallas.py:47", main_b["abs"], ms_b,
+               plain_ms_b, bound_b, lib_ms_b, *dev["hankel_matmul"]),
     ]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

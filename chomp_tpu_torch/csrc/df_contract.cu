@@ -1,90 +1,51 @@
-// df_contract: out[r, t] = sum_n c[r, n] A[t, n] with two-float accumulation.
+// df_contract: out (R, T) = c (R, n) @ (a_hi + a_lo)^T, A laid out (T, n).
 //
-// Replaces the JAX package's ops/df32.py::df_contract (df32.py:94-116), the last op
-// of the w(theta) / gamma_t pipeline: the lattice convolution output c
-// (strictly positive) against the static float64 lattice -> Hankel -> theta
-// bins operator A, whose rows oscillate through sign so that the summands
-// are ~100x the result.  A float32 sum would lose ~eps x that amplification;
-// the two-float ("double-single") sum keeps ~2^-48.  The float64 operator
-// is split once by the caller into float32 hi + lo.
+// Replaces the JAX package's ops/df32.py::df_contract (df32.py:94-116), the
+// last op of the w(theta) / gamma_t lattice pipeline: the lattice
+// convolution output c (strictly positive) against the static float64
+// lattice -> Hankel -> theta bins operator A, whose rows oscillate through
+// sign so that the summands are ~100x the result.  The caller splits A once
+// into float32 hi + lo (df32.split_operator).
 //
-// What bounds it on the card: a (B, 2220) x (2220, 64) contraction is
-// ~1e8 two-float flops at B = 512 (each product is an FMA two_prod, each
-// addition a 6-flop two_sum); the operator (0.6 MB in hi + lo) and c stay
-// in L2, so this is a small latency-bound op, not a bandwidth one.
+// Numerics: the TPU has no float64, so the JAX package carries every term
+// as a two-float pair (~2^-48, ~11 FP32 instructions a term).  The H100 has
+// FP64 tensor cores at the rate of its FP32 CUDA cores, so here a term is
+// one f64 fused multiply-add in a DMMA tile (dmma_tile.cuh, BOp::NK_SPLIT):
+// the fragment value (double)a_hi + (double)a_lo is exact, each product is
+// rounded to 2^-53, the sum is a float64 sum and the result is rounded once
+// to float32.  Fixed order (fragments, then ranks 0..S-1): deterministic.
+// float64 c takes the float64 operator and no lo part (BOp::NK).
 //
-// Simple design: one warp per output (r, t).  Each lane walks n with stride
-// 32, forms p = fl(c a_hi) and its exact error fmaf(c, a_hi, -p), adds the
-// c a_lo representation term, and accumulates (p, e) into a two-float
-// running sum; then a warp-shuffle tree of two-float additions.  Products
-// use __fmul_rn and sums __fadd_rn / __fsub_rn: those intrinsics are never
-// contracted into an FMA, so nvcc's default --fmad=true cannot break the
-// error-free transforms (no Dekker split is needed at all).  No fast math.
-// The double instantiation is a plain float64 sum (df32.py:102-104).
+// What bounds it on the card: the function is c @ A^T exact to float32
+// output, 2 flops a term: at the main path's shape (R = 512, n = 2220,
+// T = 64, twice per lattice-route forward) 2 R n T = 145.5 MFLOP, 2.17 us at
+// 67 TFLOP/s, against 4 (R n + 2 T n + R T) = 5.81 MB, 1.74 us at
+// 3.35 TB/s: bound by operations at 2.17 us, with a launch of a few us on
+// top.  32 x 64 output tiles (16 of them) split along n over clusters of
+// S = 8 CTAs (~280 deep each) give 128 CTAs for 132 SMs, each staging its
+// slice of c and of both operator parts once in shared memory (the old
+// one-warp-per-output design read its rows from cache once per output);
+// the geometry comes from ops/tiles.py::split_k.
 
-#include <cuda_runtime.h>
+#include "dmma_tile.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr unsigned FULL = 0xffffffffu;
-
-// Knuth two_sum: s + e == a + b exactly.
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+__global__ void __launch_bounds__(dmma::THREADS)
+df_contract_f32(const float* c, const float* a_hi, const float* a_lo,
+                float* out, int rows, int n, int t, int kc, int vec_c,
+                int vec_a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dmma::splitk_tile<float, dmma::BOp::NK_SPLIT>(
+      smem, c, a_hi, a_lo, out, rows, n, t, kc, vec_c != 0, vec_a != 0);
 }
 
-// (h1, l1) += (h2, l2), as df32._df_add.
-__device__ __forceinline__ void df_add(float& h1, float& l1, float h2, float l2) {
-  float s, e;
-  two_sum(h1, h2, s, e);
-  h1 = s;
-  l1 = __fadd_rn(e, __fadd_rn(l1, l2));
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-df_contract_f32(const float* __restrict__ c, const float* __restrict__ a_hi,
-                const float* __restrict__ a_lo, float* __restrict__ out,
-                int rows, int n, int t) {
-  const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows * t) return;  // uniform across the warp
-  const int r = warp / t, o = warp % t;
-  const float* cr = c + (size_t)r * n;
-  const float* ah = a_hi + (size_t)o * n;
-  const float* al = a_lo + (size_t)o * n;
-  float sh = 0.0f, sl = 0.0f;
-  for (int j = lane; j < n; j += 32) {
-    const float cv = cr[j];
-    const float av = ah[j];
-    const float p = __fmul_rn(cv, av);
-    float e = fmaf(cv, av, -p);  // exact: p + e == cv * av
-    e = fmaf(cv, al[j], e);      // operator representation term
-    df_add(sh, sl, p, e);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float oh = __shfl_down_sync(FULL, sh, off);
-    const float ol = __shfl_down_sync(FULL, sl, off);
-    df_add(sh, sl, oh, ol);
-  }
-  if (lane == 0) out[(size_t)r * t + o] = __fadd_rn(sh, sl);
-}
-
-__global__ void __launch_bounds__(WARPS * 32)
-df_contract_f64(const double* __restrict__ c, const double* __restrict__ a,
-                double* __restrict__ out, int rows, int n, int t) {
-  const int warp = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows * t) return;
-  const int r = warp / t, o = warp % t;
-  const double* cr = c + (size_t)r * n;
-  const double* ar = a + (size_t)o * n;
-  double s = 0.0;
-  for (int j = lane; j < n; j += 32) s += cr[j] * ar[j];
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(FULL, s, off);
-  if (lane == 0) out[(size_t)r * t + o] = s;
+__global__ void __launch_bounds__(dmma::THREADS)
+df_contract_f64(const double* c, const double* a, double* out, int rows,
+                int n, int t, int kc, int vec_c, int vec_a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dmma::splitk_tile<double, dmma::BOp::NK>(smem, c, a, nullptr, out, rows, n,
+                                           t, kc, vec_c != 0, vec_a != 0);
 }
 
 }  // namespace
@@ -92,20 +53,28 @@ df_contract_f64(const double* __restrict__ c, const double* __restrict__ a,
 extern "C" int df_contract_launch(int device, int is_double, const void* c,
                                   const void* a_hi, const void* a_lo,
                                   void* out, int rows, int n, int t,
+                                  int cluster, int tiles_n, int tiles_m,
+                                  int kc, int vec_c, int vec_a,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = dmma::use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long warps = (long long)rows * t;
-  const unsigned blocks = (unsigned)((warps + WARPS - 1) / WARPS);
+  static unsigned smem_set[2] = {0, 0};
   if (is_double)
-    df_contract_f64<<<blocks, WARPS * 32, 0, s>>>(
-        (const double*)c, (const double*)a_hi, (double*)out, rows, n, t);
-  else
-    df_contract_f32<<<blocks, WARPS * 32, 0, s>>>(
-        (const float*)c, (const float*)a_hi, (const float*)a_lo, (float*)out,
-        rows, n, t);
-  return (int)cudaGetLastError();
+    return (int)dmma::launch(
+        df_contract_f64, dmma::Geo<double, dmma::BOp::NK>::SMEM_BYTES,
+        &smem_set[1], device, cluster, tiles_n, tiles_m, s, (const double*)c,
+        (const double*)a_hi, (double*)out, rows, n, t, kc, vec_c, vec_a);
+  return (int)dmma::launch(
+      df_contract_f32, dmma::Geo<float, dmma::BOp::NK_SPLIT>::SMEM_BYTES,
+      &smem_set[0], device, cluster, tiles_n, tiles_m, s, (const float*)c,
+      (const float*)a_hi, (const float*)a_lo, (float*)out, rows, n, t, kc,
+      vec_c, vec_a);
+}
+
+extern "C" int df_contract_smem_bytes(int is_double) {
+  return is_double ? dmma::Geo<double, dmma::BOp::NK>::SMEM_BYTES
+                   : dmma::Geo<float, dmma::BOp::NK_SPLIT>::SMEM_BYTES;
 }
 
 extern "C" const char* df_contract_error(int code) {

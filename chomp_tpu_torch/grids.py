@@ -113,12 +113,13 @@ class Statics(nn.Module):
     """Every static table of one grid as buffers on one device and dtype:
     GL rules, the mass and sigma(R) nodes, the Limber lattices with their
     fiducial Newton seeds, the Chebyshev table of halo_contract and the k
-    nodes of the ln P tables (``k_table``).
+    nodes of the ln P tables (``k_table``).  The tables land on the card
+    unless ``device`` names another (the CPU tests pass ``device="cpu"``).
 
     ``gl(n)`` and ``gl_unit(n)`` add a GL rule the first time an order is
     asked for."""
 
-    def __init__(self, grid, device=None, dtype=torch.float64):
+    def __init__(self, grid, device="cuda", dtype=torch.float64):
         super().__init__()
         from chomp_tpu_torch import limber_fft
         from chomp_tpu_torch.ops.halo_contract import cheb_table

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  On first use it is
 compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`` into ``build/kernels/`` at the repository root (the
-file name carries a hash of the source, so an edited kernel is rebuilt)
-and loaded with ``ctypes``.  A failed build raises; nothing falls back.
+file name carries a hash of the source and of the ``csrc/*.cuh`` headers
+it includes, so an edited kernel or header is rebuilt) and loaded with
+``ctypes``.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
@@ -34,10 +36,30 @@ def nvcc() -> str:
                        "to build the chomp_tpu_torch CUDA kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/*.cuh`` it includes, directly
+    or through another header, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(ARCH).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Build path of ``csrc/<name>.cu``; its name hashes the source, the
+    headers it includes and the target, so editing any of them rebuilds."""
+    h = hashlib.sha256(" ".join(ARCH).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -93,3 +115,12 @@ def device_index(t) -> int:
 
     idx = t.device.index
     return torch.cuda.current_device() if idx is None else idx
+
+
+def raw_stream(idx: int) -> int:
+    """The current CUDA stream of device ``idx`` as an integer handle.
+    ``torch.cuda.current_stream(d).cuda_stream`` builds a Stream object
+    first, which costs more host time than a small kernel's launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(idx)

@@ -1,18 +1,18 @@
-"""Kernel C: the two-float ("double-single") compensated contraction.
+"""Kernel C: the compensated contraction with a static float64 operator.
 
 ``out = c @ A.T`` with ``A`` a static float64 operator whose rows
 oscillate through sign (the fused lattice -> Hankel -> theta-bins map of
 the w(theta) pipeline), so a plain float32 sum loses ~eps x the ~100x
-cancellation.  In float32 every product is carried as an exact (p, e)
-pair and the sum in two-float arithmetic (~2^-48); float64 inputs take a
-plain float64 sum.  ``A`` is split once, by :func:`split_operator`, into
-float32 hi + lo.
+cancellation.  ``A`` is split once, by :func:`split_operator`, into
+float32 hi + lo.  The CUDA kernel multiplies float32 ``c`` by hi + lo on
+the FP64 tensor cores and sums in float64 (~2^-53; launch geometry from
+:func:`ops.tiles.split_k`); float64 inputs take a plain float64 sum.
 
 Replaces the JAX package's ``ops/df32.py::df_contract``; the CUDA source is
 ``chomp_tpu_torch/csrc/df_contract.cu``.  :func:`df_contract_ref` is the
-plain PyTorch version: Dekker two_prod and the balanced-tree ``df_sum``
-of the JAX module (each eager op is its own launch, so the error-free
-transforms stay exact on CPU and GPU alike).
+plain PyTorch version, the JAX module's two-float arithmetic (~2^-48):
+Dekker two_prod and the balanced-tree ``df_sum`` (each eager op is its
+own launch, so the error-free transforms stay exact on CPU and GPU alike).
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from chomp_tpu_torch.ops.build import device_index, load
+from chomp_tpu_torch.ops.build import device_index, load, raw_stream
+from chomp_tpu_torch.ops.tiles import split_k, vec16
 
 _SPLIT = 4097.0  # 2^12 + 1: Dekker split constant for float32
 
@@ -118,9 +119,11 @@ def _lib():
     lib.df_contract_launch.restype = ctypes.c_int
     lib.df_contract_launch.argtypes = (
         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.df_contract_error.restype = ctypes.c_char_p
     lib.df_contract_error.argtypes = [ctypes.c_int]
+    lib.df_contract_smem_bytes.restype = ctypes.c_int
+    lib.df_contract_smem_bytes.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -129,10 +132,11 @@ def df_contract(c, a_hi, a_lo=None):
     ``c`` (R, n); ``a_hi``/``a_lo`` as :func:`df_contract_ref`.  Returns
     (R, T).  Forward only: a CUDA input that requires grad raises."""
     ts = _check(c, a_hi, a_lo)
-    if c.device.type == "cpu":
+    dev = c.device
+    if dev.type == "cpu":
         return df_contract_ref(c, a_hi, a_lo)
-    if c.device.type != "cuda":
-        raise ValueError(f"df_contract: unsupported device {c.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"df_contract: unsupported device {dev}")
     if any(t.requires_grad for t in ts):
         raise NotImplementedError(
             "df_contract: the CUDA kernel is forward-only (backward kernel: "
@@ -142,14 +146,18 @@ def df_contract(c, a_hi, a_lo=None):
     lib = _lib()
     rows, n = c.shape
     t = a_hi.shape[0]
-    out = torch.empty((rows, t), dtype=c.dtype, device=c.device)
+    out = torch.empty((rows, t), dtype=c.dtype, device=dev)
     if rows == 0 or t == 0:
         return out
+    geo = split_k(rows, n, t)
+    idx = device_index(c)
+    size = c.element_size()
+    p_c, p_hi = c.data_ptr(), a_hi.data_ptr()
+    p_lo = a_lo.data_ptr() if a_lo is not None else None
     rc = lib.df_contract_launch(
-        device_index(c), int(c.dtype == torch.float64), c.data_ptr(),
-        a_hi.data_ptr(), a_lo.data_ptr() if a_lo is not None else None,
-        out.data_ptr(), rows, n, t,
-        torch.cuda.current_stream(c.device).cuda_stream)
+        idx, int(size == 8), p_c, p_hi, p_lo, out.data_ptr(), rows, n, t,
+        *geo.grid, geo.kc, vec16(n * size, p_c),
+        vec16(n * size, p_hi, p_lo or 0), raw_stream(idx))
     if rc != 0:
         raise RuntimeError("df_contract launch failed: "
                            + lib.df_contract_error(rc).decode())

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from chomp_tpu_torch import _special_coeffs as _cf
-from chomp_tpu_torch.ops.build import device_index, load
+from chomp_tpu_torch.ops.build import device_index, load, raw_stream
 from chomp_tpu_torch.special import _trim, n_g_asym, n_series, nfw_n
 
 N_OUT = 5
@@ -160,11 +160,11 @@ def halo_contract(k, mat, gal, cheb):
     out = torch.empty((b, N_OUT, nk), dtype=k.dtype, device=k.device)
     if b == 0 or nk == 0:
         return out
+    idx = device_index(k)
     rc = lib.halo_contract_launch(
-        device_index(k), int(k.dtype == torch.float64), k.data_ptr(), nk,
+        idx, int(k.dtype == torch.float64), k.data_ptr(), nk,
         mat.data_ptr(), nm, gal.data_ptr(), ng, out.data_ptr(), b,
-        cheb.data_ptr(), *_lens(k.dtype),
-        torch.cuda.current_stream(k.device).cuda_stream)
+        cheb.data_ptr(), *_lens(k.dtype), raw_stream(idx))
     if rc != 0:
         raise RuntimeError("halo_contract launch failed: "
                            + lib.halo_contract_error(rc).decode())

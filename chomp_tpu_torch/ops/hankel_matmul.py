@@ -4,9 +4,11 @@
 times the transposed composed FFTLog Hankel + theta-binning operator
 (``correlation.wtheta_bins_operator``), the JAX public layout of
 ``hankel_matmul_pallas``.  The operator's rows oscillate through sign, so
-the float32 products are full FP32 FMAs (no TF32, no bf16); float64 input
-takes the float64 instantiation (the reference mode; the JAX Pallas kernel
-always rounds to float32).
+the kernel multiplies on the FP64 tensor cores (no TF32, no bf16): the
+float32 output is the float64 sum of exact products, rounded once.
+float64 input takes the float64 instantiation (the reference mode; the JAX
+Pallas kernel always rounds to float32).  The launch geometry (split of N
+over a thread-block cluster) comes from :func:`ops.tiles.split_k`.
 
 Replaces the JAX package's ``ops/fftlog_pallas.py::hankel_matmul_pallas``;
 the CUDA source is ``chomp_tpu_torch/csrc/hankel_matmul.cu``.
@@ -22,7 +24,8 @@ from functools import lru_cache
 
 import torch
 
-from chomp_tpu_torch.ops.build import device_index, load
+from chomp_tpu_torch.ops.build import device_index, load, raw_stream
+from chomp_tpu_torch.ops.tiles import split_k, vec16
 
 
 @contextlib.contextmanager
@@ -63,9 +66,11 @@ def _lib():
     lib.hankel_matmul_launch.restype = ctypes.c_int
     lib.hankel_matmul_launch.argtypes = (
         [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.hankel_matmul_error.restype = ctypes.c_char_p
     lib.hankel_matmul_error.argtypes = [ctypes.c_int]
+    lib.hankel_matmul_smem_bytes.restype = ctypes.c_int
+    lib.hankel_matmul_smem_bytes.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -75,10 +80,11 @@ def hankel_matmul(cl, op_t):
     Returns (R, T).  Forward only: a CUDA input that requires grad
     raises."""
     _check(cl, op_t)
-    if cl.device.type == "cpu":
+    dev = cl.device
+    if dev.type == "cpu":
         return hankel_matmul_ref(cl, op_t)
-    if cl.device.type != "cuda":
-        raise ValueError(f"hankel_matmul: unsupported device {cl.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"hankel_matmul: unsupported device {dev}")
     if cl.requires_grad or op_t.requires_grad:
         raise NotImplementedError(
             "hankel_matmul: the CUDA kernel is forward-only (backward "
@@ -88,13 +94,17 @@ def hankel_matmul(cl, op_t):
     lib = _lib()
     rows, n = cl.shape
     t = op_t.shape[1]
-    out = torch.empty((rows, t), dtype=cl.dtype, device=cl.device)
+    out = torch.empty((rows, t), dtype=cl.dtype, device=dev)
     if rows == 0 or t == 0:
         return out
+    geo = split_k(rows, n, t)
+    idx = device_index(cl)
+    size = cl.element_size()
+    p_cl, p_op = cl.data_ptr(), op_t.data_ptr()
     rc = lib.hankel_matmul_launch(
-        device_index(cl), int(cl.dtype == torch.float64), cl.data_ptr(),
-        op_t.data_ptr(), out.data_ptr(), rows, n, t,
-        torch.cuda.current_stream(cl.device).cuda_stream)
+        idx, int(size == 8), p_cl, p_op, out.data_ptr(), rows, n, t,
+        *geo.grid, geo.kc, vec16(n * size, p_cl), vec16(t * size, p_op),
+        raw_stream(idx))
     if rc != 0:
         raise RuntimeError("hankel_matmul launch failed: "
                            + lib.hankel_matmul_error(rc).decode())

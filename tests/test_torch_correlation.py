@@ -110,6 +110,26 @@ def test_hankel_matmul_ref_matches_pallas_interpret(ref):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5)
 
 
+def test_float64_accumulation_no_worse_than_plain_version(ref):
+    """Kernel B's arithmetic on the card (exact products of the float32
+    inputs, a float64 sum, one rounding) against the exact product: no
+    worse than the plain version's float32 matmul, and within one
+    rounding (2^-24 of each row's peak)."""
+    cl = np.concatenate([ref["cl.gg"], 1.5 * ref["cl.kg"]]).astype(np.float32)
+    op_t = np.ascontiguousarray(jcorr.wtheta_bins_operator(
+        tuple(THETA.tolist()), tp.GRID, 0.0).T).astype(np.float32)
+    exact = cl.astype(np.longdouble) @ op_t.astype(np.longdouble)
+    ours = (torch.tensor(cl).double() @ torch.tensor(op_t).double()).float()
+    plain = hm.hankel_matmul_ref(torch.tensor(cl), torch.tensor(op_t))
+
+    def err(x):
+        d = np.abs(x.numpy().astype(np.longdouble) - exact).max(1)
+        return float(np.max(d / np.abs(exact).max(1)))
+
+    assert err(ours) <= err(plain)
+    assert err(ours) <= 2.0 ** -24
+
+
 def test_hankel_matmul_takes_plain_version_on_cpu(ref):
     """A CPU tensor takes the plain version: equal to it, no launch."""
     cl = torch.tensor(ref["cl.gg"])

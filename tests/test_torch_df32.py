@@ -116,3 +116,40 @@ def test_df_contract_rejects_bad_inputs(bad):
         c, hi, lo = (t.to("meta") for t in (c, hi, lo))
     with pytest.raises((ValueError, TypeError)):
         df32.df_contract(c, hi, lo)
+
+
+def _tensor_core_contract(c, hi, lo):
+    """Kernel C's arithmetic on the card: float32 ``c`` times the float64
+    operator hi + lo (exact), summed in float64 and rounded once."""
+    return (c.double() @ (hi.double() + lo.double()).T).float()
+
+
+@pytest.mark.parametrize("case", ["cancelling", "hostile", "jax"])
+def test_tensor_core_arithmetic_meets_the_gates(case):
+    """The redesigned kernel's float64 arithmetic meets chip_smoke.py's
+    phase-3 gates: <= 1e-6 of peak against the plain two-float version,
+    < 5e-6 worst on the hostile case, rtol 1e-6 against the JAX float64
+    answer on the inputs of the JAX-parity test above."""
+    if case == "cancelling":
+        rng = np.random.default_rng(3)
+        c = rng.lognormal(0.0, 1.0, (16, 2220)).astype(np.float32)
+        a = rng.normal(size=(64, 2220))
+        hi, lo = (torch.tensor(x) for x in df32.split_operator(a))
+        got = _tensor_core_contract(torch.tensor(c), hi, lo)
+        ref = df32.df_contract_ref(torch.tensor(c), hi, lo)
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-6
+    elif case == "hostile":
+        c32, a64 = _hostile()
+        hi, lo = (torch.tensor(x) for x in df32.split_operator(a64))
+        got = _tensor_core_contract(torch.tensor(c32[None]), hi, lo)
+        ref = a64 @ c32.astype(np.float64)
+        assert np.max(np.abs(got[0].double().numpy() / ref - 1.0)) < 5e-6
+    else:
+        rng = np.random.default_rng(4)
+        c = rng.uniform(0.1, 1.0, (5, 300)).astype(np.float32)
+        a = rng.normal(size=(6, 300))
+        hi, lo = (torch.tensor(x) for x in df32.split_operator(a))
+        got = _tensor_core_contract(torch.tensor(c), hi, lo).double().numpy()
+        ref = np.asarray(jdf32.df_contract(
+            jnp.asarray(c.astype(np.float64)), a))
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
