@@ -8,9 +8,15 @@ order (any failure exits nonzero; nothing falls back):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. kernel A (halo_contract) against its plain PyTorch version on the
-   node arrays of the main path's 512 cosmologies at DEFAULT_GRID
-   (float64 on 8 of them to 1e-12, float32 on all to 2e-6, both
-   relative to each output's peak), with its times;
+   node arrays of the main path's 512 cosmologies at DEFAULT_GRID, and
+   on a second node set with the feedback hooks on (bary_c = 1.2,
+   bary_eta = 0.1): float64 on 8 of them to 1e-12; float32 on all to
+   2e-6 against the plain version evaluated in float64 on the same
+   float32 inputs, and no worse than 1.5x the plain float32 version's
+   own error against that reference (all relative to each output's
+   peak); two launches bit for bit; the same gates on the ragged
+   (NK, NM, NG) = (1000, 37, 5); the share of profile evaluations per
+   route of the kernel on both routes' k grids; with its times;
 3. kernel C (df_contract) against its plain version at (512, 2220) x
    (64, 2220): float64 to 1e-12; float32 (the main path's kernel) to
    1e-6 of peak against the plain version and 1e-7 of peak against the
@@ -154,40 +160,84 @@ def bound(flops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def halo_contract_flops(k, mat, gal, lens):
+def one_profile(gal):
+    """(B, NG) mask of the galaxy nodes whose matter and galaxy profile
+    parameters coincide: kernel A evaluates their profile once."""
+    return (gal[..., 0] == gal[..., 2]) & (gal[..., 1] == gal[..., 3])
+
+
+def halo_contract_flops(k, mat, gal, lens, moments):
     """Floating-point operations kernel A does on these inputs, counted
-    from csrc/halo_contract.cu per evaluation branch (series x <= 4,
-    Chebyshev x <= 16 and x <= 64, asymptotic beyond; sincos and log as
-    one operation each), for the branch each (cosmology, k, node) takes.
-    The double-precision accumulations are counted at the FP32 rate, so
-    the bound stays a lower one."""
+    from csrc/halo_contract.cu per route (moment series b <= 4; beyond it
+    g(x) by series x <= 4, Chebyshev x <= 64 or asymptotic, and f - 1/x,
+    g at b by Chebyshev b <= 64 or asymptotic), for the route each
+    (cosmology, k, profile) takes, with one profile where a galaxy node's
+    matter and galaxy parameters coincide; sincos, log and a reciprocal
+    as one operation each, an FMA as two.  The double-precision
+    accumulations are counted at the FP32 rate, so the bound stays a
+    lower one."""
     import torch
 
     afm, ag, bfm, bg, series, g_asym = lens
 
-    def aux(x, cheb_lo, cheb_hi, tail, fm):
-        return torch.where(
-            x <= 4, 4 * series + (12 if fm else 10), torch.where(
-                x <= 16, 4 * cheb_lo + (4 if fm else 5), torch.where(
-                    x <= 64, 4 * cheb_hi + (4 if fm else 5), tail)))
-
     def profile(x, c):
         b = (1.0 + c) * x
-        return (9 + aux(x, ag, bg, 2 * g_asym + 3, False)
-                + aux(b, afm, bfm, 16, True) + aux(b, ag, bg, 2 * g_asym + 3,
-                                                   False))
+        gx = torch.where(x <= 4, 4 * series + 8, torch.where(
+            x <= 16, 3 * ag + 6, torch.where(x <= 64, 3 * bg + 6,
+                                             2 * g_asym + 3)))
+        fg = torch.where(b <= 16, 3 * (afm + ag) + 7, torch.where(
+            b <= 64, 3 * (bfm + bg) + 7, 2 * g_asym + 17))
+        return 2 + torch.where(b <= 4, 2 * moments - 1, 6 + gx + fg)
 
+    same = one_profile(gal)
     total = 0.0
     for i in range(0, k.numel(), 64):
         kk = k[i:i + 64][None, :, None]
         total += float(profile(kk * mat[:, None, :, 0],
                                mat[:, None, :, 1]).double().sum()
-                       + 6 * mat.shape[0] * kk.numel() * mat.shape[1])
+                       + 5 * mat.shape[0] * kk.numel() * mat.shape[1])
+        n_g = profile(kk * gal[:, None, :, 2], gal[:, None, :, 3])
         total += float((profile(kk * gal[:, None, :, 0], gal[:, None, :, 1])
-                        + profile(kk * gal[:, None, :, 2],
-                                  gal[:, None, :, 3])).double().sum()
-                       + 14 * gal.shape[0] * kk.numel() * gal.shape[1])
+                        + torch.where(same[:, None, :], 0, n_g)
+                        ).double().sum()
+                       + 10 * gal.shape[0] * kk.numel() * gal.shape[1])
     return total
+
+
+def branch_mix(k, mat, gal):
+    """Shares of kernel A's profile evaluations per route on these inputs
+    (one evaluation where a galaxy node's two profiles coincide), the
+    share of |c x| above 105615 (where the library sincosf leaves its fast
+    path) and at or above 2^27 (where the kernel calls it), and max c x."""
+    import torch
+
+    same = one_profile(gal)
+    profs = [(mat[..., 0], mat[..., 1], torch.ones_like(mat[..., 0])),
+             (gal[..., 0], gal[..., 1], torch.ones_like(gal[..., 0])),
+             (gal[..., 2], gal[..., 3], (~same).to(gal.dtype))]
+    names = ("moment series b<=4", "g(x) series x<=4<b",
+             "g(x) Chebyshev 4<x<=64", "g(x) asymptotic x>64",
+             "f,g(b) Chebyshev 4<b<=64", "f,g(b) asymptotic b>64",
+             "|cx|>105615", "|cx|>=2^27")
+    cnt = torch.zeros(len(names), dtype=torch.float64, device=k.device)
+    tot, cx_max = 0.0, 0.0
+    for i in range(0, k.numel(), 64):
+        kk = k[i:i + 64][None, :, None]
+        for rs, c, w in profs:
+            x = kk * rs[:, None, :]
+            c = c[:, None, :]
+            b, cx = (1.0 + c) * x, (c * x).abs()
+            w = w[:, None, :].expand_as(x).double()
+            big = b > 4
+            masks = (~big, big & (x <= 4), big & (x > 4) & (x <= 64),
+                     big & (x > 64), big & (b <= 64), big & (b > 64),
+                     big & (cx > 105615), big & (cx >= 2.0 ** 27))
+            cnt += torch.stack([(w * m).sum() for m in masks])
+            tot += float(w.sum())
+            cx_max = max(cx_max, float(cx.max()))
+    shares = (cnt / tot).tolist()
+    return ({n: v for n, v in zip(names, shares)}, float(same.double().mean()),
+            cx_max)
 
 
 def geometry(rows, n, t):
@@ -269,65 +319,136 @@ def main():
     check = np.unique(np.linspace(0, N_COSMO - 1, N_CHECK).round()
                       ).astype(int)
 
-    def setup(dtype, idx=None):
+    def setup(dtype, idx=None, feedback=False):
         o = oms if idx is None else oms[idx]
         s = s8s if idx is None else s8s[idx]
         kw = dict(device=dev, dtype=dtype)
+        # The feedback hooks (c x 1.2, k x nu^0.05) make every galaxy
+        # node's matter profile differ from its galaxy profile.
+        hooks = (dict(bary_c=np.full(len(o), 1.2),
+                      bary_eta=np.full(len(o), 0.1)) if feedback else {})
         batch = broadcast_cosmo(default_cosmo(**kw), omega_m0=o,
-                                omega_l0=1.0 - o, sigma_8=s)
+                                omega_l0=1.0 - o, sigma_8=s, **hooks)
         dist = DNdzGaussian(*(torch.tensor(v, **kw)
                               for v in (0.0, 2.0, 1.0, 0.2)))
         return batch, default_halo(**kw), default_hod(**kw), dist
 
     # -- 2. kernel A ----------------------------------------------------
-    def model_for(dtype, idx=None):
+    def model_for(dtype, idx=None, feedback=False):
         st = Statics(DEFAULT_GRID, device=dev, dtype=dtype)
-        batch, hp, hod, dist = setup(dtype, idx)
+        batch, hp, hod, dist = setup(dtype, idx, feedback)
         z = torch.ones(1, device=dev, dtype=dtype)
         return st, batch, hp, dist, halo.build_halo_model(batch, hp, hod, z,
                                                           st)
 
-    def nodes(dtype, idx=None):
-        st, batch, hp, dist, model = model_for(dtype, idx)
+    def nodes(dtype, idx=None, feedback=False):
+        st, batch, hp, dist, model = model_for(dtype, idx, feedback)
         mat, gal = halo.contraction_nodes(batch, hp, model)
         return st, mat, gal
 
+    def check_a(k, mat32, gal32, k64, mat64, gal64, cheb32, cheb64):
+        """Kernel A in float64 against its plain version (relative to each
+        output's peak); in float32 against the plain version on the same
+        float32 inputs in float64, beside the plain float32 version's own
+        error against that reference; two launches bit for bit."""
+        got64 = hc.halo_contract(k64, mat64, gal64, cheb64)
+        got32 = hc.halo_contract(k, mat32, gal32, cheb32)
+        exact = hc.halo_contract_ref(k.double(), mat32.double(),
+                                     gal32.double())
+        plain32 = hc.halo_contract_ref(k, mat32, gal32)
+        return {"f64": rel_to_peak(got64, hc.halo_contract_ref(k64, mat64,
+                                                               gal64)),
+                "f32": rel_to_peak(got32.double(), exact),
+                "abs": float((got32.double() - exact).abs().max()),
+                "plain32": rel_to_peak(plain32.double(), exact),
+                "vs_plain32": rel_to_peak(got32, plain32),
+                "same": (torch.equal(got32, hc.halo_contract(
+                    k, mat32, gal32, cheb32)) and torch.equal(
+                        got64, hc.halo_contract(k64, mat64, gal64, cheb64)))}
+
     st64, mat64, gal64 = nodes(f64, check)
-    got = hc.halo_contract(st64.lattice_k, mat64, gal64, st64.cheb)
-    ref = hc.halo_contract_ref(st64.lattice_k, mat64, gal64)
-    err_a64 = rel_to_peak(got, ref)
     st32, mat32, gal32 = nodes(f32)
-    k32 = st32.lattice_k
-    got32 = hc.halo_contract(k32, mat32, gal32, st32.cheb)
-    ref32 = hc.halo_contract_ref(k32, mat32, gal32)
-    err_a32 = rel_to_peak(got32, ref32)
-    abs_a32 = float((got32 - ref32).abs().max())
+    k32, k64 = st32.lattice_k, st64.lattice_k
+    _, matf64, galf64 = nodes(f64, check, feedback=True)
+    _, matf32, galf32 = nodes(f32, feedback=True)
+    cheb32, cheb64 = st32.cheb, st64.cheb
+    sets_a = {
+        "main": check_a(k32, mat32, gal32, k64, mat64, gal64, cheb32,
+                        cheb64),
+        "feedback": check_a(k32, matf32, galf32, k64, matf64, galf64,
+                            cheb32, cheb64)}
+    # The ragged case: 1000 k (the lattice's every third, so the k tile
+    # and node tiles end part-full), 37 mass nodes (every seventh) and 5
+    # galaxy nodes (every fiftieth from the 26th: the lightest carry no
+    # galaxies, so their outputs are 0).
+    kr32, kr64 = (kk[::3][:1000].contiguous() for kk in (k32, k64))
+    sets_a["ragged"] = check_a(
+        kr32, mat32[:, ::7].contiguous(), gal32[:, 25::50].contiguous(),
+        kr64, mat64[:, ::7].contiguous(), gal64[:, 25::50].contiguous(),
+        cheb32, cheb64)
     # 100 back-to-back launches of the kernel; 2 of its plain version
     # (2.2 s a call), in turns.
     ms_a, plain_ms_a = in_turns_ms(
-        lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb),
+        lambda: hc.halo_contract(k32, mat32, gal32, cheb32),
         lambda: hc.halo_contract_ref(k32, mat32, gal32), other_reps=2)
+    ms_a_fb = events_ms(lambda: hc.halo_contract(k32, matf32, galf32,
+                                                 cheb32))
     # Device times (torch.profiler) are taken after phase 7: a profiler
     # session leaves CUPTI attached, which slows every later launch from
     # the host and would inflate the walls and event times that follow.
-    profiled = {"halo_contract": (
-        lambda: hc.halo_contract(k32, mat32, gal32, st32.cheb), None, 5)}
-    bound_a = bound(
-        halo_contract_flops(k32, mat32, gal32, hc._lens(f32)),
-        4 * (k32.numel() + mat32.numel() + gal32.numel()
-             + st32.cheb.numel() + got32.numel()))
-    print(f"[halo_contract] B={N_COSMO} NK={k32.numel()} "
-          f"NM={mat32.shape[1]} NG={gal32.shape[1]} | f64 rel_to_peak="
-          f"{err_a64:.3e} (8 cosmologies, gate 1e-12) | f32 rel_to_peak="
-          f"{err_a32:.3e} max_abs={abs_a32:.3e} (gate 2e-6) | f32 kernel "
-          f"{ms_a:.3f} ms, plain {plain_ms_a:.3f} ms (CUDA events over "
-          f"back-to-back calls) | bound {bound_a[0]:.4f} ms by {bound_a[1]}",
+    profiled = {
+        "halo_contract": (lambda: hc.halo_contract(k32, mat32, gal32,
+                                                   cheb32), None, 5),
+        "halo_contract feedback": (lambda: hc.halo_contract(
+            k32, matf32, galf32, cheb32), None, 5),
+        "halo_contract table k": (lambda: hc.halo_contract(
+            st32.k_table, mat32, gal32, cheb32), None, 5)}
+
+    def bound_a_of(k, mat, gal):
+        return bound(halo_contract_flops(k, mat, gal, hc._lens(f32),
+                                         hc.n_moments(f32)),
+                     4 * (k.numel() + mat.numel() + gal.numel()
+                          + cheb32.numel() + hc.N_OUT * mat.shape[0]
+                          * k.numel()))
+
+    bound_a = bound_a_of(k32, mat32, gal32)
+    bound_a_fb = bound_a_of(k32, matf32, galf32)
+    bound_a_tab = bound_a_of(st32.k_table, mat32, gal32)
+    abs_a32 = sets_a["main"]["abs"]
+    for name, q in sets_a.items():
+        print(f"[halo_contract] {name}: f64 rel_to_peak={q['f64']:.3e} (8 "
+              f"cosmologies, gate 1e-12) | f32 vs plain version on the "
+              f"same inputs in f64: rel_to_peak={q['f32']:.3e} max_abs="
+              f"{q['abs']:.3e} (gate 2e-6, and <= 1.5x the plain f32 "
+              f"version's own {q['plain32']:.3e}) | f32 vs plain f32 "
+              f"{q['vs_plain32']:.3e} | deterministic={q['same']}",
+              flush=True)
+    print(f"[halo_contract] B={N_COSMO} NK={k32.numel()} NM="
+          f"{mat32.shape[1]} NG={gal32.shape[1]} float32 | kernel "
+          f"{ms_a:.3f} ms (feedback set {ms_a_fb:.3f} ms), plain "
+          f"{plain_ms_a:.3f} ms (CUDA events over back-to-back calls) | "
+          f"bound {bound_a[0]:.4f} ms by {bound_a[1]} (feedback set "
+          f"{bound_a_fb[0]:.4f} ms, table k {bound_a_tab[0]:.4f} ms)",
           flush=True)
-    if not err_a64 <= 1e-12:
-        fail(f"halo_contract float64 error {err_a64}")
-    if not err_a32 <= 2e-6:
-        fail(f"halo_contract float32 error {err_a32}")
-    del ref32, got32
+    for kname, kk in (("lattice", k32), ("table", st32.k_table)):
+        for sname, (m, g) in (("main", (mat32, gal32)),
+                              ("feedback", (matf32, galf32))):
+            mix, same, cx_max = branch_mix(kk, m, g)
+            print(f"[halo_contract] branch mix, {kname} k ({kk.numel()}), "
+                  f"{sname} nodes: " + ", ".join(
+                      f"{n} {v:.4f}" for n, v in mix.items())
+                  + f" | galaxy nodes with one profile {same:.3f} | max "
+                  f"|cx| {cx_max:.4g}", flush=True)
+    for name, q in sets_a.items():
+        if not q["f64"] <= 1e-12:
+            fail(f"halo_contract {name}: float64 error {q['f64']}")
+        if not q["f32"] <= 2e-6:
+            fail(f"halo_contract {name}: float32 error {q['f32']}")
+        if not q["f32"] <= 1.5 * q["plain32"]:
+            fail(f"halo_contract {name}: float32 error {q['f32']} above "
+                 f"1.5x the plain float32 version's {q['plain32']}")
+        if not q["same"]:
+            fail(f"halo_contract {name}: two launches differ")
 
     # -- 3. kernel C ----------------------------------------------------
     theta = tuple(np.logspace(-3, 0, 64).tolist())
@@ -727,7 +848,12 @@ def main():
     kernels = [
         record("halo_contract", "chomp_tpu_torch/csrc/halo_contract.cu",
                "chomp_tpu/ops/halo_pallas.py:77", abs_a32, ms_a, plain_ms_a,
-               bound_a, None, *dev["halo_contract"]),
+               bound_a, None, *dev["halo_contract"])
+        | {"feedback_ms": ms_a_fb,
+           "feedback_device_ms": dev["halo_contract feedback"][0],
+           "feedback_bound_ms": bound_a_fb[0],
+           "table_k_device_ms": dev["halo_contract table k"][0],
+           "table_k_bound_ms": bound_a_tab[0]},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
                bound_c, lib_ms_c, *dev["df_contract"]),

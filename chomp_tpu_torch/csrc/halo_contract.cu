@@ -15,21 +15,51 @@
 // (1/mu(c), the quadrature weight and the Scranton p=1 / p=2 select are
 // folded into the per-node, per-cosmology weights by the caller.)
 //
-// What bounds it on the card: arithmetic.  Each (k, node) pair costs three
-// auxiliary-function evaluations (series, Chebyshev or asymptotic branch)
-// and one sincos whose argument c k r_s reaches ~1e7 at the top of the
-// lattice, so the accurate (Payne-Hanek) range reduction is taken: no fast
-// math anywhere.  The node arrays are a few KB per cosmology and the output
-// is 5 numbers per k, so memory traffic is negligible.
+// What bounds it on the card: arithmetic.  The contraction is ~12 flops a
+// (k, node) pair against ~100 or more for the profile, and the inputs are a
+// few KB per cosmology with 5 outputs per k, so memory traffic is
+// negligible; wgmma and TMA have nothing to do here.  At the main path's
+// shape (3542 or 4096 k, 256 mass + 256 galaxy nodes) the profile is
+// evaluated ~1.4e9 times a batch of 512, over arguments that span
+// x = 1e-8..1e6 and c x up to 1.1e8.  What the design does about it:
 //
-// Simple design: one block per (128-k tile, cosmology); each thread owns one
-// k and loops over every node, staged through shared memory in tiles of 128,
-// accumulating its five outputs in double registers.  No atomics, so the
-// result is deterministic.  The Chebyshev tables live in __constant__ memory
-// (every thread of a warp reads the same coefficient: a broadcast), copied
-// there on the launch stream before each launch; the float instantiation
-// carries the float32 trimming of the JAX package's special.py (trimmed table
-// lengths, 10 series terms, 4 asymptotic g terms) through `Lens`.
+// 1. Small-argument route.  For b = (1+c)x <= 4 the transform is the
+//    convergent moment series  N = sum_n (-1)^n x^2n M_n(c) / (2n+1)!,
+//    M_n(c) = int_0^c t^(2n+1) / (1+t)^2 dt,  M_0 = mu(c)
+//    (from mu(c) y = int_0^c t/(1+t)^2 sinc(x t) dt).  The coefficients
+//    depend only on the node, so each block computes them in float64 once
+//    per staged node (recurrence below) and rounds them to the kernel's
+//    type; a pair then costs MOMENTS FMAs in x^2.  Truncation at b <= 4 is
+//    below 4^(2N)/(2N+1)!: 16 terms in float64 (2e-18 of mu(c)), 10 in
+//    float32 (2e-8).  48% of the main path's profile evaluations on the
+//    lattice k and 65% on the table route's k take this route, in place
+//    of three Si/Ci series, three logs and four sincos.
+// 2. Beyond it b > 4, so f - 1/x and g at b come from one reciprocal and
+//    one pass over both Chebyshev tables (or the asymptotic series), the
+//    aux_fg shape of the JAX package's special.py; the Si/Ci power series
+//    runs only for g(x) at x <= 4.
+// 3. A galaxy node whose matter and galaxy parameters coincide (no
+//    feedback hooks: c_scale = 1, k_scale exponent 0) evaluates the
+//    profile once; the test is on the staged node, uniform across the block.
+// 4. sin, cos of c x in float32: the argument is reduced in double
+//    (q = rint(cx 2/pi), two Cody-Waite FMA steps with pi/2 split into two
+//    doubles, exact to ~1e-16 for |cx| < 2^27) and the float polynomials
+//    run on the reduced argument, so the library's Payne-Hanek slow path
+//    (taken above |cx| = 105615, 15% of pairs) is never reached below 2^27;
+//    above it the library sincosf runs.  No fast math on any path.
+// 5. Weights are staged in shared memory as double once per block; the
+//    Chebyshev interval maps multiply by precomputed reciprocals; one
+//    reciprocal per evaluation (1/b, and 1/x from it); the moment
+//    recurrence multiplies by constant reciprocals, no division.
+//
+// Layout: one block per (128-k tile, cosmology); each thread owns one k and
+// loops over the nodes, staged through shared memory in tiles of 64 (every
+// thread reads the same node: a broadcast), accumulating its five outputs
+// in double registers.  No atomics, so the result is deterministic.  The
+// Chebyshev tables live in __constant__ memory, copied there on the launch
+// stream before each launch; the table lengths, series terms and moment
+// counts are compile-time constants per type (the float32 trimming of the
+// JAX package's special.py), checked against the caller's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,10 +67,12 @@
 namespace {
 
 constexpr int BLOCK = 128;
-constexpr int TILE = 128;
+constexpr int TILE = 64;
 constexpr int MAT_F = 4;  // rs, c, wa (h_m), wb (pp_mm)
 constexpr int GAL_F = 9;  // rs_m, c_m, rs_g, c_g, a_hg, a_gg, b_gg, a_gm, b_gm
 constexpr int N_OUT = 5;  // h_m, h_g, pp_mm, pp_gg, pp_gm
+constexpr int N_W = 5;    // weights per staged node
+static_assert(BLOCK == 2 * TILE, "two threads stage each galaxy node");
 
 // Packed table layout (chomp_tpu_torch/ops/halo_contract.py builds it).
 constexpr int OFF_AFM = 0, OFF_AG = 32, OFF_BFM = 64, OFF_BG = 96;
@@ -49,14 +81,24 @@ constexpr int N_PACK = 176;
 
 constexpr double HALF_PI = 1.5707963267948966;
 constexpr double EULER_GAMMA = 0.5772156649015329;
+constexpr double SMALL_B = 4.0;  // moment-series route for (1+c)x <= 4
+// Chebyshev intervals in u = 1/x: A [1/16, 1/4], B [1/64, 1/16]; the map
+// to [-1, 1] is u * 2/(hi-lo) - (hi+lo)/(hi-lo).
+constexpr double A_SCALE = 2.0 / 0.1875, A_SHIFT = 0.3125 / 0.1875;
+constexpr double B_SCALE = 2.0 / 0.046875, B_SHIFT = 0.078125 / 0.046875;
 
 __constant__ double c_tab_d[N_PACK];
 __constant__ float c_tab_f[N_PACK];
 
-struct Lens {
-  int afm, ag, bfm, bg;  // Chebyshev terms kept per table
-  int series;            // Si/Ci power-series terms
-  int g_asym;            // asymptotic g terms
+// Terms kept per type (ops/halo_contract.py::_lens and n_moments).
+template <typename T> struct Lens;
+template <> struct Lens<float> {
+  static constexpr int afm = 9, ag = 10, bfm = 6, bg = 7, series = 10,
+                       g_asym = 4, moments = 10, stride = 12;
+};
+template <> struct Lens<double> {
+  static constexpr int afm = 29, ag = 29, bfm = 29, bg = 29, series = 16,
+                       g_asym = 7, moments = 16, stride = 16;
 };
 
 template <typename T> __device__ __forceinline__ T tab(int i);
@@ -65,78 +107,173 @@ template <> __device__ __forceinline__ double tab<double>(int i) { return c_tab_
 
 __device__ __forceinline__ float log_(float x) { return logf(x); }
 __device__ __forceinline__ double log_(double x) { return log(x); }
+__device__ __forceinline__ float rcp_(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp_(double x) { return __drcp_rn(x); }
 __device__ __forceinline__ void sincos_(float x, float* s, float* c) { sincosf(x, s, c); }
 __device__ __forceinline__ void sincos_(double x, double* s, double* c) { sincos(x, s, c); }
 
-template <typename T>
-__device__ T cheb_on(int off, int n, T lo, T hi, T t) {
-  const T x = (T(2) * t - (hi + lo)) / (hi - lo);
+// sin, cos of a possibly large float argument without the slow path (4.
+// above).  pi/2 = PIO2_HI + PIO2_LO to ~1e-33; the float polynomials are
+// the minimax fits of sin and cos on [-pi/4, pi/4] (Cephes sinf/cosf).
+__device__ __forceinline__ void sincos_big(float a, float* s, float* c) {
+  if (!(fabsf(a) < 134217728.0f)) {  // 2^27, or not finite
+    sincosf(a, s, c);
+    return;
+  }
+  constexpr double TWO_OVER_PI = 0.63661977236758134;
+  constexpr double PIO2_HI = 1.5707963267948966;
+  constexpr double PIO2_LO = 6.123233995736766e-17;
+  constexpr double ROUND = 6755399441055744.0;  // 1.5 * 2^52
+  const double d = (double)a;
+  const double t = fma(d, TWO_OVER_PI, ROUND);  // q in t's low bits
+  const int quad = __double2loint(t);
+  const double q = t - ROUND;
+  const float r = (float)fma(-q, PIO2_LO, fma(-q, PIO2_HI, d));
+  const float z = r * r;
+  const float sp = fmaf(fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z,
+                             -1.6666654611e-1f), z * r, r);
+  const float cp = fmaf(fmaf(fmaf(2.443315711809948e-5f, z,
+                                  -1.388731625493765e-3f), z,
+                             4.166664568298827e-2f), z * z,
+                        fmaf(-0.5f, z, 1.0f));
+  const float ss = (quad & 1) ? cp : sp;
+  const float cc = (quad & 1) ? sp : cp;
+  *s = (quad & 2) ? -ss : ss;
+  *c = ((quad + 1) & 2) ? -cc : cc;
+}
+__device__ __forceinline__ void sincos_big(double a, double* s, double* c) {
+  sincos(a, s, c);
+}
+
+// Chebyshev series of table `off` (N terms) at t in [-1, 1] (Clenshaw).
+template <typename T, int N>
+__device__ __forceinline__ T cheb(int off, T t) {
+  const T t2 = t + t;
   T b1 = T(0), b2 = T(0);
-  for (int k = n - 1; k >= 1; --k) {
-    const T nb = T(2) * x * b1 - b2 + tab<T>(off + k);
+#pragma unroll
+  for (int k = N - 1; k >= 1; --k) {
+    const T nb = fma(t2, b1, tab<T>(off + k) - b2);
     b2 = b1;
     b1 = nb;
   }
-  return x * b1 - b2 + tab<T>(off);
+  return fma(t, b1, tab<T>(off) - b2);
 }
 
+// g(x), full range (Si = pi/2 - f cos - g sin, Ci = f sin - g cos);
+// u = 1/x, read for x > 4.
 template <typename T>
-__device__ void sici_series(T x, int n, T& si, T& ci) {
-  const T t = x * x;
-  si = T(0);
-  ci = T(0);
-  for (int k = n - 1; k >= 0; --k) {
-    si = si * t + tab<T>(OFF_SI + k);
-    if (k >= 1) ci = ci * t + tab<T>(OFF_CI + k);
-  }
-  si = si * x;
-  ci = ci * t + T(EULER_GAMMA) + log_(x);
-}
-
-// g(x): Si = pi/2 - f cos - g sin, Ci = f sin - g cos.
-template <typename T>
-__device__ T aux_g(T x, const Lens& L) {
+__device__ T aux_g(T x, T u) {
+  using L = Lens<T>;
   if (x <= T(4)) {
-    T si, ci, s, c;
-    sici_series(x, L.series, si, ci);
+    const T t = x * x;
+    T si = T(0), ci = T(0);
+#pragma unroll
+    for (int k = L::series - 1; k >= 0; --k) {
+      si = fma(si, t, tab<T>(OFF_SI + k));
+      if (k >= 1) ci = fma(ci, t, tab<T>(OFF_CI + k));
+    }
+    si = si * x;
+    ci = fma(ci, t, T(EULER_GAMMA)) + log_(x);
+    T s, c;
     sincos_(x, &s, &c);
     return (T(HALF_PI) - si) * s - ci * c;
   }
-  const T u = T(1) / x;
-  if (x <= T(16)) return cheb_on<T>(OFF_AG, L.ag, T(0.0625), T(0.25), u) * u * u;
-  if (x <= T(64)) return cheb_on<T>(OFF_BG, L.bg, T(0.015625), T(0.0625), u) * u * u;
-  const T w = T(1) / (x * x);
+  if (x <= T(16))
+    return cheb<T, L::ag>(OFF_AG, fma(u, T(A_SCALE), -T(A_SHIFT))) * u * u;
+  if (x <= T(64))
+    return cheb<T, L::bg>(OFF_BG, fma(u, T(B_SCALE), -T(B_SHIFT))) * u * u;
+  const T w = u * u;
   T g = T(0);
-  for (int k = L.g_asym - 1; k >= 0; --k) g = g * w + tab<T>(OFF_GA + k);
+#pragma unroll
+  for (int k = L::g_asym - 1; k >= 0; --k) g = fma(g, w, tab<T>(OFF_GA + k));
   return g * w;
 }
 
-// f(x) - 1/x, cancellation-free at large x.
+// f(b) - 1/b and g(b) together for b > 4 (u = 1/b): one branch.
 template <typename T>
-__device__ T aux_fm(T x, const Lens& L) {
-  if (x <= T(4)) {
-    T si, ci, s, c;
-    sici_series(x, L.series, si, ci);
-    sincos_(x, &s, &c);
-    return ((T(HALF_PI) - si) * c + ci * s) - T(1) / x;
+__device__ __forceinline__ void aux_fg_large(T b, T u, T& fm, T& g) {
+  using L = Lens<T>;
+  if (b <= T(64)) {
+    if (b <= T(16)) {
+      const T t = fma(u, T(A_SCALE), -T(A_SHIFT));
+      fm = cheb<T, L::afm>(OFF_AFM, t);
+      g = cheb<T, L::ag>(OFF_AG, t);
+    } else {
+      const T t = fma(u, T(B_SCALE), -T(B_SHIFT));
+      fm = cheb<T, L::bfm>(OFF_BFM, t);
+      g = cheb<T, L::bg>(OFF_BG, t);
+    }
+    fm = fm * u;
+    g = g * u * u;
+    return;
   }
-  const T u = T(1) / x;
-  if (x <= T(16)) return cheb_on<T>(OFF_AFM, L.afm, T(0.0625), T(0.25), u) * u;
-  if (x <= T(64)) return cheb_on<T>(OFF_BFM, L.bfm, T(0.015625), T(0.0625), u) * u;
-  const T w = T(1) / (x * x);
-  T fm = T(0);
-  for (int k = 6; k >= 1; --k) fm = fm * w + tab<T>(OFF_FMA + k);
-  return fm * w / x;
+  const T w = u * u;
+  T f = T(0);
+#pragma unroll
+  for (int k = 6; k >= 1; --k) f = fma(f, w, tab<T>(OFF_FMA + k));
+  fm = f * w * u;
+  T gg = T(0);
+#pragma unroll
+  for (int k = L::g_asym - 1; k >= 0; --k) gg = fma(gg, w, tab<T>(OFF_GA + k));
+  g = gg * w;
+}
+
+// A staged profile: radius, concentration, 1 + c, and its moment-series
+// coefficients a_n = (-1)^n M_n(c) / (2n+1)!.
+template <typename T>
+struct alignas(16) Profile {
+  T rs, c, c1, pad;
+  T a[Lens<T>::stride];
+};
+
+// Stage one profile: the moments by I_m = c^(m-1)/(m-1) - 2 I_(m-1) -
+// I_(m-2), I_0 = c/(1+c), I_1 = mu(c), M_n = I_(2n+1), in float64
+// (ops/halo_contract.py::moment_coeffs is the same recurrence).
+template <typename T>
+__device__ void stage_profile(Profile<T>& p, T rs, T c) {
+  p.rs = rs;
+  p.c = c;
+  p.c1 = T(1) + c;
+  const double cd = (double)c;
+  double i2 = cd / (1.0 + cd);
+  double i1 = log1p(cd) - i2;
+  double pw = cd, inv_fact = 1.0;
+  p.a[0] = (T)i1;
+  // Unrolled, so 1/(m-1) and 1/((2n)(2n+1)) fold to constants.
+#pragma unroll
+  for (int n = 1; n < Lens<T>::moments; ++n) {
+#pragma unroll
+    for (int m = 2 * n; m <= 2 * n + 1; ++m) {
+      const double im = pw * (1.0 / (m - 1)) - 2.0 * i1 - i2;
+      pw *= cd;
+      i2 = i1;
+      i1 = im;
+    }
+    inv_fact *= 1.0 / ((double)(2 * n) * (double)(2 * n + 1));
+    p.a[n] = (T)((n & 1 ? -i1 : i1) * inv_fact);
+  }
+#pragma unroll
+  for (int n = Lens<T>::moments; n < Lens<T>::stride; ++n) p.a[n] = T(0);
 }
 
 // mu(c) y(k, M) at x = k r_s.
 template <typename T>
-__device__ __forceinline__ T profile_n(T x, T c, const Lens& L) {
-  const T b = (T(1) + c) * x;
-  const T cx = c * x;
-  T s, co;
-  sincos_(cx, &s, &co);
-  return aux_g(x, L) + s * aux_fm(b, L) - co * aux_g(b, L);
+__device__ __forceinline__ T profile_n(T kk, const Profile<T>& p) {
+  const T x = kk * p.rs;
+  const T b = p.c1 * x;
+  if (b <= T(SMALL_B)) {
+    const T x2 = x * x;
+    T n = p.a[Lens<T>::moments - 1];
+#pragma unroll
+    for (int j = Lens<T>::moments - 2; j >= 0; --j) n = fma(n, x2, p.a[j]);
+    return n;
+  }
+  // One reciprocal: 1/x = (1+c)/b, within 1.5 ulp.
+  T s, co, fm, g;
+  sincos_big(p.c * x, &s, &co);
+  const T u = rcp_(b);
+  aux_fg_large(b, u, fm, g);
+  return aux_g(x, p.c1 * u) + s * fm - co * g;
 }
 
 template <typename T>
@@ -144,11 +281,13 @@ __global__ void __launch_bounds__(BLOCK)
 halo_contract_kernel(const T* __restrict__ k, int nk,
                      const T* __restrict__ mat, int nm,
                      const T* __restrict__ gal, int ng,
-                     T* __restrict__ out, Lens L) {
-  __shared__ T s_mat[TILE * MAT_F];
-  __shared__ T s_gal[TILE * GAL_F];
+                     T* __restrict__ out) {
+  __shared__ Profile<T> s_p[2][TILE];  // [0] matter, [1] galaxy profile
+  __shared__ double s_w[TILE][N_W];
+  __shared__ bool s_same[TILE];
   const int b = blockIdx.y;
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int i = blockIdx.x * BLOCK + tid;
   const bool live = i < nk;
   const T kk = live ? k[i] : T(1);
   double h_m = 0.0, h_g = 0.0, pp_mm = 0.0, pp_gg = 0.0, pp_gm = 0.0;
@@ -157,15 +296,18 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
   for (int base = 0; base < nm; base += TILE) {
     const int cnt = min(TILE, nm - base);
     __syncthreads();
-    for (int j = threadIdx.x; j < cnt * MAT_F; j += BLOCK)
-      s_mat[j] = mb[(size_t)base * MAT_F + j];
+    if (tid < cnt) {
+      const T* q = mb + (size_t)(base + tid) * MAT_F;
+      stage_profile(s_p[0][tid], q[0], q[1]);
+      s_w[tid][0] = (double)q[2];
+      s_w[tid][1] = (double)q[3];
+    }
     __syncthreads();
     if (live) {
       for (int j = 0; j < cnt; ++j) {
-        const T* p = s_mat + j * MAT_F;
-        const double n = (double)profile_n<T>(kk * p[0], p[1], L);
-        h_m += n * (double)p[2];
-        pp_mm += n * n * (double)p[3];
+        const double n = (double)profile_n<T>(kk, s_p[0][j]);
+        h_m = fma(n, s_w[j][0], h_m);
+        pp_mm = fma(n * n, s_w[j][1], pp_mm);
       }
     }
   }
@@ -174,17 +316,30 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
   for (int base = 0; base < ng; base += TILE) {
     const int cnt = min(TILE, ng - base);
     __syncthreads();
-    for (int j = threadIdx.x; j < cnt * GAL_F; j += BLOCK)
-      s_gal[j] = gb[(size_t)base * GAL_F + j];
+    // Threads [0, TILE) stage the matter profile and the weights of node
+    // tid, threads [TILE, 2 TILE) the galaxy profile of node tid - TILE.
+    const int jn = tid % TILE;
+    if (jn < cnt) {
+      const T* q = gb + (size_t)(base + jn) * GAL_F;
+      const bool same = q[0] == q[2] && q[1] == q[3];
+      if (tid < TILE) {
+        stage_profile(s_p[0][jn], q[0], q[1]);
+        s_same[jn] = same;
+        for (int f = 0; f < N_W; ++f) s_w[jn][f] = (double)q[4 + f];
+      } else if (!same) {
+        stage_profile(s_p[1][jn], q[2], q[3]);
+      }
+    }
     __syncthreads();
     if (live) {
       for (int j = 0; j < cnt; ++j) {
-        const T* p = s_gal + j * GAL_F;
-        const double n_m = (double)profile_n<T>(kk * p[0], p[1], L);
-        const double n_g = (double)profile_n<T>(kk * p[2], p[3], L);
-        h_g += n_g * (double)p[4];
-        pp_gg += n_g * (double)p[5] + n_g * n_g * (double)p[6];
-        pp_gm += n_m * (double)p[7] + n_m * n_g * (double)p[8];
+        const double n_m = (double)profile_n<T>(kk, s_p[0][j]);
+        const double n_g =
+            s_same[j] ? n_m : (double)profile_n<T>(kk, s_p[1][j]);
+        const double* w = s_w[j];
+        h_g = fma(n_g, w[0], h_g);
+        pp_gg = fma(n_g, fma(n_g, w[2], w[1]), pp_gg);
+        pp_gm = fma(n_m, fma(n_g, w[4], w[3]), pp_gm);
       }
     }
   }
@@ -202,13 +357,17 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
 template <typename T, typename Sym>
 int launch(const Sym& table_symbol, const void* tables, const void* k, int nk,
            const void* mat, int nm, const void* gal, int ng, void* out,
-           int batch, Lens L, cudaStream_t s) {
+           int batch, const int* lens, cudaStream_t s) {
+  using L = Lens<T>;
+  const int want[6] = {L::afm, L::ag, L::bfm, L::bg, L::series, L::g_asym};
+  for (int j = 0; j < 6; ++j)
+    if (lens[j] != want[j]) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemcpyToSymbolAsync(
       table_symbol, tables, N_PACK * sizeof(T), 0, cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nk + BLOCK - 1) / BLOCK, batch);
   halo_contract_kernel<T><<<grid, BLOCK, 0, s>>>(
-      (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng, (T*)out, L);
+      (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -222,13 +381,13 @@ extern "C" int halo_contract_launch(int device, int is_double, const void* k,
                                     int g_asym, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Lens L{afm, ag, bfm, bg, series, g_asym};
+  const int lens[6] = {afm, ag, bfm, bg, series, g_asym};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
     return launch<double>(c_tab_d, tables, k, nk, mat, nm, gal, ng, out, batch,
-                          L, s);
-  return launch<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, out, batch, L,
-                       s);
+                          lens, s);
+  return launch<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, out, batch,
+                       lens, s);
 }
 
 extern "C" const char* halo_contract_error(int code) {

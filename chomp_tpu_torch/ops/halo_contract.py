@@ -19,7 +19,9 @@ h_m, h_g, pp_mm, pp_gg, pp_gm.
 Replaces the JAX package's ``ops/halo_pallas.py::fused_contractions`` and the
 XLA contraction block of the JAX package's ``halo.py::powers``; the CUDA source
 is ``chomp_tpu_torch/csrc/halo_contract.cu``.  :func:`halo_contract_ref`
-is the plain PyTorch version of the same function.
+is the plain PyTorch version of the same function.  Where b = (1+c)x <=
+:data:`SMALL_B` the kernel evaluates N from its moment series instead
+(:func:`moment_coeffs`, :func:`nfw_n_small` mirror that route).
 """
 
 from __future__ import annotations
@@ -71,6 +73,47 @@ def _lens(dtype) -> list[int]:
     probe = torch.zeros((), dtype=dtype)
     return ([len(_trim(getattr(_cf, name), probe)) for name, _ in _TABLES]
             + [n_series(dtype), n_g_asym(dtype)])
+
+
+#: The kernel's small-argument route: b = (1+c)x <= SMALL_B.
+SMALL_B = 4.0
+
+
+def n_moments(dtype) -> int:
+    """Moment-series terms of the small-argument route: 16 in float64
+    (truncation below 4^32/33! = 2e-18 of mu(c)), 10 in float32 (2e-8)."""
+    return 10 if dtype == torch.float32 else 16
+
+
+def moment_coeffs(c, n_terms: int):
+    """Coefficients a_n = (-1)^n M_n(c) / (2n+1)!, n < ``n_terms``, of the
+    small-argument series N(x, c) = sum_n a_n x^2n, in float64 (..., n):
+    M_n = I_(2n+1), I_m(c) = int_0^c t^m / (1+t)^2 dt by the recurrence
+    I_m = c^(m-1)/(m-1) - 2 I_(m-1) - I_(m-2) from I_0 = c/(1+c) and
+    I_1 = mu(c), the one the kernel runs per staged node."""
+    c = c.double()
+    i2 = c / (1.0 + c)
+    i1 = torch.log1p(c) - i2
+    pw, inv_fact, out = c, 1.0, [i1]
+    for n in range(1, n_terms):
+        for m in (2 * n, 2 * n + 1):
+            i2, i1 = i1, pw * (1.0 / (m - 1)) - 2.0 * i1 - i2
+            pw = pw * c
+        inv_fact *= 1.0 / ((2 * n) * (2 * n + 1))
+        out.append((-i1 if n % 2 else i1) * inv_fact)
+    return torch.stack(out, dim=-1)
+
+
+def nfw_n_small(x, coeffs):
+    """N(x, c) = mu(c) y from the moment series (valid for (1+c)x <=
+    :data:`SMALL_B`), Horner in x^2 in the dtype of ``x``: the kernel's
+    small-argument route."""
+    a = coeffs.to(x.dtype)
+    x2 = x * x
+    n = a[..., -1]
+    for j in range(a.shape[-1] - 2, -1, -1):
+        n = n * x2 + a[..., j]
+    return n
 
 
 _REF_K_BLOCK = 256

@@ -1,7 +1,11 @@
 """chomp_tpu_torch halo model and kernel A's plain version against the JAX
 package: mass tables, HOD switch masses, galaxy pack and the halo-model
-spectra (float64 CPU, tiny grid, rtol 1e-10), and halo_contract_ref in
-the Pallas kernel's own terms (float32, 2e-6 of peak)."""
+spectra (float64 CPU, tiny grid, rtol 1e-10), halo_contract_ref in the
+Pallas kernel's own terms (float32, 2e-6 of peak), and the kernel's
+small-argument route (moment coefficients and series, float64)."""
+
+import math
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +13,7 @@ import pytest
 import torch
 
 from chomp_tpu import default_halo
+from chomp_tpu import special as jspecial
 from chomp_tpu.hod import default_hod
 from chomp_tpu.ops.halo_pallas import fused_contractions
 from chomp_tpu_torch import halo
@@ -161,9 +166,14 @@ def test_halo_contract_rejects_bad_inputs(bad):
 
 
 def test_cheb_table_layout():
-    """The packed table holds each Chebyshev table at its offset and the
-    float32 term counts match special.py's trimming."""
+    """The packed table holds each Chebyshev table at its offset, the
+    float32 term counts match special.py's trimming, and the kernel's
+    compile-time counts per type (struct Lens in halo_contract.cu) are
+    the wrapper's."""
+    import re
+
     from chomp_tpu_torch import _special_coeffs as cf
+    from chomp_tpu_torch.ops.build import CSRC
 
     t = hc.cheb_table()
     for name, off in hc._TABLES:
@@ -173,3 +183,70 @@ def test_cheb_table_layout():
     assert hc._lens(torch.float32)[4:] == [10, 4]
     assert all(n32 < n64 for n32, n64 in zip(hc._lens(torch.float32)[:4],
                                              hc._lens(torch.float64)[:4]))
+    src = (CSRC / "halo_contract.cu").read_text()
+    for name, dtype in (("float", torch.float32), ("double", torch.float64)):
+        body = re.search(r"struct Lens<%s> \{(.*?)\};" % name, src, re.S)[1]
+        got = dict(re.findall(r"(\w+) = (\d+)", body))
+        want = dict(zip(("afm", "ag", "bfm", "bg", "series", "g_asym"),
+                        hc._lens(dtype)), moments=hc.n_moments(dtype))
+        assert {k: int(got[k]) for k in want} == want
+
+
+# Concentrations of the main path's nodes (0.87-9.4), and beyond.
+C_MOMENTS = np.array([0.5, 0.87, 1.0, 2.3, 4.0, 6.5, 9.4, 12.0])
+
+
+def test_moment_coeffs_against_quadrature():
+    """a_n = (-1)^n M_n(c) / (2n+1)!, M_n = int_0^c t^(2n+1)/(1+t)^2 dt:
+    the recurrence against 128-node Gauss-Legendre on [0, c] (exact for
+    the polynomial, converged for 1/(1+t)^2).  Each term a_n x^2n at the
+    route's edge x = SMALL_B/(1+c) agrees to 1e-14 of mu(c) (the forward
+    recurrence loses relative accuracy in the high, negligible terms at
+    small c), and a_0 = mu(c) to 1e-14."""
+    n = hc.n_moments(torch.float64)
+    got = hc.moment_coeffs(torch.tensor(C_MOMENTS), n).numpy()
+    assert got.shape == (len(C_MOMENTS), n)
+    t, w = np.polynomial.legendre.leggauss(128)
+    for c, row in zip(C_MOMENTS, got):
+        tt, ww = 0.5 * c * (t + 1.0), 0.5 * c * w
+        ref = [(-1) ** j * np.sum(ww * tt ** (2 * j + 1) / (1 + tt) ** 2)
+               / math.factorial(2 * j + 1) for j in range(n)]
+        mu = np.log1p(c) - c / (1 + c)
+        edge = (hc.SMALL_B / (1 + c)) ** (2 * np.arange(n)) / mu
+        np.testing.assert_allclose(row * edge, np.asarray(ref) * edge,
+                                   rtol=0, atol=1e-14)
+        assert abs(row[0] / mu - 1) < 1e-14
+
+
+def _small_points():
+    """(x, c) with b = (1+c)x <= SMALL_B: x from 1e-7 up to the edge."""
+    c = np.repeat(C_MOMENTS[1:-1], 60)
+    frac = np.tile(np.logspace(-7, 0, 60), len(C_MOMENTS) - 2)
+    return frac * hc.SMALL_B / (1.0 + c), c
+
+
+@pytest.mark.parametrize("n_terms", ["float64", "float32"])
+def test_small_argument_series(n_terms):
+    """The kernel's small-argument route (moment coefficients, Horner in
+    x^2, float64) against special.nfw_n and against the JAX package's
+    g(x) + sin(cx) fm(b) - cos(cx) g(b) from special.aux_g / aux_fm, on
+    the same numpy inputs with b <= 4: rtol 1e-13 with the float64 term
+    count; with the float32 count (truncated series, float64 arithmetic)
+    within 3e-8 of mu(c)."""
+    from chomp_tpu_torch.special import nfw_n
+
+    x, c = _small_points()
+    dtype = getattr(torch, n_terms)
+    coeffs = hc.moment_coeffs(torch.tensor(c), hc.n_moments(dtype))
+    got = hc.nfw_n_small(torch.tensor(x), coeffs).numpy()
+    b, cx = (1.0 + c) * x, c * x
+    ref_jax = np.asarray(jspecial.aux_g(jnp.asarray(x))
+                         + jnp.sin(cx) * jspecial.aux_fm(jnp.asarray(b))
+                         - jnp.cos(cx) * jspecial.aux_g(jnp.asarray(b)))
+    ref = nfw_n(torch.tensor(x), torch.tensor(c)).numpy()
+    if dtype == torch.float64:
+        np.testing.assert_allclose(got, ref, rtol=1e-13, atol=0)
+        np.testing.assert_allclose(got, ref_jax, rtol=1e-13, atol=0)
+    else:
+        mu = coeffs[:, 0].numpy()
+        assert np.max(np.abs(got - ref) / mu) < 3e-8
