@@ -51,15 +51,45 @@ order (any failure exits nonzero; nothing falls back):
    path (1e-12) and plain path vs JAX (1e-10); the float64 table route
    against phase 5's float64 lattice route (3e-5, or 2x the JAX
    package's own gap at DEFAULT_GRID where that is larger); peak device
-   memory and the median wall time of 5 repetitions.
+   memory and the median wall time of 5 repetitions;
+8. the backward kernels against their plain versions under seeded
+   cotangents: A' (halo_contract_bwd) on phase 2's main, feedback and
+   ragged node sets (float64 on 8 cosmologies to 1e-12 of each gradient
+   field's peak; float32 within 2e-5 of the plain backward in float64 on
+   the same float32 inputs and no worse than 1.5x the plain float32
+   backward's own error), B' (hankel_matmul_bwd) at phase 6's shapes and
+   C' (df_contract_bwd) at phase 3's (float64 to 1e-12 of each row's
+   peak; float32 no worse than 2x the float32 torch.matmul against the
+   exact product); two launches bit for bit; times, bounds, library
+   times;
+9. gradients of both slices at B = 512, float32: one
+   ``torch.autograd.grad`` of a seeded linear functional of (w, gamma_t)
+   with respect to (omega_m0, sigma_8), with every launch count, forward
+   and backward, set to 0 just before and read just after (lattice A 1,
+   C 2; table A 1, B 2; the same in the backward); finiteness, peak
+   device memory, forward+backward against forward-only walls (medians
+   of 5), the float64 grouped conv1d's forward+backward time; the
+   Jacobians at the 3 reference cosmologies through
+   ``inference.jacobian`` against the card's float64 plain path (float32
+   < 1e-3 of each column's peak over theta; float64 kernels < 1e-10) and
+   the JAX jacfwd of tests/data/torch_grad_reference.json (float64 plain
+   < 1e-9, float32 < 1e-3);
+10. inference on the lattice route: the float64 data vector at the
+   fiducial with a diagonal covariance (5% + 1e-3 of the peak); the
+   Fisher matrix in float32 against float64 (1e-3 of sqrt(F_ii F_jj));
+   ``map_fit`` from 2 sigma off must end nearer the fiducial; ``hmc``
+   over 512 chains (Fisher mass, 3 steps x 4 leapfrogs, eps 0.3) must
+   stay finite with mean acceptance > 0.5.
 
 Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
-over 100 (kernel A's plain version: 2 calls), taken in turns with the
-library call or plain version (other, kernel, kernel, other); after
-phase 7, each kernel's and library call's device time per call from
-torch.profiler's kernel records ("not measured" where it records none).
-Each main path (phases 5 and 7) runs with every launch count set to 0
-just before it and read just after.  The last lines are the card
+over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
+taken in turns with the library call or plain version (other, kernel,
+kernel, other); after phase 10, each kernel's and library call's device
+time per call from torch.profiler's kernel records ("not measured" where
+it records none), and the device's busy share of one forward+backward
+per route.  Each main path (phases 5, 7 and each route's
+forward+backward in 9) runs with every launch count set to 0 just before
+it and read just after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
 FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
@@ -68,6 +98,7 @@ FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -262,20 +293,110 @@ def row_peak_rel(got, ref):
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the slice through the kernels' plain versions."""
+    """Route the slice through the kernels' plain versions, forward and
+    backward: kernel A's plain forward with its plain backward
+    (``halo_contract_bwd_ref``), B's and C's plain versions under
+    autograd (matrix products).  A's plain backward stands in for
+    autograd of the plain forward, which would keep every (row, k, node)
+    intermediate of its k blocks at the Jacobians' row counts; the CPU
+    tests hold the one to the other (tests/test_torch_grad.py)."""
+    import torch
+
     from chomp_tpu_torch import halo
-    from chomp_tpu_torch.ops import df32, halo_contract, hankel_matmul
+    from chomp_tpu_torch.ops import df32, halo_contract as hc, hankel_matmul
     from chomp_tpu_torch.parallel import sweep
 
+    class PlainA(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, k, mat, gal, cheb):
+            ctx.save_for_backward(k, mat, gal, cheb)
+            return hc.halo_contract_ref(k, mat, gal)
+
+        @staticmethod
+        def backward(ctx, grad):
+            g_mat, g_gal = hc.halo_contract_bwd_ref(*ctx.saved_tensors,
+                                                    grad.contiguous())
+            return None, g_mat, g_gal, None
+
     saved = halo.halo_contract, sweep.df_contract, sweep.hankel_matmul
-    halo.halo_contract = lambda k, mat, gal, cheb: \
-        halo_contract.halo_contract_ref(k, mat, gal)
+    halo.halo_contract = PlainA.apply
     sweep.df_contract = df32.df_contract_ref
     sweep.hankel_matmul = hankel_matmul.hankel_matmul_ref
     try:
         yield
     finally:
         halo.halo_contract, sweep.df_contract, sweep.hankel_matmul = saved
+
+
+def halo_contract_bwd_flops(k, mat, gal, lens, moments):
+    """Floating-point operations of kernel A's backward on these inputs,
+    counted from csrc/halo_contract.cu (profile_nd and the accumulation
+    of halo_contract_bwd_kernel) per route, as halo_contract_flops counts
+    the forward: the moment series with its derivative series for b <= 4;
+    beyond it f - 1/x and g at b and at x (series for x <= 4, Chebyshev
+    for x <= 64, else asymptotic) and the three derivative formulas; one
+    profile where a galaxy node's two coincide; the double accumulations
+    (12 a mat node, 26 a gal node, per k) at the FP32 rate, so the bound
+    stays a lower one."""
+    import torch
+
+    afm, ag, bfm, bg, series, g_asym = lens
+
+    def fg(v):
+        return torch.where(v <= 16, 3 * (afm + ag) + 7, torch.where(
+            v <= 64, 3 * (bfm + bg) + 7, 2 * g_asym + 17))
+
+    def profile(x, c):
+        b = (1.0 + c) * x
+        fgx = torch.where(x <= 4, 4 * series + 12, fg(x))
+        return 4 + torch.where(b <= 4, 5 * moments - 3, 14 + fg(b) + fgx)
+
+    same = one_profile(gal)
+    total = 0.0
+    for i in range(0, k.numel(), 64):
+        kk = k[i:i + 64][None, :, None]
+        total += float(profile(kk * mat[:, None, :, 0],
+                               mat[:, None, :, 1]).double().sum()
+                       + 12 * mat.shape[0] * kk.numel() * mat.shape[1])
+        n_g = profile(kk * gal[:, None, :, 2], gal[:, None, :, 3])
+        total += float((profile(kk * gal[:, None, :, 0], gal[:, None, :, 1])
+                        + torch.where(same[:, None, :], 0, n_g)
+                        ).double().sum()
+                       + 26 * gal.shape[0] * kk.numel() * gal.shape[1])
+    return total
+
+
+def field_peak_rel(got, ref):
+    """max over gradient fields of max|got - ref| / max|ref| (last axis =
+    field of a node)."""
+    d = (got - ref).abs().amax(dim=(0, 1))
+    return float((d / ref.abs().amax(dim=(0, 1))).max())
+
+
+def jac_err(got, ref):
+    """max over (cosmology, probe, parameter) of the worst entry over
+    theta relative to that column's peak over theta; got / ref (m,
+    2 n_theta, n_par), w(theta) then gamma_t."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    m, n, p = ref.shape
+    d = np.abs(got - ref).reshape(m, 2, n // 2, p).max(axis=2)
+    return float(np.max(d / np.abs(ref).reshape(m, 2, n // 2, p).max(
+        axis=2)))
+
+
+def median_wall(fn, reps=5):
+    """Median host-clock seconds of ``fn()`` between synchronizations."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
 
 
 def main():
@@ -574,6 +695,7 @@ def main():
     del p_all, model
     p32 = p32.repeat(N_COSMO // len(check), 1, 1)
     g32 = g32.repeat(N_COSMO // len(check), 1, 1)
+    conv_rows = p32, g32
     ms_conv = events_ms(lambda: limber_fft._conv_direct_rows(
         p32, g32, j_lo, j_hi), 5)
     print(f"[conv1d] ({len(check)}, 2, {n_k}) * ({len(check)}, 2, {n_chi}) "
@@ -823,20 +945,387 @@ def main():
     if not cross < cross_gate:
         fail(f"table vs lattice route in float64: {cross}")
 
+    # -- 8. the backward kernels against their plain versions -----------
+    from chomp_tpu_torch import inference
+
+    def seeded(shape, seed, dtype=f64):
+        return torch.tensor(np.random.default_rng(seed).normal(size=shape),
+                            dtype=dtype, device=dev)
+
+    def check_a_bwd(k, mat32, gal32, k64, mat64, gal64, seed):
+        """Kernel A's backward under a seeded normal cotangent: float64
+        against the plain backward (relative to each gradient field's
+        peak); float32 against the plain backward in float64 on the same
+        float32 inputs, beside the plain float32 backward's own error;
+        two launches bit for bit."""
+        g32 = seeded((mat32.shape[0], hc.N_OUT, k.numel()), seed, f32)
+        g64 = g32[:mat64.shape[0]].double()
+        got64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64)
+        ref64 = hc.halo_contract_bwd_ref(k64, mat64, gal64, cheb64, g64)
+        got32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32)
+        exact = hc.halo_contract_bwd_ref(k.double(), mat32.double(),
+                                         gal32.double(), cheb64, g32.double())
+        plain32 = hc.halo_contract_bwd_ref(k, mat32, gal32, cheb32, g32)
+        again32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32)
+        again64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64)
+        return {"f64": max(field_peak_rel(a, r) for a, r in zip(got64,
+                                                                  ref64)),
+                "f32": max(field_peak_rel(a.double(), r)
+                           for a, r in zip(got32, exact)),
+                "abs": max(float((a.double() - r).abs().max())
+                           for a, r in zip(got32, exact)),
+                "plain32": max(field_peak_rel(a.double(), r)
+                               for a, r in zip(plain32, exact)),
+                "same": all(torch.equal(a, b) for a, b in
+                            zip(got32 + got64, again32 + again64))}
+
+    bwd_a = {
+        "main": check_a_bwd(k32, mat32, gal32, k64, mat64, gal64, 10),
+        "feedback": check_a_bwd(k32, matf32, galf32, k64, matf64, galf64,
+                                11),
+        "ragged": check_a_bwd(
+            kr32, mat32[:, ::7].contiguous(), gal32[:, 25::50].contiguous(),
+            kr64, mat64[:, ::7].contiguous(), gal64[:, 25::50].contiguous(),
+            12)}
+    ga32 = seeded((N_COSMO, hc.N_OUT, k32.numel()), 13, f32)
+    ms_abwd, plain_ms_abwd = in_turns_ms(
+        lambda: hc.halo_contract_bwd(k32, mat32, gal32, cheb32, ga32),
+        lambda: hc.halo_contract_bwd_ref(k32, mat32, gal32, cheb32, ga32),
+        other_reps=1)
+    bound_abwd = bound(
+        halo_contract_bwd_flops(k32, mat32, gal32, hc._lens(f32),
+                                hc.n_moments(f32)),
+        4 * (k32.numel() + 2 * (mat32.numel() + gal32.numel())
+             + cheb32.numel() + ga32.numel()))
+    profiled["halo_contract_bwd"] = (lambda: hc.halo_contract_bwd(
+        k32, mat32, gal32, cheb32, ga32), None, 5)
+    for name, q in bwd_a.items():
+        print(f"[halo_contract_bwd] {name}: f64 field_peak_rel={q['f64']:.3e}"
+              f" (8 cosmologies, gate 1e-12) | f32 vs plain backward on the "
+              f"same inputs in f64: field_peak_rel={q['f32']:.3e} max_abs="
+              f"{q['abs']:.3e} (gate 2e-5, and <= 1.5x the plain f32 "
+              f"backward's own {q['plain32']:.3e}) | deterministic="
+              f"{q['same']}", flush=True)
+    print(f"[halo_contract_bwd] B={N_COSMO} NK={k32.numel()} NM="
+          f"{mat32.shape[1]} NG={gal32.shape[1]} float32 | kernel "
+          f"{ms_abwd:.3f} ms, plain {plain_ms_abwd:.3f} ms (CUDA events; "
+          f"plain 1 call a turn) | bound {bound_abwd[0]:.4f} ms by "
+          f"{bound_abwd[1]}", flush=True)
+    for name, q in bwd_a.items():
+        if not q["f64"] <= 1e-12:
+            fail(f"halo_contract_bwd {name}: float64 error {q['f64']}")
+        if not q["f32"] <= 2e-5:
+            fail(f"halo_contract_bwd {name}: float32 error {q['f32']}")
+        if not q["f32"] <= 1.5 * q["plain32"]:
+            fail(f"halo_contract_bwd {name}: float32 error {q['f32']} above "
+                 f"1.5x the plain float32 backward's {q['plain32']}")
+        if not q["same"]:
+            fail(f"halo_contract_bwd {name}: two launches differ")
+
+    def check_bc_bwd(bwd, g64, ops64, ops32, prod):
+        """A backward product (B's or C's) under the cotangent g64:
+        float64 against the float64 product (relative to each row's
+        peak); float32 against the exact product of its float32 inputs
+        beside torch.matmul's float32 error; two launches bit for bit."""
+        got64 = bwd(g64, *ops64)
+        ref64 = prod(g64, *ops64)
+        g32 = g64.to(f32)
+        got32 = bwd(g32, *ops32)
+        exact = prod(g32.double(), *(o.double() for o in ops32))
+        lib32 = prod(g32, ops32[0])
+        peak = float(exact.abs().max())
+        return {"f64": row_peak_rel(got64, ref64),
+                "exact": float((got32.double() - exact).abs().max()) / peak,
+                "lib_exact": float((lib32.double() - exact).abs().max())
+                / peak,
+                "abs": float((got32.double() - exact).abs().max()),
+                "same": torch.equal(got32, bwd(g32, *ops32)) and torch.equal(
+                    got64, bwd(g64, *ops64))}
+
+    def prod_b(g, op_t):
+        with hm.full_fp32_matmul():
+            return g @ op_t.T
+
+    def prod_c(g, a, a_lo=None):
+        with hm.full_fp32_matmul():
+            return g @ (a if a_lo is None else a + a_lo)
+
+    op64_b = op_b.double()
+    h64 = torch.tensor(ha64, device=dev)
+    h_hi32, h_lo32 = (torch.tensor(x, device=dev)
+                      for x in df32.split_operator(ha64))
+    checks_bc = {
+        ("hankel_matmul_bwd", (N_COSMO, 64, 1024)): check_bc_bwd(
+            hm.hankel_matmul_bwd, seeded((N_COSMO, op_b.shape[1]), 14),
+            (op64_b,), (op_b,), prod_b),
+        ("hankel_matmul_bwd", (37, 13, 1000)): check_bc_bwd(
+            hm.hankel_matmul_bwd, seeded((37, 13), 15),
+            (op64_b[:1000, :13].contiguous(),),
+            (op_b[:1000, :13].contiguous(),), prod_b),
+        ("hankel_matmul_bwd", (1, 64, 1024)): check_bc_bwd(
+            hm.hankel_matmul_bwd, seeded((1, op_b.shape[1]), 16),
+            (op64_b,), (op_b,), prod_b),
+        ("df_contract_bwd", (N_COSMO, 64, j_hi - j_lo)): check_bc_bwd(
+            df32.df_contract_bwd, seeded((N_COSMO, a64.shape[0]), 17),
+            (a64,), (a_hi, a_lo), prod_c),
+        ("df_contract_bwd", (8, 64, j_hi - j_lo)): check_bc_bwd(
+            df32.df_contract_bwd, seeded((8, a64.shape[0]), 18),
+            (a64,), (a_hi, a_lo), prod_c),
+        ("df_contract_bwd", (1, 8, 1024)): check_bc_bwd(
+            df32.df_contract_bwd, seeded((1, 8), 19), (h64,),
+            (h_hi32, h_lo32), prod_c)}
+    gb32 = seeded((N_COSMO, op_b.shape[1]), 20, f32)
+    gc32 = seeded((N_COSMO, a64.shape[0]), 21, f32)
+    gc32_as64 = gc32.double()
+    ms_bbwd, lib_ms_bbwd = in_turns_ms(
+        lambda: hm.hankel_matmul_bwd(gb32, op_b),
+        lambda: torch.matmul(gb32, op_b.T))
+    plain_ms_bbwd = events_ms(lambda: hm.hankel_matmul_bwd_ref(gb32, op_b))
+    ms_cbwd, lib_ms_cbwd = in_turns_ms(
+        lambda: df32.df_contract_bwd(gc32, a_hi, a_lo),
+        lambda: gc32_as64 @ a64)
+    plain_ms_cbwd = events_ms(lambda: df32.df_contract_bwd_ref(gc32, a_hi,
+                                                                a_lo))
+    profiled["hankel_matmul_bwd"] = (
+        lambda: hm.hankel_matmul_bwd(gb32, op_b),
+        lambda: torch.matmul(gb32, op_b.T), 20)
+    profiled["df_contract_bwd"] = (
+        lambda: df32.df_contract_bwd(gc32, a_hi, a_lo),
+        lambda: gc32_as64 @ a64, 20)
+    rb, nb = gb32.shape[0], op_b.shape[0]
+    tb = op_b.shape[1]
+    bound_bbwd = bound(2.0 * rb * nb * tb, 4 * (rb * tb + nb * tb + rb * nb))
+    rc_, nc = gc32.shape[0], a64.shape[1]
+    tc = a64.shape[0]
+    bound_cbwd = bound(2.0 * rc_ * nc * tc,
+                       4 * (rc_ * tc + 2 * tc * nc + rc_ * nc))
+    for (name, (rr, kk_, nn)), q in checks_bc.items():
+        print(f"[{name}] ({rr}, {kk_}) -> ({rr}, {nn}) | f64 rel_to_row_peak"
+              f"={q['f64']:.3e} (gate 1e-12) | f32 vs exact f64 product "
+              f"rel_to_peak={q['exact']:.3e} max_abs={q['abs']:.3e}, "
+              f"torch.matmul f32 {q['lib_exact']:.3e} (gate 2x) | "
+              f"deterministic={q['same']} | {geometry(rr, kk_, nn)}",
+              flush=True)
+    print(f"[hankel_matmul_bwd] ({rb}, {tb}) @ ({tb}, {nb}) float32 | kernel "
+          f"{ms_bbwd:.4f} ms, library (torch.matmul f32) {lib_ms_bbwd:.4f} "
+          f"ms, plain {plain_ms_bbwd:.4f} ms (CUDA events over 100 calls) | "
+          f"bound {bound_bbwd[0]:.5f} ms by {bound_bbwd[1]}", flush=True)
+    print(f"[df_contract_bwd] ({rc_}, {tc}) @ ({tc}, {nc}) float32 | kernel "
+          f"{ms_cbwd:.4f} ms, library (f64 matmul) {lib_ms_cbwd:.4f} ms, "
+          f"plain {plain_ms_cbwd:.4f} ms (CUDA events over 100 calls) | "
+          f"bound {bound_cbwd[0]:.5f} ms by {bound_cbwd[1]}", flush=True)
+    for (name, shape), q in checks_bc.items():
+        if not q["f64"] <= 1e-12:
+            fail(f"{name} {shape}: float64 error {q['f64']}")
+        if not q["exact"] <= 2.0 * q["lib_exact"]:
+            fail(f"{name} {shape}: float32 vs the exact product "
+                 f"{q['exact']} (torch.matmul: {q['lib_exact']})")
+        if not q["same"]:
+            fail(f"{name} {shape}: two launches differ")
+
+    # -- 9. gradients of both slices at full width ------------------------
+    counted = {"halo_contract": hc.halo_contract,
+               "df_contract": df32.df_contract,
+               "hankel_matmul": hm.hankel_matmul}
+    fwd_want = {"lattice": {"halo_contract": 1, "df_contract": 2,
+                            "hankel_matmul": 0},
+                "table": {"halo_contract": 1, "df_contract": 0,
+                          "hankel_matmul": 2}}
+    weights = seeded((N_COSMO, 2 * DEFAULT_GRID.n_theta), 22, f32)
+    grad_launches, grad_info = {}, {}
+    pipes = {"lattice": (pipe, pipe64), "table": (pipe_t, pipe_t64)}
+
+    def grad_run(pipe_r):
+        """One torch.autograd.grad of the seeded linear functional of (w,
+        gamma_t) with respect to (omega_m0, sigma_8) at B = 512."""
+        om = torch.tensor(oms, dtype=f32, device=dev, requires_grad=True)
+        s8 = torch.tensor(s8s, dtype=f32, device=dev, requires_grad=True)
+        out = pipe_r(broadcast_cosmo(default_cosmo(device=dev, dtype=f32),
+                                     omega_m0=om, omega_l0=1.0 - om,
+                                     sigma_8=s8))
+        vec = torch.cat([out["w_theta"], out["gamma_t"]], dim=-1)
+        return torch.autograd.grad((vec * weights).sum(), (om, s8))
+
+    for route, (pipe_r, _) in pipes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+            fn.bwd_launches = 0
+        g_om, g_s8 = grad_run(pipe_r)
+        torch.cuda.synchronize()
+        grad_launches[route] = (
+            {n: fn.launches for n, fn in counted.items()},
+            {n: fn.bwd_launches for n, fn in counted.items()})
+        grad_info[route] = {
+            "finite": bool(torch.isfinite(g_om).all()
+                           and torch.isfinite(g_s8).all()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        with torch.no_grad():
+            grad_info[route]["fwd_wall"] = median_wall(lambda: pipe_r(batch))
+        grad_info[route]["fwd_bwd_wall"] = median_wall(
+            lambda: grad_run(pipe_r))
+        grad_info[route]["fwd_wall_2"] = median_wall(lambda: pipe_r(batch))
+
+    # The lattice route's grouped float64 conv1d (a library op) under
+    # autograd, on phase 4's rows at B = 512.
+    p_req, g_req = (t.clone().requires_grad_(True) for t in conv_rows)
+
+    def conv_fwd_bwd():
+        out = limber_fft._conv_direct_rows(p_req, g_req, j_lo, j_hi)
+        return torch.autograd.grad(out.sum(), (p_req, g_req))
+
+    ms_conv_fb = events_ms(conv_fwd_bwd, 5)
+
+    ref_g = json.loads((REPO / "tests" / "data"
+                        / "torch_grad_reference.json").read_text())
+    full = ref_g["default_grid"]
+    p_ref = np.stack([full["omega_m0"][:3], full["sigma_8"][:3]], axis=1)
+    if not np.allclose(full["omega_m0"][:3], oms[idx]):
+        fail("gradient reference does not match this run's cosmologies")
+    jac_errs = {}
+    for route, (pipe_r, pipe_r64) in pipes.items():
+        key = "fft" if route == "lattice" else "table"
+        th32, _ = inference.make_theory_fn(
+            pipe_r, default_cosmo(device=dev, dtype=f32))
+        th64, _ = inference.make_theory_fn(
+            pipe_r64, default_cosmo(device=dev, dtype=f64))
+        p32_ = torch.tensor(p_ref, dtype=f32, device=dev)
+        p64_ = torch.tensor(p_ref, dtype=f64, device=dev)
+        j32 = inference.jacobian(th32, p32_).cpu().numpy()
+        j64k = inference.jacobian(th64, p64_, chunk=128).cpu().numpy()
+        with plain_path():
+            j64p = inference.jacobian(th64, p64_, chunk=128).cpu().numpy()
+        jax_j = np.asarray(full[key]["jacobian"][:3])
+        jac_errs[route] = {"f32_vs_plain64": jac_err(j32, j64p),
+                           "k64_vs_plain64": jac_err(j64k, j64p),
+                           "plain64_vs_jax": jac_err(j64p, jax_j),
+                           "f32_vs_jax": jac_err(j32, jax_j)}
+    for route in pipes:
+        fw, bw = grad_launches[route]
+        gi, je = grad_info[route], jac_errs[route]
+        print(f"[grad] {route} route, DEFAULT_GRID, B={N_COSMO}, float32: "
+              f"autograd.grad of a seeded linear functional of (w, gamma_t)"
+              f" wrt (omega_m0, sigma_8) | finite={gi['finite']} | forward "
+              f"launches {fw}, backward launches {bw} | peak device memory "
+              f"{gi['peak_gb']:.2f} GB | forward+backward wall median of 5 "
+              f"= {gi['fwd_bwd_wall'] * 1e3:.1f} ms against forward-only "
+              f"{gi['fwd_wall'] * 1e3:.1f} / {gi['fwd_wall_2'] * 1e3:.1f} ms"
+              f" (before / after) | Jacobian at the 3 reference cosmologies "
+              f"(inference.jacobian): f32 vs card f64 plain path "
+              f"{je['f32_vs_plain64']:.3e} (gate 1e-3 of each column's peak "
+              f"over theta), f64 kernels vs f64 plain "
+              f"{je['k64_vs_plain64']:.3e} (gate 1e-10), f64 plain vs JAX "
+              f"jacfwd {je['plain64_vs_jax']:.3e} (gate 1e-9), f32 vs JAX "
+              f"{je['f32_vs_jax']:.3e} (gate 1e-3)", flush=True)
+    print(f"[grad] lattice conv1d (float64 accumulation, grouped, library) "
+          f"forward+backward {ms_conv_fb:.3f} ms at B={N_COSMO} (forward "
+          f"alone {ms_conv:.3f} ms, phase 4)", flush=True)
+    for route in pipes:
+        fw, bw = grad_launches[route]
+        want_b = fwd_want[route]
+        if fw != want_b or bw != want_b:
+            fail(f"{route} route forward+backward launches: forward {fw}, "
+                 f"backward {bw}; want {want_b} each")
+        if not grad_info[route]["finite"]:
+            fail(f"{route} route gradient not finite")
+        je = jac_errs[route]
+        for name, gate in (("f32_vs_plain64", 1e-3), ("k64_vs_plain64", 1e-10),
+                           ("plain64_vs_jax", 1e-9), ("f32_vs_jax", 1e-3)):
+            if not je[name] < gate:
+                fail(f"{route} route Jacobian {name}: {je[name]} (gate "
+                     f"{gate})")
+
+    # -- 10. inference on the card (lattice route) ------------------------
+    fid = torch.tensor([0.278, 0.811], dtype=f64, device=dev)
+    th64, p0 = inference.make_theory_fn(pipe64, default_cosmo(device=dev,
+                                                              dtype=f64))
+    th32, _ = inference.make_theory_fn(pipe, default_cosmo(device=dev,
+                                                           dtype=f32))
+    if not torch.equal(p0, fid):
+        fail(f"fiducial vector {p0.tolist()}")
+    with torch.no_grad():
+        data = th64(fid)[0]
+    sig = 0.05 * data.abs() + 1e-3 * data.abs().max()
+    cov = torch.diag(sig * sig)
+    fisher32 = inference.fisher_matrix(th32, cov, fid)
+    fisher64 = inference.fisher_matrix(th64, cov, fid)
+    scale = torch.sqrt(torch.outer(fisher64.diagonal(),
+                                   fisher64.diagonal()))
+    fisher_err = float(((fisher32 - fisher64).abs() / scale).max())
+    sigma = torch.sqrt(torch.linalg.inv(fisher64).diagonal())
+    like = inference.GaussianLikelihood(th32, data, cov)
+
+    def fisher_dist(p):
+        d = (p - fid)[None, :]
+        return float(torch.sqrt((d @ fisher64 @ d.T)[0, 0]))
+
+    start = fid + 2.0 * sigma
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_map, info = inference.map_fit(like.neg_log_post, start, n_steps=20,
+                                    learning_rate=float(0.3 * sigma.min()))
+    torch.cuda.synchronize()
+    map_wall = time.perf_counter() - t0
+    d_start, d_map = fisher_dist(start), fisher_dist(p_map)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chol_f = torch.linalg.cholesky(fisher64)
+    z = torch.randn((N_COSMO, 2), generator=gen, device=dev, dtype=f64)
+    q0 = fid + torch.linalg.solve_triangular(chol_f.T, z.T, upper=True).T
+    n_steps, n_leap = 3, 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, accept = inference.hmc(like.neg_log_post, fisher64, q0, gen,
+                                    n_steps=n_steps, n_leap=n_leap, eps=0.3)
+    torch.cuda.synchronize()
+    hmc_wall = time.perf_counter() - t0
+    acc_rate = float(accept.double().mean())
+    hmc_finite = bool(torch.isfinite(samples).all())
+    print(f"[inference] lattice route, data = f64 w+gamma_t at the fiducial "
+          f"(0.278, 0.811), diagonal cov sigma_i = 0.05|d_i| + 1e-3 max|d| | "
+          f"Fisher f32 vs f64 worst |dF_ij|/sqrt(F_ii F_jj) = "
+          f"{fisher_err:.3e} (gate 1e-3); sigma(omega_m0, sigma_8) = "
+          f"{sigma.tolist()} | map_fit from 2 sigma off, 20 Adam steps: "
+          f"Fisher distance {d_start:.3f} -> {d_map:.3f}, wall "
+          f"{map_wall:.2f} s | hmc: {N_COSMO} chains x {n_steps} steps x "
+          f"{n_leap} leapfrogs, eps 0.3, Fisher mass: finite={hmc_finite}, "
+          f"mean acceptance {acc_rate:.4f} (gate > 0.5), wall "
+          f"{hmc_wall:.2f} s = {hmc_wall / (n_steps * n_leap) * 1e3:.1f} ms "
+          f"per leapfrog ({n_steps * n_leap + 1} gradient evaluations)",
+          flush=True)
+    if not fisher_err <= 1e-3:
+        fail(f"Fisher matrix float32 vs float64: {fisher_err}")
+    if not (math.isfinite(d_map) and d_map < d_start):
+        fail(f"map_fit did not approach the fiducial: {d_start} -> {d_map}")
+    if not (hmc_finite and acc_rate > 0.5):
+        fail(f"hmc: finite={hmc_finite}, acceptance {acc_rate}")
+
     # -- device time of each kernel and its library call ----------------
-    dev = {}
+    dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
-        dev[name] = (device_ms(kernel, reps),
+        dtimes[name] = (device_ms(kernel, reps),
                      device_ms(library, reps) if library else None)
-        print(f"[device time] {name}: kernel {fmt_ms(dev[name][0])}"
-              + (f", library {fmt_ms(dev[name][1])}" if library else "")
+        print(f"[device time] {name}: kernel {fmt_ms(dtimes[name][0])}"
+              + (f", library {fmt_ms(dtimes[name][1])}" if library else "")
               + f" per call (torch.profiler kernel records over {reps} "
               f"calls)", flush=True)
 
+    # The device's busy share of one forward+backward per route.
+    for route, (pipe_r, _) in pipes.items():
+        busy = device_ms(lambda: grad_run(pipe_r), reps=1)
+        wall_fb = grad_info[route]["fwd_bwd_wall"] * 1e3
+        print(f"[device time] {route} route forward+backward, B={N_COSMO}: "
+              f"device busy {fmt_ms(busy)} of a {wall_fb:.1f} ms wall"
+              + (f" ({busy / wall_fb:.1%} busy)" if busy else ""),
+              flush=True)
+
     paths = {"lattice": launches, "table": launches_t}
+    bwd_paths = {route: {f"{n}_bwd": c for n, c in bw.items()}
+                 for route, (_fw, bw) in grad_launches.items()}
 
     def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
-               dev, library_dev):
+               dev, library_dev, paths=paths):
         by_path = {p: c[name] for p, c in paths.items()}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -848,18 +1337,35 @@ def main():
     kernels = [
         record("halo_contract", "chomp_tpu_torch/csrc/halo_contract.cu",
                "chomp_tpu/ops/halo_pallas.py:77", abs_a32, ms_a, plain_ms_a,
-               bound_a, None, *dev["halo_contract"])
+               bound_a, None, *dtimes["halo_contract"])
         | {"feedback_ms": ms_a_fb,
-           "feedback_device_ms": dev["halo_contract feedback"][0],
+           "feedback_device_ms": dtimes["halo_contract feedback"][0],
            "feedback_bound_ms": bound_a_fb[0],
-           "table_k_device_ms": dev["halo_contract table k"][0],
+           "table_k_device_ms": dtimes["halo_contract table k"][0],
            "table_k_bound_ms": bound_a_tab[0]},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
-               bound_c, lib_ms_c, *dev["df_contract"]),
+               bound_c, lib_ms_c, *dtimes["df_contract"]),
         record("hankel_matmul", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47", main_b["abs"], ms_b,
-               plain_ms_b, bound_b, lib_ms_b, *dev["hankel_matmul"]),
+               plain_ms_b, bound_b, lib_ms_b, *dtimes["hankel_matmul"]),
+        record("halo_contract_bwd", "chomp_tpu_torch/csrc/halo_contract.cu",
+               "chomp_tpu/ops/halo_pallas.py:77 (the forward's site); "
+               "autodiff; no backward kernel in the JAX package",
+               bwd_a["main"]["abs"], ms_abwd, plain_ms_abwd, bound_abwd,
+               None, *dtimes["halo_contract_bwd"], paths=bwd_paths),
+        record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
+               "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
+               "no backward kernel in the JAX package",
+               checks_bc[("df_contract_bwd", (N_COSMO, 64, j_hi - j_lo))][
+                   "abs"], ms_cbwd, plain_ms_cbwd, bound_cbwd, lib_ms_cbwd,
+               *dtimes["df_contract_bwd"], paths=bwd_paths),
+        record("hankel_matmul_bwd", "chomp_tpu_torch/csrc/hankel_matmul.cu",
+               "chomp_tpu/ops/fftlog_pallas.py:47 (the forward's site); "
+               "autodiff; no backward kernel in the JAX package",
+               checks_bc[("hankel_matmul_bwd", (N_COSMO, 64, 1024))]["abs"],
+               ms_bbwd, plain_ms_bbwd, bound_bbwd, lib_ms_bbwd,
+               *dtimes["hankel_matmul_bwd"], paths=bwd_paths),
     ]
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -6,10 +6,11 @@ lattice route (``method="fft"``) and the GL + cubic-table route
 (``method="table"``, with ``correlation``'s public surface).  Three
 hand-written CUDA kernels carry them: the halo-model mass contraction
 (``ops.halo_contract``), the compensated operator contraction
-(``ops.df32``) and the Hankel-operator product (``ops.hankel_matmul``).
-The package
-imports torch and numpy only; the JAX package beside it is its reference
-in the tests.
+(``ops.df32``) and the Hankel-operator product (``ops.hankel_matmul``),
+each with a backward kernel, so both routes differentiate on the card;
+``inference`` holds the gradient core (theory map, Jacobian, Gaussian
+likelihood, Fisher, MAP fit, HMC).  The package imports torch, numpy and
+scipy only; the JAX package beside it is its reference in the tests.
 """
 
 from chomp_tpu_torch.hod import HODZheng, default_hod

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from chomp_tpu_torch.grids import gl_integrate
+from chomp_tpu_torch.grids import gl_integrate, recompute_in_backward
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams
 
 #: EdS spherical-collapse threshold (3/20)(12 pi)^(2/3).
@@ -41,8 +41,12 @@ def omega_m_z(cosmo: CosmoParams, z):
 def comoving_distance(cosmo: CosmoParams, z, st, n: int = 64):
     """Line-of-sight comoving distance chi(z) in Mpc/h (GL over [0, z])."""
     x, w = st.gl(n)
-    return C_OVER_H0 * gl_integrate(lambda zp: 1.0 / ez(cosmo, zp),
-                                    torch.zeros_like(z), z, x, w)
+
+    def chi(z):
+        return C_OVER_H0 * gl_integrate(lambda zp: 1.0 / ez(cosmo, zp),
+                                        torch.zeros_like(z), z, x, w)
+
+    return recompute_in_backward(chi, z, track=cosmo.fields().values())
 
 
 def z_of_chi(cosmo: CosmoParams, chi, z_seed, st, n: int = 64,
@@ -61,16 +65,21 @@ def _growth_unnorm(cosmo: CosmoParams, a, st, n: int):
     """Un-normalized D(a) = 2.5 om E(a) ∫_0^a da'/(a' E(a'))^3, with the
     a' = a u^2 substitution (smooth integrand)."""
 
-    def integrand(u):
-        aa = a[..., None]
-        ap = aa * u * u
-        z = 1.0 / ap - 1.0
-        e3 = e2z(cosmo, z) * ez(cosmo, z)
-        return 2.0 / (aa * aa * u**5 * e3)
-
     x, w = st.gl(n)
-    integral = gl_integrate(integrand, torch.zeros_like(a),
+
+    def integral(a):
+        def integrand(u):
+            aa = a[..., None]
+            ap = aa * u * u
+            z = 1.0 / ap - 1.0
+            e3 = e2z(cosmo, z) * ez(cosmo, z)
+            return 2.0 / (aa * aa * u**5 * e3)
+
+        return gl_integrate(integrand, torch.zeros_like(a),
                             torch.ones_like(a), x, w)
+
+    integral = recompute_in_backward(integral, a,
+                                     track=cosmo.fields().values())
     z_of_a = 1.0 / a - 1.0
     c = cosmo.shaped(a.dim() - 1)
     return 2.5 * c.omega_m0 * ez(cosmo, z_of_a) * integral

@@ -26,6 +26,13 @@
 // slice of c and of both operator parts once in shared memory (the old
 // one-warp-per-output design read its rows from cache once per output);
 // the geometry comes from ops/tiles.py::split_k.
+//
+// The backward (df_contract_bwd_launch) is grad_c (R, n) = G (R, T) @
+// (a_hi + a_lo) at depth T = 64: the same tile with A read as (T, n) rows
+// and hi + lo summed exactly in the fragment (dmma::BOp::KN_SPLIT; plain
+// KN in float64).  At R = 512 its 16 x 35 tiles fill the card, so
+// split_k leaves it unsplit.  The JAX package has no backward kernel: XLA
+// differentiates its two-float arithmetic.
 
 #include "dmma_tile.cuh"
 
@@ -46,6 +53,25 @@ df_contract_f64(const double* c, const double* a, double* out, int rows,
   extern __shared__ __align__(16) unsigned char smem[];
   dmma::splitk_tile<double, dmma::BOp::NK>(smem, c, a, nullptr, out, rows, n,
                                            t, kc, vec_c != 0, vec_a != 0);
+}
+
+// The backward: grad_c (R, n) = G (R, T) @ (a_hi + a_lo), A read as (T, n)
+// rows, T the contraction (dmma::BOp::KN_SPLIT; float64: BOp::KN).
+__global__ void __launch_bounds__(dmma::THREADS)
+df_contract_bwd_f32(const float* g, const float* a_hi, const float* a_lo,
+                    float* out, int rows, int n, int t, int kc, int vec_g,
+                    int vec_a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dmma::splitk_tile<float, dmma::BOp::KN_SPLIT>(
+      smem, g, a_hi, a_lo, out, rows, n, t, kc, vec_g != 0, vec_a != 0);
+}
+
+__global__ void __launch_bounds__(dmma::THREADS)
+df_contract_bwd_f64(const double* g, const double* a, double* out, int rows,
+                    int n, int t, int kc, int vec_g, int vec_a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dmma::splitk_tile<double, dmma::BOp::KN>(smem, g, a, nullptr, out, rows, n,
+                                           t, kc, vec_g != 0, vec_a != 0);
 }
 
 }  // namespace
@@ -70,6 +96,36 @@ extern "C" int df_contract_launch(int device, int is_double, const void* c,
       &smem_set[0], device, cluster, tiles_n, tiles_m, s, (const float*)c,
       (const float*)a_hi, (const float*)a_lo, (float*)out, rows, n, t, kc,
       vec_c, vec_a);
+}
+
+// grad_c (rows, t) = grad (rows, n) @ (a_hi + a_lo), A (n, t): the
+// backward (n = T is the contraction, t = the operator's width).
+extern "C" int df_contract_bwd_launch(int device, int is_double,
+                                      const void* grad, const void* a_hi,
+                                      const void* a_lo, void* out, int rows,
+                                      int n, int t, int cluster, int tiles_n,
+                                      int tiles_m, int kc, int vec_g,
+                                      int vec_a, void* stream) {
+  const cudaError_t err = dmma::use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  static unsigned smem_set[2] = {0, 0};
+  if (is_double)
+    return (int)dmma::launch(
+        df_contract_bwd_f64, dmma::Geo<double, dmma::BOp::KN>::SMEM_BYTES,
+        &smem_set[1], device, cluster, tiles_n, tiles_m, s,
+        (const double*)grad, (const double*)a_hi, (double*)out, rows, n, t,
+        kc, vec_g, vec_a);
+  return (int)dmma::launch(
+      df_contract_bwd_f32, dmma::Geo<float, dmma::BOp::KN_SPLIT>::SMEM_BYTES,
+      &smem_set[0], device, cluster, tiles_n, tiles_m, s, (const float*)grad,
+      (const float*)a_hi, (const float*)a_lo, (float*)out, rows, n, t, kc,
+      vec_g, vec_a);
+}
+
+extern "C" int df_contract_bwd_smem_bytes(int is_double) {
+  return is_double ? dmma::Geo<double, dmma::BOp::KN>::SMEM_BYTES
+                   : dmma::Geo<float, dmma::BOp::KN_SPLIT>::SMEM_BYTES;
 }
 
 extern "C" int df_contract_smem_bytes(int is_double) {

@@ -1,9 +1,11 @@
 // dmma_tile.cuh: the split-K f64 tensor-core tile shared by kernels B
 // (hankel_matmul.cu) and C (df_contract.cu).
 //
-//   out (R, T) = A (R, K) @ B, B given as (K, T) rows (BOp::KN, kernel B),
-//   as (T, K) rows (BOp::NK, kernel C in float64) or as two (T, K) float32
-//   arrays hi + lo whose sum is the operand (BOp::NK_SPLIT, kernel C).
+//   out (R, T) = A (R, K) @ B, B given as (K, T) rows (BOp::KN: kernel B,
+//   and C's backward in float64), as (T, K) rows (BOp::NK: kernel C in
+//   float64, B's backward), or as two float32 arrays hi + lo whose sum is
+//   the operand, in (T, K) rows (BOp::NK_SPLIT: kernel C) or in (K, T)
+//   rows (BOp::KN_SPLIT: C's backward).
 //
 // Grid (S, ceil(T / BN), ceil(R / BM)) launched as thread-block clusters of
 // (S, 1, 1): the S CTAs of a cluster share one BM x BN output tile and split
@@ -79,7 +81,7 @@ __host__ __device__ constexpr int red_doubles() {
 }
 constexpr int RED_BYTES = red_doubles() * (int)sizeof(double);
 
-enum class BOp { KN, NK, NK_SPLIT };
+enum class BOp { KN, NK, NK_SPLIT, KN_SPLIT };
 
 template <typename T, BOp OP>
 struct Geo {
@@ -89,9 +91,10 @@ struct Geo {
   static constexpr int LDK = BK + 8;
   static constexpr int LDN = BN + (sizeof(T) == 4 ? 4 : 2);
   static constexpr int A_ELEMS = BM * LDK;
-  static constexpr int B_ELEMS = OP == BOp::KN   ? BK * LDN
-                                 : OP == BOp::NK ? BN * LDK
-                                                 : 2 * BN * LDK;
+  static constexpr bool ROWS_K = OP == BOp::KN || OP == BOp::KN_SPLIT;
+  static constexpr int PART = ROWS_K ? BK * LDN : BN * LDK;  // one operand
+  static constexpr int B_ELEMS =
+      OP == BOp::NK_SPLIT || OP == BOp::KN_SPLIT ? 2 * PART : PART;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr int STAGE_BYTES = STAGES * STAGE * (int)sizeof(T);
   static constexpr int SMEM_BYTES = STAGE_BYTES + RED_BYTES;
@@ -214,16 +217,21 @@ __device__ __forceinline__ void mma_stage(const T* sa, const T* sb,
     for (int j = 0; j < NF; ++j) {
       const int col = wn + 8 * j + g;
       double b[2];
-      if constexpr (OP == BOp::KN) {
+      if constexpr (G::ROWS_K) {
         b[0] = to_f64(sb[(kk + 2 * t) * G::LDN + col]);
         b[1] = to_f64(sb[(kk + 2 * t + 1) * G::LDN + col]);
+        if constexpr (OP == BOp::KN_SPLIT) {
+          const T* lo = sb + G::PART;
+          b[0] += to_f64(lo[(kk + 2 * t) * G::LDN + col]);
+          b[1] += to_f64(lo[(kk + 2 * t + 1) * G::LDN + col]);
+        }
       } else {
         const T* pb = sb + col * G::LDK + kk + 2 * t;
         const T2 h = *reinterpret_cast<const T2*>(pb);
         b[0] = to_f64(h.x);
         b[1] = to_f64(h.y);
         if constexpr (OP == BOp::NK_SPLIT) {
-          const T2 l = *reinterpret_cast<const T2*>(pb + BN * G::LDK);
+          const T2 l = *reinterpret_cast<const T2*>(pb + G::PART);
           b[0] += to_f64(l.x);
           b[1] += to_f64(l.y);
         }
@@ -261,13 +269,16 @@ __device__ __forceinline__ void splitk_tile(unsigned char* smem,
     const int kb = k0 + slice * G::BK;
     stage_tile<T, BM, G::BK, G::LDK>(s, a, n, r0, kb, rows, k1, vec_a);
     T* sb = s + G::A_ELEMS;
-    if constexpr (OP == BOp::KN) {
+    if constexpr (G::ROWS_K) {
       stage_tile<T, G::BK, BN, G::LDN>(sb, b, t, kb, c0, k1, t, vec_b);
+      if constexpr (OP == BOp::KN_SPLIT)
+        stage_tile<T, G::BK, BN, G::LDN>(sb + G::PART, b_lo, t, kb, c0, k1,
+                                         t, vec_b);
     } else {
       stage_tile<T, BN, G::BK, G::LDK>(sb, b, n, c0, kb, t, k1, vec_b);
       if constexpr (OP == BOp::NK_SPLIT)
-        stage_tile<T, BN, G::BK, G::LDK>(sb + BN * G::LDK, b_lo, n, c0, kb,
-                                         t, k1, vec_b);
+        stage_tile<T, BN, G::BK, G::LDK>(sb + G::PART, b_lo, n, c0, kb, t,
+                                         k1, vec_b);
     }
   };
 

@@ -159,21 +159,30 @@ __device__ __forceinline__ T cheb(int off, T t) {
   return fma(t, b1, tab<T>(off) - b2);
 }
 
+// Si(x) and Ci(x) from their power series (x <= 4).
+template <typename T>
+__device__ __forceinline__ void sici_series(T x, T& si, T& ci) {
+  using L = Lens<T>;
+  const T t = x * x;
+  si = T(0);
+  ci = T(0);
+#pragma unroll
+  for (int k = L::series - 1; k >= 0; --k) {
+    si = fma(si, t, tab<T>(OFF_SI + k));
+    if (k >= 1) ci = fma(ci, t, tab<T>(OFF_CI + k));
+  }
+  si = si * x;
+  ci = fma(ci, t, T(EULER_GAMMA)) + log_(x);
+}
+
 // g(x), full range (Si = pi/2 - f cos - g sin, Ci = f sin - g cos);
 // u = 1/x, read for x > 4.
 template <typename T>
 __device__ T aux_g(T x, T u) {
   using L = Lens<T>;
   if (x <= T(4)) {
-    const T t = x * x;
-    T si = T(0), ci = T(0);
-#pragma unroll
-    for (int k = L::series - 1; k >= 0; --k) {
-      si = fma(si, t, tab<T>(OFF_SI + k));
-      if (k >= 1) ci = fma(ci, t, tab<T>(OFF_CI + k));
-    }
-    si = si * x;
-    ci = fma(ci, t, T(EULER_GAMMA)) + log_(x);
+    T si, ci;
+    sici_series(x, si, ci);
     T s, c;
     sincos_(x, &s, &c);
     return (T(HALF_PI) - si) * s - ci * c;
@@ -216,6 +225,20 @@ __device__ __forceinline__ void aux_fg_large(T b, T u, T& fm, T& g) {
 #pragma unroll
   for (int k = L::g_asym - 1; k >= 0; --k) gg = fma(gg, w, tab<T>(OFF_GA + k));
   g = gg * w;
+}
+
+// f(x) - 1/x and g(x), full range (the backward's fm(x)); u = 1/x.
+template <typename T>
+__device__ __forceinline__ void aux_fg(T x, T u, T& fm, T& g) {
+  if (x <= T(4)) {
+    T si, ci, s, c;
+    sici_series(x, si, ci);
+    sincos_(x, &s, &c);
+    fm = (T(HALF_PI) - si) * c + ci * s - u;
+    g = (T(HALF_PI) - si) * s - ci * c;
+    return;
+  }
+  aux_fg_large(x, u, fm, g);
 }
 
 // A staged profile: radius, concentration, 1 + c, and its moment-series
@@ -354,20 +377,210 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward.  Given the output's cotangent G (B, 5, NK), the gradients of
+// the node arrays (no TPU counterpart: the JAX package differentiates its
+// XLA path).  With N(x, c) = int_0^c sin(xt) / (x (1+t)^2) dt, f' = -g,
+// g' = f - 1/x:
+//   dN/dc = sin(cx) / (x (1+c)^2) = sin(cx) / (b (1+c)),   b = (1+c) x,
+//   dN/dx = fm(x) - cos(cx) fm(b) - sin(cx) g(b) + sin(cx) / (x b),
+// and on the small-argument route dN/dx = sum_n 2n a_n x^(2n-1) from the
+// same moment coefficients.  Per mat node (rs, c, wa, wb), S = G_hm wa +
+// 2 G_mm wb N:  d wa = sum_k G_hm N,  d wb = sum_k G_mm N^2,
+// d rs = sum_k S k dN/dx,  d c = sum_k S dN/dc.  Per gal node, S_g = G_hg
+// a_hg + G_gg (a_gg + 2 b_gg N_g) + G_gm b_gm N_m and S_m = G_gm (a_gm +
+// b_gm N_g) play S's part for the galaxy and the matter profile; a node
+// whose two profiles coincide evaluates one, and both fields still get
+// their own gradient.
+//
+// The backward reduces over k, so it parallelises over nodes: one thread
+// per (cosmology, node), mat nodes first, then gal nodes; k and the
+// cosmology's five cotangent rows are staged through shared memory in
+// tiles of BLOCK (every thread reads the same k: a broadcast).  Each
+// thread's profile (radius, concentration, moment coefficients) lives in
+// its registers.  Accumulators are double, summed in k order, no atomics:
+// two launches agree bit for bit.  What bounds it: arithmetic, as the
+// forward (the profile's derivatives reuse its sin, cos, fm(b) and g(b)
+// and add fm(x)); the cotangent, the only large input, is read once.
+
+// N, dN/dx and dN/dc at x = k r_s (inv_c1 = 1/(1+c)).
+template <typename T>
+__device__ __forceinline__ void profile_nd(T kk, const Profile<T>& p,
+                                           T inv_c1, T& n, T& dx, T& dc) {
+  constexpr int M = Lens<T>::moments;
+  const T x = kk * p.rs;
+  const T b = p.c1 * x;
+  const T u = rcp_(b);
+  T s, co;
+  if (b <= T(SMALL_B)) {
+    const T x2 = x * x;
+    n = p.a[M - 1];
+    T d = T(2 * (M - 1)) * p.a[M - 1];
+#pragma unroll
+    for (int j = M - 2; j >= 0; --j) {
+      n = fma(n, x2, p.a[j]);
+      if (j >= 1) d = fma(d, x2, T(2 * j) * p.a[j]);
+    }
+    dx = d * x;
+    sincos_(p.c * x, &s, &co);  // |cx| < 4
+    dc = s * u * inv_c1;
+    return;
+  }
+  T fm, g, fmx, gx;
+  sincos_big(p.c * x, &s, &co);
+  aux_fg_large(b, u, fm, g);
+  const T ux = p.c1 * u;  // 1/x
+  aux_fg(x, ux, fmx, gx);
+  n = gx + s * fm - co * g;
+  dx = fmx - co * fm - s * g + s * ux * u;
+  dc = s * u * inv_c1;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+halo_contract_bwd_kernel(const T* __restrict__ k, int nk,
+                         const T* __restrict__ mat, int nm,
+                         const T* __restrict__ gal, int ng,
+                         const T* __restrict__ grad, T* __restrict__ gmat,
+                         T* __restrict__ ggal) {
+  __shared__ T s_k[BLOCK];
+  __shared__ double s_g[N_OUT][BLOCK];
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int j = blockIdx.x * BLOCK + tid;
+  const bool is_mat = j < nm;
+  const bool is_gal = !is_mat && j < nm + ng;
+  const int jg = j - nm;
+
+  // This thread's node: profile(s), weights, accumulators.
+  Profile<T> pm, pg;
+  T inv_m = T(1), inv_g = T(1);
+  bool same = true;
+  double w[N_W] = {0.0, 0.0, 0.0, 0.0, 0.0};
+  double acc[GAL_F];
+#pragma unroll
+  for (int f = 0; f < GAL_F; ++f) acc[f] = 0.0;
+  if (is_mat) {
+    const T* q = mat + ((size_t)b * nm + j) * MAT_F;
+    stage_profile(pm, q[0], q[1]);
+    w[0] = (double)q[2];
+    w[1] = (double)q[3];
+  } else if (is_gal) {
+    const T* q = gal + ((size_t)b * ng + jg) * GAL_F;
+    same = q[0] == q[2] && q[1] == q[3];
+    stage_profile(pm, q[0], q[1]);
+    if (!same) stage_profile(pg, q[2], q[3]);
+#pragma unroll
+    for (int f = 0; f < N_W; ++f) w[f] = (double)q[4 + f];
+  }
+  if (is_mat || is_gal) inv_m = T(1) / pm.c1;
+  if (is_gal && !same) inv_g = T(1) / pg.c1;
+
+  const T* gb = grad + (size_t)b * N_OUT * nk;
+  for (int base = 0; base < nk; base += BLOCK) {
+    const int cnt = min(BLOCK, nk - base);
+    __syncthreads();
+    if (tid < cnt) {
+      s_k[tid] = k[base + tid];
+#pragma unroll
+      for (int o = 0; o < N_OUT; ++o)
+        s_g[o][tid] = (double)gb[(size_t)o * nk + base + tid];
+    }
+    __syncthreads();
+    if (is_mat) {
+      // acc: rs, c, wa, wb.  G rows: 0 h_m, 2 pp_mm.
+      for (int i = 0; i < cnt; ++i) {
+        const T kk = s_k[i];
+        T n, dx, dc;
+        profile_nd(kk, pm, inv_m, n, dx, dc);
+        const double nd = (double)n;
+        const double g_hm = s_g[0][i], g_mm = s_g[2][i];
+        const double sv = fma(2.0 * g_mm * w[1], nd, g_hm * w[0]);
+        acc[0] = fma(sv, (double)(kk * dx), acc[0]);
+        acc[1] = fma(sv, (double)dc, acc[1]);
+        acc[2] = fma(g_hm, nd, acc[2]);
+        acc[3] = fma(g_mm * nd, nd, acc[3]);
+      }
+    } else if (is_gal) {
+      // acc: rs_m, c_m, rs_g, c_g, a_hg, a_gg, b_gg, a_gm, b_gm.
+      // G rows: 1 h_g, 3 pp_gg, 4 pp_gm.
+      for (int i = 0; i < cnt; ++i) {
+        const T kk = s_k[i];
+        T n_m, dx_m, dc_m, n_g, dx_g, dc_g;
+        profile_nd(kk, pm, inv_m, n_m, dx_m, dc_m);
+        if (same) {
+          n_g = n_m;
+          dx_g = dx_m;
+          dc_g = dc_m;
+        } else {
+          profile_nd(kk, pg, inv_g, n_g, dx_g, dc_g);
+        }
+        const double nm_d = (double)n_m, ng_d = (double)n_g;
+        const double g_hg = s_g[1][i], g_gg = s_g[3][i], g_gm = s_g[4][i];
+        const double s_g_ = fma(g_gm * w[4], nm_d,
+                                fma(g_gg, fma(2.0 * w[2], ng_d, w[1]),
+                                    g_hg * w[0]));
+        const double s_m = g_gm * fma(w[4], ng_d, w[3]);
+        acc[0] = fma(s_m, (double)(kk * dx_m), acc[0]);
+        acc[1] = fma(s_m, (double)dc_m, acc[1]);
+        acc[2] = fma(s_g_, (double)(kk * dx_g), acc[2]);
+        acc[3] = fma(s_g_, (double)dc_g, acc[3]);
+        acc[4] = fma(g_hg, ng_d, acc[4]);
+        acc[5] = fma(g_gg, ng_d, acc[5]);
+        acc[6] = fma(g_gg * ng_d, ng_d, acc[6]);
+        acc[7] = fma(g_gm, nm_d, acc[7]);
+        acc[8] = fma(g_gm * nm_d, ng_d, acc[8]);
+      }
+    }
+  }
+
+  if (is_mat) {
+    T* o = gmat + ((size_t)b * nm + j) * MAT_F;
+#pragma unroll
+    for (int f = 0; f < MAT_F; ++f) o[f] = (T)acc[f];
+  } else if (is_gal) {
+    T* o = ggal + ((size_t)b * ng + jg) * GAL_F;
+#pragma unroll
+    for (int f = 0; f < GAL_F; ++f) o[f] = (T)acc[f];
+  }
+}
+
+// Checks the caller's term counts and copies the tables to constant
+// memory on the launch stream.
+template <typename T, typename Sym>
+cudaError_t prepare(const Sym& table_symbol, const void* tables,
+                    const int* lens, cudaStream_t s) {
+  using L = Lens<T>;
+  const int want[6] = {L::afm, L::ag, L::bfm, L::bg, L::series, L::g_asym};
+  for (int j = 0; j < 6; ++j)
+    if (lens[j] != want[j]) return cudaErrorInvalidValue;
+  return cudaMemcpyToSymbolAsync(table_symbol, tables, N_PACK * sizeof(T), 0,
+                                 cudaMemcpyDeviceToDevice, s);
+}
+
 template <typename T, typename Sym>
 int launch(const Sym& table_symbol, const void* tables, const void* k, int nk,
            const void* mat, int nm, const void* gal, int ng, void* out,
            int batch, const int* lens, cudaStream_t s) {
-  using L = Lens<T>;
-  const int want[6] = {L::afm, L::ag, L::bfm, L::bg, L::series, L::g_asym};
-  for (int j = 0; j < 6; ++j)
-    if (lens[j] != want[j]) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyToSymbolAsync(
-      table_symbol, tables, N_PACK * sizeof(T), 0, cudaMemcpyDeviceToDevice, s);
+  const cudaError_t err = prepare<T>(table_symbol, tables, lens, s);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nk + BLOCK - 1) / BLOCK, batch);
   halo_contract_kernel<T><<<grid, BLOCK, 0, s>>>(
       (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename Sym>
+int launch_bwd(const Sym& table_symbol, const void* tables, const void* k,
+               int nk, const void* mat, int nm, const void* gal, int ng,
+               const void* grad, void* gmat, void* ggal, int batch,
+               const int* lens, cudaStream_t s) {
+  const cudaError_t err = prepare<T>(table_symbol, tables, lens, s);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nm + ng + BLOCK - 1) / BLOCK, batch);
+  halo_contract_bwd_kernel<T><<<grid, BLOCK, 0, s>>>(
+      (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng,
+      (const T*)grad, (T*)gmat, (T*)ggal);
   return (int)cudaGetLastError();
 }
 
@@ -388,6 +601,26 @@ extern "C" int halo_contract_launch(int device, int is_double, const void* k,
                           lens, s);
   return launch<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, out, batch,
                        lens, s);
+}
+
+extern "C" int halo_contract_bwd_launch(int device, int is_double,
+                                        const void* k, int nk,
+                                        const void* mat, int nm,
+                                        const void* gal, int ng,
+                                        const void* grad, void* gmat,
+                                        void* ggal, int batch,
+                                        const void* tables, int afm, int ag,
+                                        int bfm, int bg, int series,
+                                        int g_asym, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int lens[6] = {afm, ag, bfm, bg, series, g_asym};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    return launch_bwd<double>(c_tab_d, tables, k, nk, mat, nm, gal, ng, grad,
+                              gmat, ggal, batch, lens, s);
+  return launch_bwd<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, grad,
+                           gmat, ggal, batch, lens, s);
 }
 
 extern "C" const char* halo_contract_error(int code) {

@@ -26,29 +26,39 @@
 // instead of a few SMs: 32 x 64 output tiles (16 of them) split along N over
 // clusters of S = 8 CTAs (128 deep each) give 128 CTAs for 132 SMs; the
 // geometry comes from ops/tiles.py::split_k.
+//
+// The backward (hankel_matmul_bwd_launch) is grad_cl (R, N) = G (R, T) @
+// op_t^T at depth K = T = 64: the same tile with op_t read as (N, K) rows
+// (dmma::BOp::NK), products exact in double as in the forward.  At R =
+// 512 its 16 x 16 tiles already fill the card, so split_k leaves it
+// unsplit (clusters of 1).  No TPU counterpart: the JAX package
+// differentiates through XLA.
 
 #include "dmma_tile.cuh"
 
 namespace {
 
-template <typename T>
+// out = a @ b with b in the layout OP: the forward is cl (R, N) @ op_t
+// (N, T), op_t in (K, T) rows (BOp::KN); the backward is grad_cl (R, N) =
+// G (R, T) @ op_t^T, op_t read as (N, K) rows (BOp::NK), K = T.
+template <typename T, dmma::BOp OP>
 __global__ void __launch_bounds__(dmma::THREADS)
-hankel_matmul_kernel(const T* cl, const T* op_t, T* out, int rows, int n,
-                     int t, int kc, int vec_cl, int vec_op) {
+hankel_matmul_kernel(const T* a, const T* b, T* out, int rows, int n, int t,
+                     int kc, int vec_a, int vec_b) {
   extern __shared__ __align__(16) unsigned char smem[];
-  dmma::splitk_tile<T, dmma::BOp::KN>(smem, cl, op_t, nullptr, out, rows, n,
-                                      t, kc, vec_cl != 0, vec_op != 0);
+  dmma::splitk_tile<T, OP>(smem, a, b, nullptr, out, rows, n, t, kc,
+                           vec_a != 0, vec_b != 0);
 }
 
-template <typename T>
-int launch(int device, const void* cl, const void* op_t, void* out, int rows,
+template <typename T, dmma::BOp OP>
+int launch(int device, const void* a, const void* b, void* out, int rows,
            int n, int t, int cluster, int tiles_n, int tiles_m, int kc,
-           int vec_cl, int vec_op, cudaStream_t s) {
+           int vec_a, int vec_b, cudaStream_t s) {
   static unsigned smem_set = 0;
   return (int)dmma::launch(
-      hankel_matmul_kernel<T>, dmma::Geo<T, dmma::BOp::KN>::SMEM_BYTES,
-      &smem_set, device, cluster, tiles_n, tiles_m, s, (const T*)cl,
-      (const T*)op_t, (T*)out, rows, n, t, kc, vec_cl, vec_op);
+      hankel_matmul_kernel<T, OP>, dmma::Geo<T, OP>::SMEM_BYTES, &smem_set,
+      device, cluster, tiles_n, tiles_m, s, (const T*)a, (const T*)b,
+      (T*)out, rows, n, t, kc, vec_a, vec_b);
 }
 
 }  // namespace
@@ -62,15 +72,42 @@ extern "C" int hankel_matmul_launch(int device, int is_double, const void* cl,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
-    return launch<double>(device, cl, op_t, out, rows, n, t, cluster,
-                          tiles_n, tiles_m, kc, vec_cl, vec_op, s);
-  return launch<float>(device, cl, op_t, out, rows, n, t, cluster, tiles_n,
-                       tiles_m, kc, vec_cl, vec_op, s);
+    return launch<double, dmma::BOp::KN>(device, cl, op_t, out, rows, n, t,
+                                         cluster, tiles_n, tiles_m, kc,
+                                         vec_cl, vec_op, s);
+  return launch<float, dmma::BOp::KN>(device, cl, op_t, out, rows, n, t,
+                                      cluster, tiles_n, tiles_m, kc, vec_cl,
+                                      vec_op, s);
+}
+
+// grad_cl (rows, t) = grad (rows, n) @ op_t^T, op_t (t, n): the backward
+// (n = n_theta is the contraction, t = n_ell the output columns).
+extern "C" int hankel_matmul_bwd_launch(int device, int is_double,
+                                        const void* grad, const void* op_t,
+                                        void* out, int rows, int n, int t,
+                                        int cluster, int tiles_n, int tiles_m,
+                                        int kc, int vec_g, int vec_op,
+                                        void* stream) {
+  const cudaError_t err = dmma::use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_double)
+    return launch<double, dmma::BOp::NK>(device, grad, op_t, out, rows, n, t,
+                                         cluster, tiles_n, tiles_m, kc,
+                                         vec_g, vec_op, s);
+  return launch<float, dmma::BOp::NK>(device, grad, op_t, out, rows, n, t,
+                                      cluster, tiles_n, tiles_m, kc, vec_g,
+                                      vec_op, s);
 }
 
 extern "C" int hankel_matmul_smem_bytes(int is_double) {
   return is_double ? dmma::Geo<double, dmma::BOp::KN>::SMEM_BYTES
                    : dmma::Geo<float, dmma::BOp::KN>::SMEM_BYTES;
+}
+
+extern "C" int hankel_matmul_bwd_smem_bytes(int is_double) {
+  return is_double ? dmma::Geo<double, dmma::BOp::NK>::SMEM_BYTES
+                   : dmma::Geo<float, dmma::BOp::NK>::SMEM_BYTES;
 }
 
 extern "C" const char* hankel_matmul_error(int code) {

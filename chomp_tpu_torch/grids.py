@@ -3,7 +3,8 @@
 PyTorch counterpart of the JAX package's ``grids.py``.  The node builders are
 float64 numpy (copied: the JAX module imports jax); :func:`gl_integrate`
 is the batched torch contraction and :func:`interp_loglog_cubic` the
-batched table lookup; :class:`Statics` holds every static
+batched table lookup; :func:`recompute_in_backward` keeps a quadrature's
+intermediates out of the autograd graph; :class:`Statics` holds every static
 numpy table of one :class:`~chomp_tpu_torch.params.GridSpec` as module
 buffers on one device and dtype, so the pipeline converts them once.
 """
@@ -15,6 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @lru_cache(maxsize=None)
@@ -107,6 +109,22 @@ def gl_integrate(f, a, b, x: torch.Tensor, w: torch.Tensor):
     mid = 0.5 * (b + a)
     t = mid[..., None] + half[..., None] * x
     return torch.sum(f(t) * w, dim=-1) * half
+
+
+def recompute_in_backward(fn, *args, track=()):
+    """``fn(*args)``; when autograd records a graph through ``args`` or the
+    tensors in ``track`` (those ``fn`` reads from its closure), none of
+    fn's intermediates are kept for the backward pass, which runs fn
+    again (``torch.utils.checkpoint``, non-reentrant).  For the wide,
+    cheap integrands of the quadratures (distances, growth, sigma(R), the
+    Limber sum), whose saved intermediates would otherwise hold most of
+    a 512-cosmology backward's device memory.  ``fn`` must not call
+    ``torch.func`` transforms."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (*args, *track)):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 class Statics(nn.Module):

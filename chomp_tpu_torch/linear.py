@@ -12,6 +12,7 @@ import math
 import torch
 
 from chomp_tpu_torch import background, neutrino
+from chomp_tpu_torch.grids import recompute_in_backward
 from chomp_tpu_torch.params import CosmoParams, col
 
 _E = 2.718281828459045
@@ -73,19 +74,25 @@ def _sigma_integrands(cosmo, r, st, nu_z, species):
 def sigma2_unnorm_r(cosmo: CosmoParams, r, st, nu_z, species: str = "m"):
     """Unnormalized sigma^2(R) = ∫ dln k Delta^2_un(k) W^2(kR); ``r``
     (B|1, M) -> (B, M)."""
-    d2, x, w = _sigma_integrands(cosmo, r, st, nu_z, species)
-    win = w_tophat(x)
-    return torch.sum(d2 * win * win * w, dim=-1)
+    def s2(r):
+        d2, x, w = _sigma_integrands(cosmo, r, st, nu_z, species)
+        win = w_tophat(x)
+        return torch.sum(d2 * win * win * w, dim=-1)
+
+    return recompute_in_backward(s2, r, track=cosmo.fields().values())
 
 
 def sigma2_unnorm_r_and_dlnr(cosmo: CosmoParams, r, st, nu_z,
                              species: str = "m"):
     """(sigma^2_un(R), d sigma^2_un/d lnR) sharing one node set."""
-    d2, x, w = _sigma_integrands(cosmo, r, st, nu_z, species)
-    win = w_tophat(x)
-    s2 = torch.sum(d2 * win * win * w, dim=-1)
-    ds2 = torch.sum(d2 * 2.0 * win * dw_tophat(x) * x * w, dim=-1)
-    return s2, ds2
+    def both(r):
+        d2, x, w = _sigma_integrands(cosmo, r, st, nu_z, species)
+        win = w_tophat(x)
+        s2 = torch.sum(d2 * win * win * w, dim=-1)
+        ds2 = torch.sum(d2 * 2.0 * win * dw_tophat(x) * x * w, dim=-1)
+        return s2, ds2
+
+    return recompute_in_backward(both, r, track=cosmo.fields().values())
 
 
 def power_norm(cosmo: CosmoParams, st):

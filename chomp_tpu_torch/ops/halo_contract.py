@@ -22,6 +22,14 @@ is ``chomp_tpu_torch/csrc/halo_contract.cu``.  :func:`halo_contract_ref`
 is the plain PyTorch version of the same function.  Where b = (1+c)x <=
 :data:`SMALL_B` the kernel evaluates N from its moment series instead
 (:func:`moment_coeffs`, :func:`nfw_n_small` mirror that route).
+
+Gradients: :func:`halo_contract` is differentiable in ``mat`` and ``gal``
+(``k`` and the table are static).  Its backward is a second kernel of the
+same source (:func:`halo_contract_bwd`; plain version
+:func:`halo_contract_bwd_ref`, the same formulas and routes in torch),
+which recomputes N and its derivatives from the saved node arrays.  The
+JAX package has no backward kernel: its gradients are autodiff of the
+XLA path, which autograd of :func:`halo_contract_ref` reproduces.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import torch
 
 from chomp_tpu_torch import _special_coeffs as _cf
 from chomp_tpu_torch.ops.build import device_index, load, raw_stream
-from chomp_tpu_torch.special import _trim, n_g_asym, n_series, nfw_n
+from chomp_tpu_torch.special import (_trim, aux_fm, aux_g, n_g_asym,
+                                     n_series, nfw_n)
 
 N_OUT = 5
 MAT_FIELDS = 4
@@ -147,6 +156,88 @@ def _ref_block(k, mat, gal):
     ], dim=1)
 
 
+def profile_nd(x, c, coeffs):
+    """(N, dN/dx, dN/dc) at x = k r_s by the kernel's routes: the moment
+    series (``coeffs`` = :func:`moment_coeffs` of ``c``) where b = (1+c)x
+    <= :data:`SMALL_B`, else the auxiliary functions:
+
+        dN/dx = fm(x) - cos(cx) fm(b) - sin(cx) g(b) + sin(cx) / (x b),
+        dN/dc = sin(cx) / (x (1+c)^2) = sin(cx) / (b (1+c)),
+
+    from N(x, c) = int_0^c sin(xt) / (x (1+t)^2) dt, f' = -g and g' = f -
+    1/x.  Every branch is evaluated on clamped arguments and selected with
+    ``torch.where``, in the dtype of ``x``."""
+    c1 = 1.0 + c
+    b = c1 * x
+    small = b <= SMALL_B
+    # Moment series, on arguments clamped into its route.
+    xs = torch.where(small, x, SMALL_B / c1)
+    a = coeffs.to(x.dtype)
+    x2 = xs * xs
+    n_s = a[..., -1]
+    d_s = (2 * (a.shape[-1] - 1)) * a[..., -1]
+    for j in range(a.shape[-1] - 2, -1, -1):
+        n_s = n_s * x2 + a[..., j]
+        if j >= 1:
+            d_s = d_s * x2 + (2 * j) * a[..., j]
+    d_s = d_s * xs
+    # Auxiliary functions.
+    cx = c * x
+    s, co = torch.sin(cx), torch.cos(cx)
+    u = 1.0 / b
+    fm_b, g_b = aux_fm(b), aux_g(b)
+    n_l = aux_g(x) + s * fm_b - co * g_b
+    d_l = aux_fm(x) - co * fm_b - s * g_b + s * (1.0 / x) * u
+    return (torch.where(small, n_s, n_l), torch.where(small, d_s, d_l),
+            s * u / c1)
+
+
+def halo_contract_bwd_ref(k, mat, gal, cheb, grad_out):
+    """Plain version of the backward kernel: (grad_mat (B, NM, 4),
+    grad_gal (B, NG, 9)) of ``sum(grad_out * halo_contract(k, mat,
+    gal))``, the formulas of :func:`profile_nd` summed over k in blocks
+    of 256, in the inputs' dtype."""
+    _check(k, mat, gal, cheb)
+    _check_grad(k, mat, grad_out)
+    m_coef = moment_coeffs(mat[..., 1], n_moments(k.dtype))[:, None]
+    gm_coef = moment_coeffs(gal[..., 1], n_moments(k.dtype))[:, None]
+    gg_coef = moment_coeffs(gal[..., 3], n_moments(k.dtype))[:, None]
+    g_mat = torch.zeros_like(mat)
+    g_gal = torch.zeros_like(gal)
+    for i in range(0, len(k), _REF_K_BLOCK):
+        kk = k[i:i + _REF_K_BLOCK][None, :, None]
+        g = grad_out[:, :, i:i + _REF_K_BLOCK, None]   # (B, 5, K, 1)
+        g_hm, g_hg, g_mm, g_gg, g_gm = g.unbind(1)
+        m = mat[:, None]
+        n, dx, dc = profile_nd(kk * m[..., 0], m[..., 1], m_coef)
+        sv = g_hm * m[..., 2] + 2.0 * g_mm * m[..., 3] * n
+        g_mat += torch.stack([(sv * (kk * dx)).sum(1), (sv * dc).sum(1),
+                              (g_hm * n).sum(1), (g_mm * n * n).sum(1)], -1)
+        q = gal[:, None]
+        n_m, dx_m, dc_m = profile_nd(kk * q[..., 0], q[..., 1], gm_coef)
+        n_g, dx_g, dc_g = profile_nd(kk * q[..., 2], q[..., 3], gg_coef)
+        s_g = (g_hg * q[..., 4] + g_gg * (q[..., 5] + 2.0 * q[..., 6] * n_g)
+               + g_gm * q[..., 8] * n_m)
+        s_m = g_gm * (q[..., 7] + q[..., 8] * n_g)
+        g_gal += torch.stack([
+            (s_m * (kk * dx_m)).sum(1), (s_m * dc_m).sum(1),
+            (s_g * (kk * dx_g)).sum(1), (s_g * dc_g).sum(1),
+            (g_hg * n_g).sum(1), (g_gg * n_g).sum(1),
+            (g_gg * n_g * n_g).sum(1), (g_gm * n_m).sum(1),
+            (g_gm * n_m * n_g).sum(1)], -1)
+    return g_mat, g_gal
+
+
+def _check_grad(k, mat, grad_out):
+    want = (mat.shape[0], N_OUT, k.shape[0])
+    if tuple(grad_out.shape) != want:
+        raise ValueError(f"halo_contract backward: cotangent must be {want}, "
+                         f"got {tuple(grad_out.shape)}")
+    if grad_out.dtype != k.dtype or grad_out.device != k.device:
+        raise TypeError("halo_contract backward: the cotangent must share "
+                        "the inputs' dtype and device")
+
+
 def _check(k, mat, gal, cheb):
     if k.dim() != 1 or mat.dim() != 3 or gal.dim() != 3:
         raise ValueError("halo_contract: need k (NK,), mat (B, NM, 4), "
@@ -167,6 +258,9 @@ def _check(k, mat, gal, cheb):
         raise ValueError(f"halo_contract: table must have {_N_PACK} entries")
 
 
+_TABLE_ARGS = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
 @lru_cache(maxsize=None)
 def _lib():
     lib = load("halo_contract")
@@ -174,45 +268,111 @@ def _lib():
     lib.halo_contract_launch.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + _TABLE_ARGS)
+    lib.halo_contract_bwd_launch.restype = ctypes.c_int
+    lib.halo_contract_bwd_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        + _TABLE_ARGS)
     lib.halo_contract_error.restype = ctypes.c_char_p
     lib.halo_contract_error.argtypes = [ctypes.c_int]
     return lib
+
+
+def _cuda_inputs(name, ts):
+    dev = ts[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return _lib(), device_index(ts[0])
+
+
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.halo_contract_error(rc).decode())
+
+
+def _forward(k, mat, gal, cheb):
+    """The forward kernel (CUDA) or the plain version (CPU)."""
+    if k.device.type == "cpu":
+        return halo_contract_ref(k, mat, gal)
+    lib, idx = _cuda_inputs("halo_contract", (k, mat, gal, cheb))
+    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[0]
+    out = torch.empty((b, N_OUT, nk), dtype=k.dtype, device=k.device)
+    if b == 0 or nk == 0:
+        return out
+    rc = lib.halo_contract_launch(
+        idx, int(k.dtype == torch.float64), k.data_ptr(), nk,
+        mat.data_ptr(), nm, gal.data_ptr(), ng, out.data_ptr(), b,
+        cheb.data_ptr(), *_lens(k.dtype), raw_stream(idx))
+    _raise_on(rc, lib, "halo_contract")
+    halo_contract.launches += 1
+    return out
+
+
+def halo_contract_bwd(k, mat, gal, cheb, grad_out):
+    """The backward kernel on CUDA tensors, :func:`halo_contract_bwd_ref`
+    on CPU tensors: (grad_mat, grad_gal) for the cotangent ``grad_out``
+    (B, 5, NK)."""
+    if k.device.type == "cpu":
+        return halo_contract_bwd_ref(k, mat, gal, cheb, grad_out)
+    _check(k, mat, gal, cheb)
+    _check_grad(k, mat, grad_out)
+    lib, idx = _cuda_inputs("halo_contract_bwd",
+                            (k, mat, gal, cheb, grad_out))
+    g_mat, g_gal = torch.empty_like(mat), torch.empty_like(gal)
+    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[0]
+    if b == 0 or nm + ng == 0:
+        return g_mat, g_gal
+    rc = lib.halo_contract_bwd_launch(
+        idx, int(k.dtype == torch.float64), k.data_ptr(), nk,
+        mat.data_ptr(), nm, gal.data_ptr(), ng, grad_out.data_ptr(),
+        g_mat.data_ptr(), g_gal.data_ptr(), b, cheb.data_ptr(),
+        *_lens(k.dtype), raw_stream(idx))
+    _raise_on(rc, lib, "halo_contract_bwd")
+    halo_contract.bwd_launches += 1
+    return g_mat, g_gal
+
+
+class HaloContract(torch.autograd.Function):
+    """Kernel A with its backward kernel: saves k, mat, gal and the table,
+    and recomputes N in the backward."""
+
+    @staticmethod
+    def forward(ctx, k, mat, gal, cheb):
+        ctx.save_for_backward(k, mat, gal, cheb)
+        return _forward(k, mat, gal, cheb)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        k, mat, gal, cheb = ctx.saved_tensors
+        g_mat, g_gal = halo_contract_bwd(k, mat, gal, cheb,
+                                         grad_out.contiguous())
+        return (None, g_mat if ctx.needs_input_grad[1] else None,
+                g_gal if ctx.needs_input_grad[2] else None, None)
 
 
 def halo_contract(k, mat, gal, cheb):
     """Kernel A on CUDA tensors; the plain version for CPU tensors.
 
     ``cheb`` is :func:`cheb_table` on the inputs' device and dtype (the
-    kernel copies it to constant memory).  Forward only: a CUDA input
-    that requires grad raises."""
+    kernel copies it to constant memory).  Differentiable in ``mat`` and
+    ``gal`` (:class:`HaloContract`: the backward kernel on CUDA, its plain
+    version on the CPU); ``k`` and ``cheb`` are static, and raise if they
+    require grad."""
     _check(k, mat, gal, cheb)
-    if k.device.type == "cpu":
-        return halo_contract_ref(k, mat, gal)
-    if k.device.type != "cuda":
+    if k.device.type not in ("cpu", "cuda"):
         raise ValueError(f"halo_contract: unsupported device {k.device}")
-    if any(t.requires_grad for t in (k, mat, gal)):
-        raise NotImplementedError(
-            "halo_contract: the CUDA kernel is forward-only (backward "
-            "kernel: ROADMAP queue 2, kernel A)")
-    if not all(t.is_contiguous() for t in (k, mat, gal, cheb)):
-        raise ValueError("halo_contract: inputs must be contiguous")
-    lib = _lib()
-    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[0]
-    out = torch.empty((b, N_OUT, nk), dtype=k.dtype, device=k.device)
-    if b == 0 or nk == 0:
-        return out
-    idx = device_index(k)
-    rc = lib.halo_contract_launch(
-        idx, int(k.dtype == torch.float64), k.data_ptr(), nk,
-        mat.data_ptr(), nm, gal.data_ptr(), ng, out.data_ptr(), b,
-        cheb.data_ptr(), *_lens(k.dtype), raw_stream(idx))
-    if rc != 0:
-        raise RuntimeError("halo_contract launch failed: "
-                           + lib.halo_contract_error(rc).decode())
-    halo_contract.launches += 1
-    return out
+    if k.requires_grad or cheb.requires_grad:
+        raise ValueError("halo_contract: k and the table are static; only "
+                         "mat and gal take gradients")
+    if torch.is_grad_enabled() and (mat.requires_grad or gal.requires_grad):
+        return HaloContract.apply(k, mat, gal, cheb)
+    return _forward(k, mat, gal, cheb)
 
 
 halo_contract.launches = 0
+halo_contract.bwd_launches = 0

@@ -14,6 +14,11 @@ Replaces the JAX package's ``ops/fftlog_pallas.py::hankel_matmul_pallas``;
 the CUDA source is ``chomp_tpu_torch/csrc/hankel_matmul.cu``.
 :func:`hankel_matmul_ref` is the plain PyTorch version: ``torch.matmul``
 with TF32 switched off for the call.
+
+Gradients: :func:`hankel_matmul` is differentiable in ``cl`` (the
+operator is a static buffer).  The backward, grad_cl = G @ op_t^T, is the
+same tile with the operator read as (N, K) rows (:func:`hankel_matmul_bwd`,
+plain version :func:`hankel_matmul_bwd_ref`).
 """
 
 from __future__ import annotations
@@ -63,53 +68,105 @@ def _check(cl, op_t):
 @lru_cache(maxsize=None)
 def _lib():
     lib = load("hankel_matmul")
-    lib.hankel_matmul_launch.restype = ctypes.c_int
-    lib.hankel_matmul_launch.argtypes = (
-        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    for fn in (lib.hankel_matmul_launch, lib.hankel_matmul_bwd_launch):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.hankel_matmul_error.restype = ctypes.c_char_p
     lib.hankel_matmul_error.argtypes = [ctypes.c_int]
-    lib.hankel_matmul_smem_bytes.restype = ctypes.c_int
-    lib.hankel_matmul_smem_bytes.argtypes = [ctypes.c_int]
+    for fn in (lib.hankel_matmul_smem_bytes, lib.hankel_matmul_bwd_smem_bytes):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
     return lib
+
+
+def _launch(entry, a, b, out, n, t):
+    """``out (R, t) = a (R, n) @ B`` through ``entry`` of the library: the
+    forward (B = ``b`` (n, t)) or the backward (B = ``b``^T, ``b`` (t, n));
+    the launch geometry from :func:`split_k`.  Empty shapes launch nothing
+    and return False."""
+    if a.device.type != "cuda":
+        raise ValueError(f"hankel_matmul: unsupported device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("hankel_matmul: inputs must be contiguous")
+    rows = a.shape[0]
+    if rows == 0 or t == 0:
+        return False
+    lib = _lib()
+    geo = split_k(rows, n, t)
+    idx = device_index(a)
+    size = a.element_size()
+    p_a, p_b = a.data_ptr(), b.data_ptr()
+    rc = getattr(lib, entry)(
+        idx, int(size == 8), p_a, p_b, out.data_ptr(), rows, n, t,
+        *geo.grid, geo.kc, vec16(n * size, p_a),
+        vec16(b.shape[1] * size, p_b), raw_stream(idx))
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: "
+                           + lib.hankel_matmul_error(rc).decode())
+    return True
+
+
+def _forward(cl, op_t):
+    if cl.device.type == "cpu":
+        return hankel_matmul_ref(cl, op_t)
+    n, t = op_t.shape
+    out = torch.empty((cl.shape[0], t), dtype=cl.dtype, device=cl.device)
+    if _launch("hankel_matmul_launch", cl, op_t, out, n, t):
+        hankel_matmul.launches += 1
+    return out
+
+
+def hankel_matmul_bwd_ref(grad, op_t):
+    """Plain version of the backward: ``grad @ op_t.T`` at full float32
+    (or float64) precision."""
+    with full_fp32_matmul():
+        return torch.matmul(grad, op_t.T)
+
+
+def hankel_matmul_bwd(grad, op_t):
+    """grad_cl (R, N) = ``grad`` (R, T) @ ``op_t``^T: the backward kernel
+    on CUDA tensors, :func:`hankel_matmul_bwd_ref` on CPU tensors."""
+    _check(grad, op_t.T)
+    if grad.device.type == "cpu":
+        return hankel_matmul_bwd_ref(grad, op_t)
+    n_ell, t = op_t.shape
+    out = torch.empty((grad.shape[0], n_ell), dtype=grad.dtype,
+                      device=grad.device)
+    if _launch("hankel_matmul_bwd_launch", grad, op_t, out, t, n_ell):
+        hankel_matmul.bwd_launches += 1
+    return out
+
+
+class HankelMatmul(torch.autograd.Function):
+    """Kernel B with its backward kernel (grad_cl = G @ op_t^T)."""
+
+    @staticmethod
+    def forward(ctx, cl, op_t):
+        ctx.save_for_backward(op_t)
+        return _forward(cl, op_t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (op_t,) = ctx.saved_tensors
+        return hankel_matmul_bwd(grad.contiguous(), op_t), None
 
 
 def hankel_matmul(cl, op_t):
     """Kernel B on CUDA tensors; the plain version for CPU tensors.
     ``cl`` (R, N), ``op_t`` (N, T), one dtype (float32 or float64).
-    Returns (R, T).  Forward only: a CUDA input that requires grad
-    raises."""
+    Returns (R, T).  Differentiable in ``cl`` (:class:`HankelMatmul`);
+    the operator is static and raises if it requires grad."""
     _check(cl, op_t)
-    dev = cl.device
-    if dev.type == "cpu":
-        return hankel_matmul_ref(cl, op_t)
-    if dev.type != "cuda":
-        raise ValueError(f"hankel_matmul: unsupported device {dev}")
-    if cl.requires_grad or op_t.requires_grad:
-        raise NotImplementedError(
-            "hankel_matmul: the CUDA kernel is forward-only (backward "
-            "kernel: ROADMAP queue 2, kernel B)")
-    if not (cl.is_contiguous() and op_t.is_contiguous()):
-        raise ValueError("hankel_matmul: inputs must be contiguous")
-    lib = _lib()
-    rows, n = cl.shape
-    t = op_t.shape[1]
-    out = torch.empty((rows, t), dtype=cl.dtype, device=dev)
-    if rows == 0 or t == 0:
-        return out
-    geo = split_k(rows, n, t)
-    idx = device_index(cl)
-    size = cl.element_size()
-    p_cl, p_op = cl.data_ptr(), op_t.data_ptr()
-    rc = lib.hankel_matmul_launch(
-        idx, int(size == 8), p_cl, p_op, out.data_ptr(), rows, n, t,
-        *geo.grid, geo.kc, vec16(n * size, p_cl), vec16(t * size, p_op),
-        raw_stream(idx))
-    if rc != 0:
-        raise RuntimeError("hankel_matmul launch failed: "
-                           + lib.hankel_matmul_error(rc).decode())
-    hankel_matmul.launches += 1
-    return out
+    if cl.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"hankel_matmul: unsupported device {cl.device}")
+    if op_t.requires_grad:
+        raise ValueError("hankel_matmul: the operator is a static buffer "
+                         "and takes no gradient")
+    if torch.is_grad_enabled() and cl.requires_grad:
+        return HankelMatmul.apply(cl, op_t)
+    return _forward(cl, op_t)
 
 
 hankel_matmul.launches = 0
+hankel_matmul.bwd_launches = 0

@@ -16,7 +16,8 @@ import dataclasses
 import torch
 
 from chomp_tpu_torch import background, linear
-from chomp_tpu_torch.grids import gl_integrate, interp_loglog_cubic, loggrid
+from chomp_tpu_torch.grids import (gl_integrate, interp_loglog_cubic, loggrid,
+                                   recompute_in_backward)
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams, _Params, col
 
 #: Elements of the (B, N, n_z_lens, n_dist) integrand of the nested
@@ -208,4 +209,6 @@ def limber_cl(cosmo: CosmoParams, win_a, win_b, ells, p_table: PowerTable,
     dchi_dz = C_OVER_H0 / background.ez(cosmo, z)
     kern = wa * wb * dchi_dz / chi**2 * d * d * wz            # (B, nz)
     k = (ells[None, :, None] + ell_offset) / chi[:, None, :]  # (B, nl, nz)
-    return torch.sum(p_table(k) * kern[:, None, :], dim=-1)
+    return recompute_in_backward(
+        lambda k, kern: torch.sum(p_table(k) * kern[:, None, :], dim=-1),
+        k, kern, track=(p_table.ln_p,))

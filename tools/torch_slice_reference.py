@@ -14,13 +14,22 @@ writes
   figures measured on the 9 cosmologies that ``chip_smoke.py`` compares
   (its 8 checked ones and the 3 above): the worst-bin error of the JAX
   package's own float32 table route against its float64 one, and the
-  worst-bin gap between the float64 table and lattice routes.
+  worst-bin gap between the float64 table and lattice routes;
+- ``tests/data/torch_grad_reference.json``: ``jax.jacfwd`` of the data
+  vector (w(theta), then gamma_t) with respect to (omega_m0, sigma_8),
+  omega_l0 = 1 - omega_m0, float64, for both routes at DEFAULT_GRID (the
+  3 cosmologies above and the fiducial 0.278, 0.811) and on the parity
+  tests' tiny grid (``tests/torch_parity.GRID`` and its 3 cosmologies),
+  plus d P_gg(k = 1) / d omega_m0 at z = 0 on that grid (the quantity of
+  tests/test_halo.py::test_jit_grad_through_halo_power).  Each block
+  records its grid spec, so a test can tell when the file is stale.
 
 ``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
     python tools/torch_slice_reference.py
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -78,6 +87,91 @@ def worst_bin(got, ref):
                      for k in ("w_theta", "gamma_t")))
 
 
+#: The fiducial (omega_m0, sigma_8) of the gradient reference and of
+#: chip_smoke.py's inference phase.
+FIDUCIAL = (0.278, 0.811)
+
+
+def jacobians(method, grid, batch):
+    """{"value": (B, 2 n_theta), "jacobian": (B, 2 n_theta, 2)}: the
+    route's data vector (w, then gamma_t) and its ``jax.jacfwd`` with
+    respect to (omega_m0, sigma_8) at each cosmology of ``batch`` (a
+    batched JAX CosmoParams), omega_l0 = 1 - omega_m0, float64."""
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_halo
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.parallel.sweep import make_pipeline
+    from tests import torch_parity as tp
+
+    fn = make_pipeline(default_halo(), default_hod(), tp.jax_dist(),
+                       power_spec="power_gg", grid=grid, include_lensing=True,
+                       z_pivot=1.0, method=method)
+
+    def one(c):
+        def vec(p):
+            out = fn(dataclasses.replace(c, omega_m0=p[0],
+                                         omega_l0=1.0 - p[0], sigma_8=p[1]))
+            return jnp.concatenate([out["w_theta"], out["gamma_t"]])
+
+        p = jnp.stack([c.omega_m0, c.sigma_8])
+        return vec(p), jax.jacfwd(vec)(p)
+
+    val, jac = jax.jit(jax.vmap(one))(batch)
+    return {"value": np.asarray(val).tolist(),
+            "jacobian": np.asarray(jac).tolist()}
+
+
+def grad_reference():
+    """The content of tests/data/torch_grad_reference.json (JAX float64)."""
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo, default_halo, halo
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.params import DEFAULT_GRID
+    from chomp_tpu.parallel.sweep import broadcast_cosmo
+    from tests import torch_parity as tp
+
+    oms, s8s = cosmologies(INDICES)
+    oms = np.append(oms, FIDUCIAL[0])
+    s8s = np.append(s8s, FIDUCIAL[1])
+    batch = broadcast_cosmo(default_cosmo(), omega_m0=jnp.asarray(oms),
+                            omega_l0=jnp.asarray(1.0 - oms),
+                            sigma_8=jnp.asarray(s8s))
+    full = {"grid": dataclasses.asdict(DEFAULT_GRID),
+            "indices": list(INDICES) + ["fiducial"],
+            "omega_m0": oms.tolist(), "sigma_8": s8s.tolist()}
+    tiny = {"grid": dataclasses.asdict(tp.GRID), "cosmo": tp.COSMO}
+    for method in ("fft", "table"):
+        full[method] = jacobians(method, DEFAULT_GRID, batch)
+        tiny[method] = jacobians(method, tp.GRID, tp.jax_batch())
+
+    def p_gg(om):
+        c = dataclasses.replace(default_cosmo(), omega_m0=om,
+                                omega_l0=1.0 - om)
+        model = halo.build_halo_model(c, default_halo(), default_hod(), 0.0,
+                                      False, tp.GRID)
+        return halo.power_gg(c, default_halo(), model, jnp.asarray([1.0]),
+                             False, tp.GRID)[0]
+
+    val, grad = jax.jit(jax.value_and_grad(p_gg))(jnp.asarray(FIDUCIAL[0]))
+    return {"config": "bench.py configuration A (both routes), JAX float64 "
+                      "CPU; data vector = w_theta then gamma_t; columns = "
+                      "(omega_m0, sigma_8) with omega_l0 = 1 - omega_m0",
+            "default_grid": full, "tiny_grid": tiny,
+            "p_gg_k1": {"grid": dataclasses.asdict(tp.GRID), "z": 0.0,
+                        "omega_m0": FIDUCIAL[0], "value": float(val),
+                        "d_domega_m0": float(grad)}}
+
+
+def write_grad_reference():
+    path = DATA / "torch_grad_reference.json"
+    path.write_text(json.dumps(grad_reference(), indent=1) + "\n")
+    print(f"wrote {path}")
+
+
 def write(name, config, idx, out, **extra):
     oms, s8s = cosmologies(idx)
     pos = [measured_indices().index(i) for i in idx]
@@ -118,6 +212,7 @@ def main():
           "JAX float64 CPU", INDICES, table,
           measured_on=idx, jax_f32_vs_f64_worst_bin=f32_err,
           jax_table_vs_lattice_worst_bin=cross)
+    write_grad_reference()
 
 
 if __name__ == "__main__":
