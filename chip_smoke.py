@@ -61,7 +61,10 @@ order (any failure exits nonzero; nothing falls back):
    C' (df_contract_bwd) at phase 3's (float64 to 1e-12 of each row's
    peak; float32 no worse than 2x the float32 torch.matmul against the
    exact product); two launches bit for bit; times, bounds, library
-   times;
+   times; A''s times on the feedback set and the table k, its launch
+   geometry as the built library reports it (held to ops/tiles.py's
+   mirror), ptxas' registers and spills, and the route mix per warp of
+   its profile evaluations in a thread-per-node layout and in this one;
 9. gradients of both slices at B = 512, float32: one
    ``torch.autograd.grad`` of a seeded linear functional of (w, gamma_t)
    with respect to (omega_m0, sigma_8), with every launch count, forward
@@ -366,6 +369,87 @@ def halo_contract_bwd_flops(k, mat, gal, lens, moments):
     return total
 
 
+def bwd_route_mix(k, mat, gal, lens, moments):
+    """Divergence of kernel A''s profile_nd per warp on these inputs, in
+    a thread-per-node layout (a warp-step is 32 consecutive nodes
+    of a cosmology at one k, the galaxy profile of a gal node whose two
+    differ a second step) and in this one (lanes on k: a warp-step is one
+    profile of one node at 32 consecutive k of a 32-aligned tile).  A
+    warp-step issues every branch arm any active lane takes, priced as
+    halo_contract_bwd_flops prices the routes; useful work is the lanes'
+    own paths.  {layout: (issued / useful, share of warp-steps whose
+    active lanes take more than one path)}."""
+    import torch
+
+    afm, ag, bfm, bg, series, g_asym = lens
+    c_b = torch.tensor([3 * (afm + ag) + 7, 3 * (bfm + bg) + 7,
+                        2 * g_asym + 17], device=k.device)
+    c_x = torch.cat([torch.tensor([4 * series + 12], device=k.device), c_b])
+    c_small, c_large, common = 5 * moments - 3, 14, 4
+    same = one_profile(gal)
+    profs = [(mat[..., 0], mat[..., 1], None), (gal[..., 0], gal[..., 1], None),
+             (gal[..., 2], gal[..., 3], ~same)]
+    tot = {"per_node": [0.0, 0.0, 0, 0], "lanes_on_k": [0.0, 0.0, 0, 0]}
+    for rs, c, live in profs:
+        for i in range(0, k.numel(), 256):
+            kk = k[i:i + 256]
+            x = kk[None, None, :] * rs[:, :, None]          # (B, N, K)
+            b = (1.0 + c[:, :, None]) * x
+            small = b <= 4
+            barm = (b > 16).long() + (b > 64).long()
+            xarm = (x > 4).long() + (x > 16).long() + (x > 64).long()
+            act = (torch.ones_like(small) if live is None
+                   else live[:, :, None].expand_as(small).clone())
+            ind = [small, ~small] + [~small & (barm == j) for j in range(3)] \
+                + [~small & (xarm == j) for j in range(4)]
+            cost = torch.tensor([c_small, c_large], device=k.device)
+            cost = torch.cat([cost, c_b, c_x]).double()
+            lane = torch.where(small, c_small, c_large + c_b[barm]
+                               + c_x[xarm]) + common
+            pid = torch.where(small, 0, 1 + 4 * barm + xarm)
+            for layout, dim in (("per_node", 1), ("lanes_on_k", 2)):
+                pad = -x.shape[dim] % 32
+                shape = list(x.shape)
+                shape[dim:dim + 1] = [(x.shape[dim] + pad) // 32, 32]
+
+                def grp(t, fill):
+                    if pad:
+                        filler = list(t.shape)
+                        filler[dim] = pad
+                        t = torch.cat([t, t.new_full(filler, fill)], dim)
+                    return t.reshape(shape)
+
+                a = grp(act, False)
+                on = a.any(dim + 1)
+                anyarm = torch.stack([grp(t & act, False).any(dim + 1)
+                                      for t in ind], -1)
+                issued = common * on.double().sum() + (
+                    anyarm.double() * cost).sum()
+                useful = grp(torch.where(act, lane, 0), 0).double().sum() / 32
+                hi = grp(torch.where(act, pid, -1), -1).amax(dim + 1)
+                lo = grp(torch.where(act, pid, 99), 99).amin(dim + 1)
+                t_ = tot[layout]
+                t_[0] += float(issued)
+                t_[1] += float(useful)
+                t_[2] += int(on.sum())
+                t_[3] += int((on & (hi != lo)).sum())
+    return {n: (v[0] / v[1], v[3] / v[2]) for n, v in tot.items()}
+
+
+def ptxas_of(log, kernel):
+    """nvcc's -Xptxas -v lines for each instantiation of ``kernel``: the
+    stack and spill line and the registers line, per mangled name."""
+    lines = log.splitlines()
+    out = []
+    for j, ln in enumerate(lines):
+        if "Function properties for" in ln and kernel in ln:
+            ty = "f32" if f"{kernel}IfE" in ln else "f64"
+            regs = next((r.split(":", 1)[-1].strip() for r in lines[j + 2:j + 4]
+                         if "registers" in r), "")
+            out.append(f"{ty}: {lines[j + 1].strip()}; {regs}")
+    return out
+
+
 def field_peak_rel(got, ref):
     """max over gradient fields of max|got - ref| / max|ref| (last axis =
     field of a node)."""
@@ -409,7 +493,7 @@ def main():
     from chomp_tpu_torch import (DNdzGaussian, default_cosmo, default_halo,
                                  default_hod, halo, limber_fft, projection)
     from chomp_tpu_torch.grids import Statics
-    from chomp_tpu_torch.ops import build, df32, halo_contract as hc
+    from chomp_tpu_torch.ops import build, df32, halo_contract as hc, tiles
     from chomp_tpu_torch.ops import hankel_matmul as hm
     from chomp_tpu_torch.params import DEFAULT_GRID
     from chomp_tpu_torch.parallel.sweep import broadcast_cosmo, make_pipeline
@@ -992,13 +1076,28 @@ def main():
         lambda: hc.halo_contract_bwd(k32, mat32, gal32, cheb32, ga32),
         lambda: hc.halo_contract_bwd_ref(k32, mat32, gal32, cheb32, ga32),
         other_reps=1)
-    bound_abwd = bound(
-        halo_contract_bwd_flops(k32, mat32, gal32, hc._lens(f32),
-                                hc.n_moments(f32)),
-        4 * (k32.numel() + 2 * (mat32.numel() + gal32.numel())
-             + cheb32.numel() + ga32.numel()))
+    ga32_tab = seeded((N_COSMO, hc.N_OUT, st32.k_table.numel()), 13, f32)
+    ms_abwd_fb = events_ms(lambda: hc.halo_contract_bwd(
+        k32, matf32, galf32, cheb32, ga32))
+    ms_abwd_tab = events_ms(lambda: hc.halo_contract_bwd(
+        st32.k_table, mat32, gal32, cheb32, ga32_tab))
+
+    def bound_abwd_of(k, mat, gal, g):
+        return bound(
+            halo_contract_bwd_flops(k, mat, gal, hc._lens(f32),
+                                    hc.n_moments(f32)),
+            4 * (k.numel() + 2 * (mat.numel() + gal.numel())
+                 + cheb32.numel() + g.numel()))
+
+    bound_abwd = bound_abwd_of(k32, mat32, gal32, ga32)
+    bound_abwd_fb = bound_abwd_of(k32, matf32, galf32, ga32)
+    bound_abwd_tab = bound_abwd_of(st32.k_table, mat32, gal32, ga32_tab)
     profiled["halo_contract_bwd"] = (lambda: hc.halo_contract_bwd(
         k32, mat32, gal32, cheb32, ga32), None, 5)
+    profiled["halo_contract_bwd feedback"] = (lambda: hc.halo_contract_bwd(
+        k32, matf32, galf32, cheb32, ga32), None, 5)
+    profiled["halo_contract_bwd table k"] = (lambda: hc.halo_contract_bwd(
+        st32.k_table, mat32, gal32, cheb32, ga32_tab), None, 5)
     for name, q in bwd_a.items():
         print(f"[halo_contract_bwd] {name}: f64 field_peak_rel={q['f64']:.3e}"
               f" (8 cosmologies, gate 1e-12) | f32 vs plain backward on the "
@@ -1008,9 +1107,57 @@ def main():
               f"{q['same']}", flush=True)
     print(f"[halo_contract_bwd] B={N_COSMO} NK={k32.numel()} NM="
           f"{mat32.shape[1]} NG={gal32.shape[1]} float32 | kernel "
-          f"{ms_abwd:.3f} ms, plain {plain_ms_abwd:.3f} ms (CUDA events; "
-          f"plain 1 call a turn) | bound {bound_abwd[0]:.4f} ms by "
-          f"{bound_abwd[1]}", flush=True)
+          f"{ms_abwd:.3f} ms (feedback set {ms_abwd_fb:.3f} ms, table k "
+          f"{ms_abwd_tab:.3f} ms), plain {plain_ms_abwd:.3f} ms (CUDA "
+          f"events; plain 1 call a turn) | bound {bound_abwd[0]:.4f} ms by "
+          f"{bound_abwd[1]} (feedback set {bound_abwd_fb[0]:.4f} ms, table k "
+          f"{bound_abwd_tab[0]:.4f} ms)", flush=True)
+    # A''s launch geometry: the built library's own report, held to the
+    # mirror in ops/tiles.py, and ptxas' registers and spills.
+    geo_bad, geo_main = [], None
+    nm_, ng_ = mat32.shape[1], gal32.shape[1]
+    for kname, nk_ in (("lattice", k32.numel()),
+                       ("table", st32.k_table.numel())):
+        for dt in (f32, f64):
+            rep = hc.bwd_launch_report(nm_, ng_, nk_, dt)
+            geo = tiles.bwd_geometry(N_COSMO, nm_, ng_, nk_,
+                                     8 if dt == f64 else 4)
+            want = {"units": geo.grid[0], "block": geo.block,
+                    "unit_m": geo.unit_m, "unit_g": geo.unit_g,
+                    "kt": geo.kt, "tiles": geo.tiles,
+                    "dyn_smem": geo.dyn_smem, "static_smem": geo.static_smem}
+            if any(rep[n] != v for n, v in want.items()):
+                geo_bad.append(f"{kname} {dt}: library {rep}, ops/tiles.py "
+                               f"{want}")
+            if kname == "lattice" and dt == f32:
+                geo_main = rep
+            blocks = rep["units"] * N_COSMO
+            warps = rep["blocks_per_sm"] * rep["block"] // 32
+            waves = blocks / (132 * max(1, rep["blocks_per_sm"]))
+            print(f"[halo_contract_bwd] launch geometry, {kname} k ({nk_}), "
+                  f"{str(dt)[6:]}: grid ({rep['units']}, {N_COSMO}) = "
+                  f"{blocks} blocks of {rep['block']} threads; work unit "
+                  f"{rep['unit_m']} mat + {rep['unit_g']} gal nodes of one "
+                  f"cosmology ({rep['unit_m'] * 32 // rep['block']} of each "
+                  f"per warp), k in {rep['tiles']} tile(s) of {rep['kt']}; "
+                  f"shared memory {rep['static_smem']} B static + "
+                  f"{rep['dyn_smem']} B dynamic; {rep['registers']} "
+                  f"registers, {rep['local_bytes']} B local; "
+                  f"{rep['blocks_per_sm']} blocks ({warps} warps) per SM, "
+                  f"{waves:.2f} waves on 132 SMs", flush=True)
+    print("[halo_contract_bwd] ptxas: " + " | ".join(
+        ptxas_of(builds["halo_contract"][1], "halo_contract_bwd_kernel")),
+        flush=True)
+    for kname, kk in (("lattice", k32), ("table", st32.k_table)):
+        for sname, (m, g) in (("main", (mat32, gal32)),
+                              ("feedback", (matf32, galf32))):
+            mix = bwd_route_mix(kk, m, g, hc._lens(f32), hc.n_moments(f32))
+            print(f"[halo_contract_bwd] route mix per warp, {kname} k "
+                  f"({kk.numel()}), {sname} nodes: a thread per node "
+                  f"issued/useful {mix['per_node'][0]:.4f}x, warp-steps on "
+                  f"more than one path {mix['per_node'][1]:.4f} | this layout "
+                  f"(lanes on k) {mix['lanes_on_k'][0]:.4f}x, "
+                  f"{mix['lanes_on_k'][1]:.4f}", flush=True)
     for name, q in bwd_a.items():
         if not q["f64"] <= 1e-12:
             fail(f"halo_contract_bwd {name}: float64 error {q['f64']}")
@@ -1021,6 +1168,9 @@ def main():
                  f"1.5x the plain float32 backward's {q['plain32']}")
         if not q["same"]:
             fail(f"halo_contract_bwd {name}: two launches differ")
+    if geo_bad:
+        fail("halo_contract_bwd launch geometry differs from ops/tiles.py: "
+             + "; ".join(geo_bad))
 
     def check_bc_bwd(bwd, g64, ops64, ops32, prod):
         """A backward product (B's or C's) under the cotangent g64:
@@ -1353,7 +1503,13 @@ def main():
                "chomp_tpu/ops/halo_pallas.py:77 (the forward's site); "
                "autodiff; no backward kernel in the JAX package",
                bwd_a["main"]["abs"], ms_abwd, plain_ms_abwd, bound_abwd,
-               None, *dtimes["halo_contract_bwd"], paths=bwd_paths),
+               None, *dtimes["halo_contract_bwd"], paths=bwd_paths)
+        | {"feedback_ms": ms_abwd_fb,
+           "feedback_device_ms": dtimes["halo_contract_bwd feedback"][0],
+           "feedback_bound_ms": bound_abwd_fb[0],
+           "table_k_ms": ms_abwd_tab,
+           "table_k_device_ms": dtimes["halo_contract_bwd table k"][0],
+           "table_k_bound_ms": bound_abwd_tab[0], "geometry": geo_main},
         record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
                "no backward kernel in the JAX package",

@@ -64,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int BLOCK = 128;
@@ -378,171 +380,370 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
 }
 
 // ---------------------------------------------------------------------------
-// Backward.  Given the output's cotangent G (B, 5, NK), the gradients of
-// the node arrays (no TPU counterpart: the JAX package differentiates its
-// XLA path).  With N(x, c) = int_0^c sin(xt) / (x (1+t)^2) dt, f' = -g,
-// g' = f - 1/x:
+// Backward, kernel A'.  Given the output's cotangent G (B, 5, NK), the
+// gradients of the node arrays.  It replaces autodiff of the JAX package's
+// ops/halo_pallas.py::fused_contractions (chomp_tpu/ops/halo_pallas.py:77),
+// which has no backward kernel: XLA differentiates its path.  With
+// N(x, c) = int_0^c sin(xt) / (x (1+t)^2) dt, f' = -g, g' = f - 1/x:
 //   dN/dc = sin(cx) / (x (1+c)^2) = sin(cx) / (b (1+c)),   b = (1+c) x,
 //   dN/dx = fm(x) - cos(cx) fm(b) - sin(cx) g(b) + sin(cx) / (x b),
-// and on the small-argument route dN/dx = sum_n 2n a_n x^(2n-1) from the
-// same moment coefficients.  Per mat node (rs, c, wa, wb), S = G_hm wa +
-// 2 G_mm wb N:  d wa = sum_k G_hm N,  d wb = sum_k G_mm N^2,
+// and on the small-argument route b <= 4 three series in x^2 with
+// per-node coefficients (ProfileB).  Per mat node (rs, c, wa, wb), S =
+// G_hm wa + 2 G_mm wb N:  d wa = sum_k G_hm N,  d wb = sum_k G_mm N^2,
 // d rs = sum_k S k dN/dx,  d c = sum_k S dN/dc.  Per gal node, S_g = G_hg
 // a_hg + G_gg (a_gg + 2 b_gg N_g) + G_gm b_gm N_m and S_m = G_gm (a_gm +
 // b_gm N_g) play S's part for the galaxy and the matter profile; a node
 // whose two profiles coincide evaluates one, and both fields still get
 // their own gradient.
 //
-// The backward reduces over k, so it parallelises over nodes: one thread
-// per (cosmology, node), mat nodes first, then gal nodes; k and the
-// cosmology's five cotangent rows are staged through shared memory in
-// tiles of BLOCK (every thread reads the same k: a broadcast).  Each
-// thread's profile (radius, concentration, moment coefficients) lives in
-// its registers.  Accumulators are double, summed in k order, no atomics:
-// two launches agree bit for bit.  What bounds it: arithmetic, as the
-// forward (the profile's derivatives reuse its sin, cos, fm(b) and g(b)
-// and add fm(x)); the cotangent, the only large input, is read once.
+// What bounds it on the card: arithmetic, as the forward.  Each (k,
+// profile) costs ~50 counted operations on the moment route and ~70-150
+// beyond it (a sincos or two, a log, two Chebyshev passes; each counted
+// as chip_smoke.halo_contract_bwd_flops counts it), against a few KB of
+// node arrays and the cotangent, read once from device memory.  What A' adds
+// on top of the forward, and what the design does about each:
+//
+// 1. Layout (the forward's): one warp evaluates one node at a time and its
+//    lanes take consecutive k, so the 32 lanes share a route except where
+//    k crosses a route boundary (a thread per node put 32 nodes, on mixed
+//    routes, into one warp-step).  A block is one cosmology and one work
+//    unit of UNIT_M mat and UNIT_G gal nodes (BWD_WARPS warps, each two
+//    of either kind, so every warp and every block carries the same mix
+//    and no wave is left with only gal nodes); the units' profiles are
+//    staged once in shared memory (ProfileB, read as broadcasts, out of
+//    the registers).  The cosmology's k and cotangent rows are staged in
+//    tiles of kt k (all of it when it fits; bwd_geometry).  Each lane sums
+//    its k in k order; at the end of a node's tile a fixed __shfl_xor
+//    butterfly reduces each field and lane 0 adds it to the node's double
+//    total in shared memory, in tile order: no atomics, two launches agree
+//    bit for bit.
+// 2. Convert once: the cotangent is staged in the contraction type W
+//    (float in the float kernel), so no (k, node) pair converts it; the
+//    per-k products are formed in W and summed in runs of RUN k per lane
+//    (Run), each run added to the double total once: a float -> double
+//    conversion per field and run instead of three to six per (k, node)
+//    and ~8-18 FP64 operations.  A gal node whose two profiles coincide
+//    reuses the matter profile's values (a warp-uniform branch, compiled
+//    apart).
+// 3. The moment route's dN/dc = c sinc(cx) / (1+c)^2 is a series in x^2
+//    (|cx| < 4 there), with coefficients staged per node: no sincosf and
+//    no reciprocal on 48-65% of the main path's evaluations.
+// 4. Registers: with the profiles and weights in shared memory, ptxas
+//    gives the float kernel 80 registers under __launch_bounds__(BWD_BLOCK)
+//    (no resident-block request) with a small spill (28 B stored, 68 B
+//    loaded), so three 70 KB blocks (24 warps) share an SM.  Asking for
+//    three blocks gives the same 80 registers and runs slower; asking for
+//    two removes the spill at 107 registers but leaves 16 warps an SM and
+//    runs ~20% slower (PERF.md, the ablation).  chip_smoke.py's phase 8
+//    prints ptxas' lines.
 
-// N, dN/dx and dN/dc at x = k r_s (inv_c1 = 1/(1+c)).
+constexpr int BWD_BLOCK = 256;
+constexpr int BWD_WARPS = BWD_BLOCK / 32;
+constexpr int UNIT_M = 16;  // mat nodes of a work unit (block)
+constexpr int UNIT_G = 16;  // gal nodes of a work unit
+constexpr int RUN = 16;     // k per lane summed in W before the double total
+static_assert(UNIT_M % BWD_WARPS == 0 && UNIT_G % BWD_WARPS == 0,
+              "every warp takes as many nodes of each kind");
+
+// Per kernel type: the contraction type W and the dynamic shared memory
+// a k tile may take.
+template <typename T> struct BwdShape;
+template <> struct BwdShape<float> {
+  using W = float;
+  static constexpr int tile_bytes = 61440;
+};
+template <> struct BwdShape<double> {
+  using W = double;
+  static constexpr int tile_bytes = 73728;
+};
+
+// A staged backward profile: radius, concentration, 1 + c, 1/(1+c), and
+// the small-argument series in x^2:  N = sum_n a_n x^2n,  dN/dx / x =
+// sum_n d_n x^2n (d_n = 2(n+1) a_(n+1)),  dN/dc = sum_n e_n x^2n with
+// e_n = (-1)^n c^(2n+1) / ((2n+1)! (1+c)^2).
 template <typename T>
-__device__ __forceinline__ void profile_nd(T kk, const Profile<T>& p,
-                                           T inv_c1, T& n, T& dx, T& dc) {
+struct alignas(16) ProfileB {
+  T rs, c, c1, inv_c1;
+  T a[Lens<T>::moments];
+  T d[Lens<T>::moments];
+  T e[Lens<T>::moments];
+};
+
+// The moment recurrence of stage_profile, and e_n by e_n = -c^2 e_(n-1) /
+// ((2n)(2n+1)), in float64 (ops/halo_contract.py::moment_coeffs and
+// dc_coeffs are the same recurrences).
+template <typename T>
+__device__ void stage_profile_b(ProfileB<T>& p, T rs, T c) {
+  constexpr int M = Lens<T>::moments;
+  p.rs = rs;
+  p.c = c;
+  p.c1 = T(1) + c;
+  const double cd = (double)c, c1d = 1.0 + cd;
+  p.inv_c1 = (T)(1.0 / c1d);
+  double i2 = cd / c1d;
+  double i1 = log1p(cd) - i2;
+  double pw = cd, inv_fact = 1.0;
+  double e = cd / (c1d * c1d);
+  const double mc2 = -cd * cd;
+  p.a[0] = (T)i1;
+  p.e[0] = (T)e;
+#pragma unroll
+  for (int n = 1; n < M; ++n) {
+#pragma unroll
+    for (int m = 2 * n; m <= 2 * n + 1; ++m) {
+      const double im = pw * (1.0 / (m - 1)) - 2.0 * i1 - i2;
+      pw *= cd;
+      i2 = i1;
+      i1 = im;
+    }
+    const double step = 1.0 / ((double)(2 * n) * (double)(2 * n + 1));
+    inv_fact *= step;
+    const double an = (n & 1 ? -i1 : i1) * inv_fact;
+    p.a[n] = (T)an;
+    p.d[n - 1] = (T)((2 * n) * an);
+    e = e * mc2 * step;
+    p.e[n] = (T)e;
+  }
+  p.d[M - 1] = T(0);
+}
+
+// N, k dN/dx and dN/dc at x = k r_s.
+template <typename T>
+__device__ __forceinline__ void profile_nd(T kk, const ProfileB<T>& p, T& n,
+                                           T& kdx, T& dc) {
   constexpr int M = Lens<T>::moments;
   const T x = kk * p.rs;
   const T b = p.c1 * x;
-  const T u = rcp_(b);
-  T s, co;
   if (b <= T(SMALL_B)) {
     const T x2 = x * x;
     n = p.a[M - 1];
-    T d = T(2 * (M - 1)) * p.a[M - 1];
+    T d = p.d[M - 2];
+    T e = p.e[M - 1];
 #pragma unroll
     for (int j = M - 2; j >= 0; --j) {
       n = fma(n, x2, p.a[j]);
-      if (j >= 1) d = fma(d, x2, T(2 * j) * p.a[j]);
+      e = fma(e, x2, p.e[j]);
+      if (j >= 1) d = fma(d, x2, p.d[j - 1]);
     }
-    dx = d * x;
-    sincos_(p.c * x, &s, &co);  // |cx| < 4
-    dc = s * u * inv_c1;
+    kdx = kk * (d * x);
+    dc = e;
     return;
   }
-  T fm, g, fmx, gx;
+  T s, co, fm, g, fmx, gx;
   sincos_big(p.c * x, &s, &co);
+  const T u = rcp_(b);
   aux_fg_large(b, u, fm, g);
   const T ux = p.c1 * u;  // 1/x
   aux_fg(x, ux, fmx, gx);
   n = gx + s * fm - co * g;
-  dx = fmx - co * fm - s * g + s * ux * u;
-  dc = s * u * inv_c1;
+  kdx = kk * (fmx - co * fm - s * g + s * ux * u);
+  dc = s * u * p.inv_c1;
+}
+
+// One field's sum over a run of k in W, taken into the double total.
+template <typename W>
+struct Run {
+  W s = W(0);
+  __device__ __forceinline__ void add(W a, W b) { s = fma(a, b, s); }
+  __device__ __forceinline__ double take() {
+    const double v = (double)s;
+    s = W(0);
+    return v;
+  }
+};
+
+// Sums each field over the warp's lanes (a fixed butterfly) and adds it
+// to the node's total; lane 0 writes.
+template <int F>
+__device__ __forceinline__ void warp_fold(const double (&acc)[F], int lane,
+                                          double* total) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    double v = acc[f];
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) total[f] += v;
+  }
+}
+
+// A mat node over one staged tile: acc rs, c, wa, wb; G rows 0 h_m, 2
+// pp_mm; w = (wa, 2 wb).
+template <typename T, typename W>
+__device__ __forceinline__ void mat_node(const ProfileB<T>& p, const W* w,
+                                         const T* s_k, const W* s_g, int kt,
+                                         int cnt, int lane, double* total) {
+  const W w0 = w[0], w1 = w[1];
+  const W* g_hm = s_g;
+  const W* g_mm = s_g + 2 * kt;
+  double acc[MAT_F] = {0.0, 0.0, 0.0, 0.0};
+  for (int i0 = lane; i0 < cnt; i0 += 32 * RUN) {
+    Run<W> q[MAT_F];
+    const int end = min(cnt, i0 + 32 * RUN);
+    for (int i = i0; i < end; i += 32) {
+      const T kk = s_k[i];
+      T n, kdx, dc;
+      profile_nd(kk, p, n, kdx, dc);
+      const W nw = (W)n, gh = g_hm[i], gm = g_mm[i];
+      const W sv = fma(gm * w1, nw, gh * w0);
+      q[0].add(sv, (W)kdx);
+      q[1].add(sv, (W)dc);
+      q[2].add(gh, nw);
+      q[3].add(gm * nw, nw);
+    }
+#pragma unroll
+    for (int f = 0; f < MAT_F; ++f) acc[f] += q[f].take();
+  }
+  warp_fold(acc, lane, total);
+}
+
+// A gal node over one staged tile: acc rs_m, c_m, rs_g, c_g, a_hg, a_gg,
+// b_gg, a_gm, b_gm; G rows 1 h_g, 3 pp_gg, 4 pp_gm; w = (a_hg, a_gg,
+// 2 b_gg, a_gm, b_gm).  SAME: the two profiles coincide (pg unread).
+template <typename T, typename W, bool SAME>
+__device__ __forceinline__ void gal_node(const ProfileB<T>& pm,
+                                         const ProfileB<T>& pg, const W* w,
+                                         const T* s_k, const W* s_g, int kt,
+                                         int cnt, int lane, double* total) {
+  const W w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3], w4 = w[4];
+  const W* g_hg = s_g + kt;
+  const W* g_gg = s_g + 3 * kt;
+  const W* g_gm = s_g + 4 * kt;
+  double acc[GAL_F];
+#pragma unroll
+  for (int f = 0; f < GAL_F; ++f) acc[f] = 0.0;
+  for (int i0 = lane; i0 < cnt; i0 += 32 * RUN) {
+    Run<W> q[GAL_F];
+    const int end = min(cnt, i0 + 32 * RUN);
+    for (int i = i0; i < end; i += 32) {
+      const T kk = s_k[i];
+      T n_m, kdx_m, dc_m;
+      profile_nd(kk, pm, n_m, kdx_m, dc_m);
+      const W nm = (W)n_m, kdxm = (W)kdx_m, dcm = (W)dc_m;
+      W ng = nm, kdxg = kdxm, dcg = dcm;
+      if (!SAME) {
+        T n_g, kdx_g, dc_g;
+        profile_nd(kk, pg, n_g, kdx_g, dc_g);
+        ng = (W)n_g;
+        kdxg = (W)kdx_g;
+        dcg = (W)dc_g;
+      }
+      const W gh = g_hg[i], gg = g_gg[i], gm = g_gm[i];
+      const W sg = fma(gm * w4, nm, fma(gg, fma(w2, ng, w1), gh * w0));
+      const W sm = gm * fma(w4, ng, w3);
+      q[0].add(sm, kdxm);
+      q[1].add(sm, dcm);
+      q[2].add(sg, kdxg);
+      q[3].add(sg, dcg);
+      q[4].add(gh, ng);
+      q[5].add(gg, ng);
+      q[6].add(gg * ng, ng);
+      q[7].add(gm, nm);
+      q[8].add(gm * nm, ng);
+    }
+#pragma unroll
+    for (int f = 0; f < GAL_F; ++f) acc[f] += q[f].take();
+  }
+  warp_fold(acc, lane, total);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BWD_BLOCK)
 halo_contract_bwd_kernel(const T* __restrict__ k, int nk,
                          const T* __restrict__ mat, int nm,
                          const T* __restrict__ gal, int ng,
                          const T* __restrict__ grad, T* __restrict__ gmat,
-                         T* __restrict__ ggal) {
-  __shared__ T s_k[BLOCK];
-  __shared__ double s_g[N_OUT][BLOCK];
+                         T* __restrict__ ggal, int kt) {
+  using W = typename BwdShape<T>::W;
+  __shared__ ProfileB<T> s_pm[UNIT_M];
+  __shared__ ProfileB<T> s_pg[2][UNIT_G];  // [0] matter, [1] galaxy profile
+  __shared__ W s_wm[UNIT_M][2];
+  __shared__ W s_wg[UNIT_G][N_W];
+  __shared__ bool s_same[UNIT_G];
+  __shared__ double s_tot[UNIT_M * MAT_F + UNIT_G * GAL_F];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  W* s_g = reinterpret_cast<W*>(s_dyn);              // [N_OUT][kt]
+  T* s_k = reinterpret_cast<T*>(s_g + N_OUT * kt);   // [kt]
+
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int j = blockIdx.x * BLOCK + tid;
-  const bool is_mat = j < nm;
-  const bool is_gal = !is_mat && j < nm + ng;
-  const int jg = j - nm;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.x * UNIT_M, g0 = blockIdx.x * UNIT_G;
+  const int cm = max(0, min(UNIT_M, nm - m0));
+  const int cg = max(0, min(UNIT_G, ng - g0));
+  double* tot_m = s_tot;
+  double* tot_g = s_tot + UNIT_M * MAT_F;
 
-  // This thread's node: profile(s), weights, accumulators.
-  Profile<T> pm, pg;
-  T inv_m = T(1), inv_g = T(1);
-  bool same = true;
-  double w[N_W] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  double acc[GAL_F];
-#pragma unroll
-  for (int f = 0; f < GAL_F; ++f) acc[f] = 0.0;
-  if (is_mat) {
-    const T* q = mat + ((size_t)b * nm + j) * MAT_F;
-    stage_profile(pm, q[0], q[1]);
-    w[0] = (double)q[2];
-    w[1] = (double)q[3];
-  } else if (is_gal) {
-    const T* q = gal + ((size_t)b * ng + jg) * GAL_F;
-    same = q[0] == q[2] && q[1] == q[3];
-    stage_profile(pm, q[0], q[1]);
-    if (!same) stage_profile(pg, q[2], q[3]);
-#pragma unroll
-    for (int f = 0; f < N_W; ++f) w[f] = (double)q[4 + f];
+  // Stage the unit: warp 0 the mat nodes, warp 1 the gal nodes' matter
+  // profiles and weights, warp 2 their galaxy profiles.
+  for (int s = tid; s < UNIT_M * MAT_F + UNIT_G * GAL_F; s += BWD_BLOCK)
+    s_tot[s] = 0.0;
+  if (tid < cm) {
+    const T* q = mat + ((size_t)b * nm + m0 + tid) * MAT_F;
+    stage_profile_b(s_pm[tid], q[0], q[1]);
+    s_wm[tid][0] = (W)q[2];
+    s_wm[tid][1] = W(2) * (W)q[3];
+  } else if (tid >= 32 && tid < 32 + cg) {
+    const int j = tid - 32;
+    const T* q = gal + ((size_t)b * ng + g0 + j) * GAL_F;
+    s_same[j] = q[0] == q[2] && q[1] == q[3];
+    stage_profile_b(s_pg[0][j], q[0], q[1]);
+    s_wg[j][0] = (W)q[4];
+    s_wg[j][1] = (W)q[5];
+    s_wg[j][2] = W(2) * (W)q[6];
+    s_wg[j][3] = (W)q[7];
+    s_wg[j][4] = (W)q[8];
+  } else if (tid >= 64 && tid < 64 + cg) {
+    const T* q = gal + ((size_t)b * ng + g0 + tid - 64) * GAL_F;
+    stage_profile_b(s_pg[1][tid - 64], q[2], q[3]);
   }
-  if (is_mat || is_gal) inv_m = T(1) / pm.c1;
-  if (is_gal && !same) inv_g = T(1) / pg.c1;
 
   const T* gb = grad + (size_t)b * N_OUT * nk;
-  for (int base = 0; base < nk; base += BLOCK) {
-    const int cnt = min(BLOCK, nk - base);
+  for (int t0 = 0; t0 < nk; t0 += kt) {
+    const int cnt = min(kt, nk - t0);
     __syncthreads();
-    if (tid < cnt) {
-      s_k[tid] = k[base + tid];
+    for (int i = tid; i < cnt; i += BWD_BLOCK) {
+      s_k[i] = k[t0 + i];
 #pragma unroll
       for (int o = 0; o < N_OUT; ++o)
-        s_g[o][tid] = (double)gb[(size_t)o * nk + base + tid];
+        s_g[o * kt + i] = (W)gb[(size_t)o * nk + t0 + i];
     }
     __syncthreads();
-    if (is_mat) {
-      // acc: rs, c, wa, wb.  G rows: 0 h_m, 2 pp_mm.
-      for (int i = 0; i < cnt; ++i) {
-        const T kk = s_k[i];
-        T n, dx, dc;
-        profile_nd(kk, pm, inv_m, n, dx, dc);
-        const double nd = (double)n;
-        const double g_hm = s_g[0][i], g_mm = s_g[2][i];
-        const double sv = fma(2.0 * g_mm * w[1], nd, g_hm * w[0]);
-        acc[0] = fma(sv, (double)(kk * dx), acc[0]);
-        acc[1] = fma(sv, (double)dc, acc[1]);
-        acc[2] = fma(g_hm, nd, acc[2]);
-        acc[3] = fma(g_mm * nd, nd, acc[3]);
-      }
-    } else if (is_gal) {
-      // acc: rs_m, c_m, rs_g, c_g, a_hg, a_gg, b_gg, a_gm, b_gm.
-      // G rows: 1 h_g, 3 pp_gg, 4 pp_gm.
-      for (int i = 0; i < cnt; ++i) {
-        const T kk = s_k[i];
-        T n_m, dx_m, dc_m, n_g, dx_g, dc_g;
-        profile_nd(kk, pm, inv_m, n_m, dx_m, dc_m);
-        if (same) {
-          n_g = n_m;
-          dx_g = dx_m;
-          dc_g = dc_m;
-        } else {
-          profile_nd(kk, pg, inv_g, n_g, dx_g, dc_g);
-        }
-        const double nm_d = (double)n_m, ng_d = (double)n_g;
-        const double g_hg = s_g[1][i], g_gg = s_g[3][i], g_gm = s_g[4][i];
-        const double s_g_ = fma(g_gm * w[4], nm_d,
-                                fma(g_gg, fma(2.0 * w[2], ng_d, w[1]),
-                                    g_hg * w[0]));
-        const double s_m = g_gm * fma(w[4], ng_d, w[3]);
-        acc[0] = fma(s_m, (double)(kk * dx_m), acc[0]);
-        acc[1] = fma(s_m, (double)dc_m, acc[1]);
-        acc[2] = fma(s_g_, (double)(kk * dx_g), acc[2]);
-        acc[3] = fma(s_g_, (double)dc_g, acc[3]);
-        acc[4] = fma(g_hg, ng_d, acc[4]);
-        acc[5] = fma(g_gg, ng_d, acc[5]);
-        acc[6] = fma(g_gg * ng_d, ng_d, acc[6]);
-        acc[7] = fma(g_gm, nm_d, acc[7]);
-        acc[8] = fma(g_gm * nm_d, ng_d, acc[8]);
-      }
+    for (int j = warp; j < cm; j += BWD_WARPS)
+      mat_node<T, W>(s_pm[j], s_wm[j], s_k, s_g, kt, cnt, lane,
+                     tot_m + j * MAT_F);
+    for (int j = warp; j < cg; j += BWD_WARPS) {
+      if (s_same[j])
+        gal_node<T, W, true>(s_pg[0][j], s_pg[0][j], s_wg[j], s_k, s_g, kt,
+                             cnt, lane, tot_g + j * GAL_F);
+      else
+        gal_node<T, W, false>(s_pg[0][j], s_pg[1][j], s_wg[j], s_k, s_g, kt,
+                              cnt, lane, tot_g + j * GAL_F);
     }
   }
+  __syncthreads();
+  T* om = gmat + ((size_t)b * nm + m0) * MAT_F;
+  for (int s = tid; s < cm * MAT_F; s += BWD_BLOCK) om[s] = (T)tot_m[s];
+  T* og = ggal + ((size_t)b * ng + g0) * GAL_F;
+  for (int s = tid; s < cg * GAL_F; s += BWD_BLOCK) og[s] = (T)tot_g[s];
+}
 
-  if (is_mat) {
-    T* o = gmat + ((size_t)b * nm + j) * MAT_F;
-#pragma unroll
-    for (int f = 0; f < MAT_F; ++f) o[f] = (T)acc[f];
-  } else if (is_gal) {
-    T* o = ggal + ((size_t)b * ng + jg) * GAL_F;
-#pragma unroll
-    for (int f = 0; f < GAL_F; ++f) o[f] = (T)acc[f];
-  }
+// The backward's launch geometry (ops/tiles.py::bwd_geometry mirrors it):
+// one block per (work unit, cosmology); k tiles of kt, a multiple of 32,
+// as large as BwdShape::tile_bytes of staged k and cotangent allow.
+struct BwdGeometry {
+  int units, kt, tiles, dyn_smem;
+};
+
+template <typename T>
+BwdGeometry bwd_geometry(int nm, int ng, int nk) {
+  using W = typename BwdShape<T>::W;
+  const int per_k = (int)(N_OUT * sizeof(W) + sizeof(T));
+  const int kt_max = BwdShape<T>::tile_bytes / per_k / 32 * 32;
+  const int units =
+      std::max((nm + UNIT_M - 1) / UNIT_M, (ng + UNIT_G - 1) / UNIT_G);
+  const int kt = std::max(32, std::min(kt_max, (nk + 31) / 32 * 32));
+  return {units, kt, (nk + kt - 1) / kt, kt * per_k};
 }
 
 // Checks the caller's term counts and copies the tables to constant
@@ -575,13 +776,42 @@ int launch_bwd(const Sym& table_symbol, const void* tables, const void* k,
                int nk, const void* mat, int nm, const void* gal, int ng,
                const void* grad, void* gmat, void* ggal, int batch,
                const int* lens, cudaStream_t s) {
-  const cudaError_t err = prepare<T>(table_symbol, tables, lens, s);
+  cudaError_t err = prepare<T>(table_symbol, tables, lens, s);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nm + ng + BLOCK - 1) / BLOCK, batch);
-  halo_contract_bwd_kernel<T><<<grid, BLOCK, 0, s>>>(
+  const BwdGeometry g = bwd_geometry<T>(nm, ng, nk);
+  err = cudaFuncSetAttribute(halo_contract_bwd_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             g.dyn_smem);
+  if (err != cudaSuccess) return (int)err;
+  halo_contract_bwd_kernel<T><<<dim3(g.units, batch), BWD_BLOCK, g.dyn_smem,
+                                s>>>(
       (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng,
-      (const T*)grad, (T*)gmat, (T*)ggal);
+      (const T*)grad, (T*)gmat, (T*)ggal, g.kt);
   return (int)cudaGetLastError();
+}
+
+// out: units, block, unit_m, unit_g, kt, tiles, dynamic shared memory,
+// static shared memory, registers, local (spill) bytes, resident blocks
+// per SM.
+template <typename T>
+int bwd_report(int nm, int ng, int nk, int* out) {
+  const BwdGeometry g = bwd_geometry<T>(nm, ng, nk);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, halo_contract_bwd_kernel<T>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(halo_contract_bwd_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             g.dyn_smem);
+  if (err != cudaSuccess) return (int)err;
+  int resident = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &resident, halo_contract_bwd_kernel<T>, BWD_BLOCK, g.dyn_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[11] = {g.units, BWD_BLOCK, UNIT_M, UNIT_G, g.kt, g.tiles,
+                        g.dyn_smem, (int)attr.sharedSizeBytes, attr.numRegs,
+                        (int)attr.localSizeBytes, resident};
+  for (int j = 0; j < 11; ++j) out[j] = vals[j];
+  return 0;
 }
 
 }  // namespace
@@ -621,6 +851,14 @@ extern "C" int halo_contract_bwd_launch(int device, int is_double,
                               gmat, ggal, batch, lens, s);
   return launch_bwd<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, grad,
                            gmat, ggal, batch, lens, s);
+}
+
+extern "C" int halo_contract_bwd_geometry(int device, int is_double, int nm,
+                                          int ng, int nk, int* out) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return is_double ? bwd_report<double>(nm, ng, nk, out)
+                   : bwd_report<float>(nm, ng, nk, out);
 }
 
 extern "C" const char* halo_contract_error(int code) {

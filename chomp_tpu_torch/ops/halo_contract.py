@@ -113,6 +113,21 @@ def moment_coeffs(c, n_terms: int):
     return torch.stack(out, dim=-1)
 
 
+def dc_coeffs(c, n_terms: int):
+    """Coefficients e_n = (-1)^n c^(2n+1) / ((2n+1)! (1+c)^2), n <
+    ``n_terms``, of the small-argument series dN/dc = c sinc(cx) / (1+c)^2
+    = sum_n e_n x^2n (|cx| < 4 where b = (1+c)x <= :data:`SMALL_B`), in
+    float64 (..., n), by e_n = -c^2 e_(n-1) / ((2n)(2n+1)): the recurrence
+    the backward kernel runs per staged node."""
+    c = c.double()
+    e = c / ((1.0 + c) * (1.0 + c))
+    out = [e]
+    for n in range(1, n_terms):
+        e = e * (-c * c) * (1.0 / ((2 * n) * (2 * n + 1)))
+        out.append(e)
+    return torch.stack(out, dim=-1)
+
+
 def nfw_n_small(x, coeffs):
     """N(x, c) = mu(c) y from the moment series (valid for (1+c)x <=
     :data:`SMALL_B`), Horner in x^2 in the dtype of ``x``: the kernel's
@@ -157,9 +172,10 @@ def _ref_block(k, mat, gal):
 
 
 def profile_nd(x, c, coeffs):
-    """(N, dN/dx, dN/dc) at x = k r_s by the kernel's routes: the moment
-    series (``coeffs`` = :func:`moment_coeffs` of ``c``) where b = (1+c)x
-    <= :data:`SMALL_B`, else the auxiliary functions:
+    """(N, dN/dx, dN/dc) at x = k r_s by the kernel's routes: where b =
+    (1+c)x <= :data:`SMALL_B` the moment series (``coeffs`` =
+    :func:`moment_coeffs` of ``c``), its derivative, and dN/dc = sum_n e_n
+    x^2n (:func:`dc_coeffs`); else the auxiliary functions:
 
         dN/dx = fm(x) - cos(cx) fm(b) - sin(cx) g(b) + sin(cx) / (x b),
         dN/dc = sin(cx) / (x (1+c)^2) = sin(cx) / (b (1+c)),
@@ -173,11 +189,14 @@ def profile_nd(x, c, coeffs):
     # Moment series, on arguments clamped into its route.
     xs = torch.where(small, x, SMALL_B / c1)
     a = coeffs.to(x.dtype)
+    e = dc_coeffs(c, a.shape[-1]).to(x.dtype)
     x2 = xs * xs
     n_s = a[..., -1]
     d_s = (2 * (a.shape[-1] - 1)) * a[..., -1]
+    c_s = e[..., -1]
     for j in range(a.shape[-1] - 2, -1, -1):
         n_s = n_s * x2 + a[..., j]
+        c_s = c_s * x2 + e[..., j]
         if j >= 1:
             d_s = d_s * x2 + (2 * j) * a[..., j]
     d_s = d_s * xs
@@ -189,7 +208,7 @@ def profile_nd(x, c, coeffs):
     n_l = aux_g(x) + s * fm_b - co * g_b
     d_l = aux_fm(x) - co * fm_b - s * g_b + s * (1.0 / x) * u
     return (torch.where(small, n_s, n_l), torch.where(small, d_s, d_l),
-            s * u / c1)
+            torch.where(small, c_s, s * u / c1))
 
 
 def halo_contract_bwd_ref(k, mat, gal, cheb, grad_out):
@@ -275,6 +294,9 @@ def _lib():
          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         + _TABLE_ARGS)
+    lib.halo_contract_bwd_geometry.restype = ctypes.c_int
+    lib.halo_contract_bwd_geometry.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
     lib.halo_contract_error.restype = ctypes.c_char_p
     lib.halo_contract_error.argtypes = [ctypes.c_int]
     return lib
@@ -335,6 +357,25 @@ def halo_contract_bwd(k, mat, gal, cheb, grad_out):
     _raise_on(rc, lib, "halo_contract_bwd")
     halo_contract.bwd_launches += 1
     return g_mat, g_gal
+
+
+_BWD_REPORT = ("units", "block", "unit_m", "unit_g", "kt", "tiles",
+               "dyn_smem", "static_smem", "registers", "local_bytes",
+               "blocks_per_sm")
+
+
+def bwd_launch_report(nm, ng, nk, dtype, device=0) -> dict:
+    """What the built backward kernel launches at this shape, from the
+    CUDA library itself: the geometry (:func:`~chomp_tpu_torch.ops.tiles.
+    bwd_geometry` mirrors it), the static shared memory, registers and
+    local (spill) bytes of the compiled kernel and its resident blocks per
+    SM."""
+    lib = _lib()
+    out = (ctypes.c_int * len(_BWD_REPORT))()
+    _raise_on(lib.halo_contract_bwd_geometry(
+        device, int(dtype == torch.float64), nm, ng, nk, out), lib,
+        "halo_contract_bwd geometry")
+    return dict(zip(_BWD_REPORT, out))
 
 
 class HaloContract(torch.autograd.Function):

@@ -115,6 +115,9 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
     if power_spec not in ("linear_power", "power_mm", "power_gm",
                           "power_mg", "power_gg"):
         raise ValueError(f"unknown power_spec {power_spec!r}")
+    if nonlimber_rsd and not nonlimber_ell_switch:
+        raise ValueError("nonlimber_rsd requires nonlimber_ell_switch (the "
+                         "RSD term rides the same correction operators)")
     if method == "table":
         # The JAX make_pipeline's own refusals (sweep.py:233-251).
         if geometry == "curved":
@@ -123,7 +126,9 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
             raise ValueError("nonlimber_ell_switch requires method='fft'")
         if matter_power != "halo":
             raise ValueError("matter_power overrides need method='fft'")
-    if exact_z_anchors:
+    # As in the JAX make_pipeline, the anchors act on the lattice route
+    # only: the table route ignores them (and skips the warning below).
+    if exact_z_anchors and method == "fft":
         _unported("exact_z_anchors", "queue 1, item 6 (exact-z slice)")
     options = (("include_shear", include_shear),
                ("include_cmb_lensing", include_cmb_lensing not in (False,
@@ -138,7 +143,8 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
     for name, on in options:
         if on:
             _unported(name, "queue 1, item 7 (make_pipeline options)")
-    _warn_if_separable_bias(dist, z_pivot)
+    if not exact_z_anchors:
+        _warn_if_separable_bias(dist, z_pivot)
     cls = Pipeline if method == "fft" else TablePipeline
     return cls(halo_params, hod, dist, power_spec, theta_deg, z_pivot, grid,
                include_lensing, device=device, dtype=dtype)

@@ -250,3 +250,23 @@ def test_small_argument_series(n_terms):
     else:
         mu = coeffs[:, 0].numpy()
         assert np.max(np.abs(got - ref) / mu) < 3e-8
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_small_route_dc_series(dtype):
+    """The backward's dN/dc on the small-argument route, sum_n e_n x^2n
+    (hc.dc_coeffs, Horner in x^2 in float64), against the closed form
+    sin(cx) / (x (1+c)^2), relative to its scale c / (1+c)^2: 1e-14 with
+    the float64 term count (16), within 3e-8 with the float32 count (10,
+    the truncation below 4^20 / 21!)."""
+    x, c = _small_points()
+    n = hc.n_moments(getattr(torch, dtype))
+    e = hc.dc_coeffs(torch.tensor(c), n).numpy()
+    assert e.shape == (len(c), n)
+    got = np.zeros_like(x)
+    for j in range(n - 1, -1, -1):
+        got = got * (x * x) + e[:, j]
+    ref = np.sin(c * x) / (x * (1.0 + c) ** 2)
+    scale = c / (1.0 + c) ** 2
+    assert np.max(np.abs(got - ref) / scale) < (1e-14 if dtype == "float64"
+                                                else 3e-8)

@@ -15,7 +15,7 @@ from chomp_tpu import default_cosmo as jax_default_cosmo
 from chomp_tpu import default_halo, params as jparams, projection
 from chomp_tpu.hod import HODZheng as JaxHODZheng
 from chomp_tpu.hod import default_hod
-from chomp_tpu_torch import DEFAULT_GRID, GridSpec
+from chomp_tpu_torch import DEFAULT_GRID, DNdzGaussian, GridSpec
 from chomp_tpu_torch import default_cosmo, default_halo as port_halo
 from chomp_tpu_torch import default_hod as port_hod
 from chomp_tpu_torch.ops import df32, halo_contract as hc
@@ -116,7 +116,7 @@ def test_pipeline_rejects_mismatched_batch():
 
 
 @pytest.mark.parametrize("option", [
-    dict(exact_z_anchors=6), dict(method="table", exact_z_anchors=6),
+    dict(exact_z_anchors=6),
     dict(include_shear=True), dict(method="table", include_shear=True),
     dict(include_cmb_lensing=True),
     dict(geometry="curved"), dict(nonlimber_ell_switch=40),
@@ -143,10 +143,13 @@ def test_unported_mass_function_raises():
     dict(matter_power="emulated"), dict(power_spec="power_xx"),
     dict(method="table", geometry="curved"),
     dict(method="table", nonlimber_ell_switch=40),
-    dict(method="table", matter_power="linear")])
+    dict(method="table", matter_power="linear"),
+    dict(nonlimber_rsd=True)])
 def test_invalid_options_raise_value_error(option):
     """Bad values, and the combinations the JAX make_pipeline refuses
-    for the table route (sweep.py:233-251), raise ValueError."""
+    (sweep.py:233-251: the table route's, and nonlimber_rsd without
+    nonlimber_ell_switch, ahead of any unported option), raise
+    ValueError."""
     with pytest.raises(ValueError):
         _pipeline(**option)
 
@@ -159,6 +162,33 @@ def test_separable_bias_warning():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         _pipeline()
+
+
+def test_table_route_takes_exact_z_anchors_as_the_reference():
+    """As the JAX make_pipeline (sweep.py:272-275), method="table" ignores
+    exact_z_anchors and skips the separable-bias warning: at z_pivot=0.0,
+    where the same call without anchors warns, the table pipeline with
+    exact_z_anchors=6 warns nothing and gives the same output bit for
+    bit.  The port alone, float64 on the CPU at the parity grid."""
+    dist = DNdzGaussian(*(torch.tensor(v, **KW) for v in (0.0, 2.0, 1.0,
+                                                           0.2)))
+
+    def table(**options):
+        return sweep.make_pipeline(port_halo(**KW), port_hod(**KW), dist,
+                                   grid=tp.GRID, z_pivot=0.0,
+                                   method="table", **options, **KW)
+
+    with pytest.warns(UserWarning, match="separable growth"):
+        plain = table()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        anchored = table(exact_z_anchors=6)
+    batch = sweep.broadcast_cosmo(default_cosmo(**KW),
+                                  omega_m0=np.array([0.26, 0.31]))
+    want, got = plain(batch), anchored(batch)
+    assert want.keys() == got.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 @pytest.mark.parametrize("kind", ["cosmo", "halo", "hod", "dist"])

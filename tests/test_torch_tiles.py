@@ -85,3 +85,53 @@ def test_statics_default_to_the_card():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             Statics(DEFAULT_GRID)
+
+
+#: (batch, NM, NG, NK) of kernel A''s main paths and chip_smoke.py's
+#: ragged case.
+BWD_SHAPES = [(512, 256, 256, 3542), (512, 256, 256, 4096),
+              (512, 37, 5, 1000), (8, 256, 256, 3542), (1, 3, 40, 17)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bwd_geometry_covers_every_node_once(shape, itemsize):
+    """Kernel A''s work units: across the grid's first axis every mat and
+    every gal node of a cosmology falls in exactly one block, in order;
+    the k tiles cover [0, NK) with the last one non-empty."""
+    batch, nm, ng, nk = shape
+    g = tiles.bwd_geometry(batch, nm, ng, nk, itemsize)
+    assert g.grid[1] == batch and g.block == tiles.BWD_BLOCK
+    mat = [j for u in range(g.grid[0]) for j in g.mat_nodes(u)]
+    gal = [j for u in range(g.grid[0]) for j in g.gal_nodes(u)]
+    assert mat == list(range(nm)) and gal == list(range(ng))
+    assert len(g.mat_nodes(g.grid[0] - 1)) + len(g.gal_nodes(g.grid[0] - 1))
+    assert g.kt % 32 == 0 and (g.tiles - 1) * g.kt < nk <= g.tiles * g.kt
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_bwd_geometry_units_as_designed(itemsize):
+    """At the main shape every block is one cosmology's unit of 16 mat
+    and 16 gal nodes, two of each per warp of the 256-thread block: 16
+    units a cosmology, 8192 blocks."""
+    g = tiles.bwd_geometry(512, 256, 256, 3542, itemsize)
+    assert (g.unit_m, g.unit_g) == (16, 16)
+    assert g.unit_m % (g.block // 32) == 0 and g.unit_g % (g.block // 32) == 0
+    assert g.unit_m // (g.block // 32) == 2 == g.unit_g // (g.block // 32)
+    assert g.grid == (16, 512)
+    assert all(len(g.mat_nodes(u)) == len(g.gal_nodes(u)) == 16
+               for u in range(g.grid[0]))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("nk", [17, 1000, 3542, 4096, 20000])
+def test_bwd_geometry_shared_memory_fits(nk, itemsize):
+    """A block's shared memory (the staged unit and one k tile) stays
+    under the card's 227 KB at any NK; in float32 three blocks fit on an
+    SM at the main paths' k (3542 lattice, 4096 table), in two tiles."""
+    g = tiles.bwd_geometry(512, 256, 256, nk, itemsize)
+    assert g.smem <= tiles.SMEM_PER_BLOCK
+    assert g.dyn_smem <= tiles.BWD_TILE_BYTES[itemsize]
+    assert g.dyn_smem == g.kt * (tiles.N_OUT + 1) * itemsize
+    if itemsize == 4 and nk in (3542, 4096):
+        assert g.blocks_per_sm_by_smem == 3 and g.tiles == 2
