@@ -82,7 +82,34 @@ order (any failure exits nonzero; nothing falls back):
    Fisher matrix in float32 against float64 (1e-3 of sqrt(F_ii F_jj));
    ``map_fit`` from 2 sigma off must end nearer the fiducial; ``hmc``
    over 512 chains (Fisher mass, 3 steps x 4 leapfrogs, eps 0.3) must
-   stay finite with mean acceptance > 0.5.
+   stay finite with mean acceptance > 0.5;
+11. exact-z: bench.py configuration B (``exact_z_anchors=6``, z_pivot 0)
+   on its 64 cosmologies in float32: launch counts (A 1 over the B x J =
+   384 anchor rows, C 2; the same in the backward), finiteness, worst bin
+   < 1e-4 against the card's float64 plain path (8 cosmologies) and the
+   committed JAX float64 values (tests/data/torch_exactz_reference.json),
+   float64 kernels against the plain path (1e-12) and the plain path
+   against JAX (1e-10); the J-channel convolution (float32 in, float64
+   sums) against float64 on its own rows (1e-6); kernel A and A' on the
+   anchors' node set at phase 2's and phase 8's gates, with their branch
+   mix, per-warp route mix, times and bounds, and one launch over 384 rows
+   against six of 64 in turns; the lattice exact-z C_ell (float64, J = 8)
+   at the JAX package's tests/test_exact_z_lattice.py configuration
+   against its ``projection.limber_cl_exact_z`` (1e-4) and its lattice
+   route (1e-10); forward and forward+backward walls and peak memory; the
+   Jacobians at the 3 reference cosmologies (float32 < 1e-3 against the
+   card's float64 plain path, float64 kernels < 1e-10, float64 plain
+   against the JAX jacfwd < 1e-9);
+12. shear: configuration A with ``include_shear=True`` on both routes at
+   B = 512, float32: launch counts forward and backward (lattice A 1, C
+   3; table A 1, B 4); w, gamma_t and xi+ worst bin and xi- relative to
+   each row's peak < 1e-4 against the card's float64 plain path and the
+   committed JAX values, float64 kernels vs plain path (1e-12), plain vs
+   JAX (1e-10); the float64 table route's xi+- against the lattice
+   route's (3e-5, or 2x the JAX package's own gap); kernel C on the mu =
+   4 operator at phase 3's gates and kernel B on the kappa-kappa C_ell
+   rows with it at phase 6's; forward and forward+backward walls and peak
+   memory per route.
 
 Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
 over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
@@ -90,9 +117,10 @@ taken in turns with the library call or plain version (other, kernel,
 kernel, other); after phase 10, each kernel's and library call's device
 time per call from torch.profiler's kernel records ("not measured" where
 it records none), and the device's busy share of one forward+backward
-per route.  Each main path (phases 5, 7 and each route's
-forward+backward in 9) runs with every launch count set to 0 just before
-it and read just after.  The last lines are the card
+per route and of configuration B's.  Each main path (phases 5, 7, each
+route's forward+backward in 9, and the forwards and forward+backwards of
+11 and 12) runs with every launch count set to 0 just before it and read
+just after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
 FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
@@ -524,9 +552,13 @@ def main():
     check = np.unique(np.linspace(0, N_COSMO - 1, N_CHECK).round()
                       ).astype(int)
 
-    def setup(dtype, idx=None, feedback=False):
-        o = oms if idx is None else oms[idx]
-        s = s8s if idx is None else s8s[idx]
+    def setup(dtype, idx=None, feedback=False, n=N_COSMO):
+        """(batch, halo, hod, dist) at ``idx`` of bench.py's n-point
+        linspaces (all n by default)."""
+        o_all = np.linspace(0.24, 0.32, n)
+        s_all = np.linspace(0.75, 0.88, n)
+        o = o_all if idx is None else o_all[idx]
+        s = s_all if idx is None else s_all[idx]
         kw = dict(device=dev, dtype=dtype)
         # The feedback hooks (c x 1.2, k x nu^0.05) make every galaxy
         # node's matter profile differ from its galaxy profile.
@@ -1451,6 +1483,464 @@ def main():
     if not (hmc_finite and acc_rate > 0.5):
         fail(f"hmc: finite={hmc_finite}, acceptance {acc_rate}")
 
+    # -- 11. exact-z: bench.py configuration B ----------------------------
+    from chomp_tpu_torch.params import GridSpec
+
+    n_x, j_x = 64, 6
+    check_x = np.unique(np.linspace(0, n_x - 1, N_CHECK).round()
+                        ).astype(int)
+    ref_x = json.loads((REPO / "tests" / "data"
+                        / "torch_exactz_reference.json").read_text())
+    rb = ref_x["config_b"]
+    idx_x = np.asarray(rb["indices"])
+    if (rb["n_cosmo"] != n_x or rb["exact_z_anchors"] != j_x
+            or not np.allclose(rb["omega_m0"],
+                               np.linspace(0.24, 0.32, n_x)[idx_x])):
+        fail("exact-z reference file does not match this run's cosmologies")
+    both_x = [i for i, c in enumerate(check_x) if c in set(idx_x.tolist())]
+    jpos_x = [idx_x.tolist().index(check_x[i]) for i in both_x]
+    if not both_x:
+        fail("no checked exact-z cosmology is in the reference file")
+
+    def pipe_x_of(dtype, hp_, hod_, dist_):
+        return make_pipeline(hp_, hod_, dist_, power_spec="power_gg",
+                             grid=DEFAULT_GRID, include_lensing=True,
+                             exact_z_anchors=j_x, device=dev, dtype=dtype)
+
+    def counts_zero():
+        for fn in counted.values():
+            fn.launches = 0
+            fn.bwd_launches = 0
+
+    def counts():
+        return ({n: fn.launches for n, fn in counted.items()},
+                {n: fn.bwd_launches for n, fn in counted.items()})
+
+    batch_x, hp_x, hod_x, dist_x = setup(f32, n=n_x)
+    pipe_x = pipe_x_of(f32, hp_x, hod_x, dist_x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    with torch.no_grad():
+        out_x = pipe_x(batch_x)
+    torch.cuda.synchronize()
+    launches_x = counts()[0]
+    peak_x = torch.cuda.max_memory_allocated() / 1e9
+    wx32 = out_x["w_theta"].double().cpu().numpy()
+    gx32 = out_x["gamma_t"].double().cpu().numpy()
+    finite_x = bool(np.all(np.isfinite(wx32)) and np.all(np.isfinite(gx32)))
+    shape_x = wx32.shape == gx32.shape == (n_x, DEFAULT_GRID.n_theta)
+
+    batch_x64, hp_x64, hod_x64, dist_x64 = setup(f64, check_x, n=n_x)
+    pipe_x64 = pipe_x_of(f64, hp_x64, hod_x64, dist_x64)
+    with plain_path():
+        out_x64 = pipe_x64(batch_x64)
+    wx64 = out_x64["w_theta"].cpu().numpy()
+    gx64 = out_x64["gamma_t"].cpu().numpy()
+    err_x_plain = max(worst_bin(wx32[check_x], wx64),
+                      worst_bin(gx32[check_x], gx64))
+    out_x64k = pipe_x64(batch_x64)
+    err_x_k64 = max(worst_bin(out_x64k["w_theta"].cpu().numpy(), wx64),
+                    worst_bin(out_x64k["gamma_t"].cpu().numpy(), gx64))
+    err_x_jax = max(worst_bin(wx32[idx_x], rb["w_theta"]),
+                    worst_bin(gx32[idx_x], rb["gamma_t"]))
+    err_x_jax64 = max(
+        worst_bin(wx64[both_x], np.asarray(rb["w_theta"])[jpos_x]),
+        worst_bin(gx64[both_x], np.asarray(rb["gamma_t"])[jpos_x]))
+
+    # The J-channel convolution on its own rows: the float64 anchor
+    # spectra and weights of the 8 checked cosmologies, rounded to
+    # float32 (float32 in, float64 sums) against float64.
+    st_x64 = pipe_x64.st
+    anchors64 = limber_fft.exact_z_anchor_spectra(
+        batch_x64.batched(), pipe_x64.halo_params, pipe_x64.hod,
+        pipe_x64.kinds, j_x, 1e-3, pipe_x64.z_hi_anchor, st_x64)
+    gj32 = limber_fft.exact_z_g_rows(
+        batch_x64.batched(), anchors64,
+        [(wa, wb) for wa, wb, _k, _s in pipe_x64.probes], st_x64).to(f32)
+    pj32 = torch.stack([anchors64["p_j"][kd] for _a, _b, kd, _s
+                        in pipe_x64.probes], 1).to(f32)
+    conv_x64 = limber_fft.anchor_conv(pj32.double(), gj32.double(), j_lo,
+                                      j_hi)
+    conv_x32 = limber_fft.anchor_conv(pj32, gj32, j_lo, j_hi)
+    err_conv_x = float((conv_x32.double() / conv_x64 - 1.0).abs().max())
+    del anchors64, gj32, pj32, conv_x64, conv_x32
+
+    # Kernel A (and A') on the anchors' own node set: B x J = 384 rows,
+    # row b J + j = cosmology b at anchor j, as the forward builds it.
+    def anchor_nodes(dtype, idx=None):
+        b_, hp_, hod_, _d = setup(dtype, idx, n=n_x)
+        b_ = b_.batched()
+        st_ = Statics(DEFAULT_GRID, device=dev, dtype=dtype)
+        rows = limber_fft._repeat_rows(b_, b_.batch, j_x)
+        z_nodes, _ = limber_fft._cheb_nodes(1e-3, pipe_x.z_hi_anchor, j_x)
+        z_r = torch.tensor(z_nodes, dtype=dtype, device=dev).repeat(b_.batch)
+        model_r = halo.build_halo_model(rows, hp_, hod_, z_r, st_)
+        return halo.contraction_nodes(rows, hp_, model_r)
+
+    matx32, galx32 = anchor_nodes(f32)
+    # 8 float64 rows, one cosmology of the check set at each anchor in
+    # turn (every anchor at least once).
+    sel = torch.tensor([c * j_x + c % j_x for c in range(len(check_x))],
+                       device=dev)
+    matx64, galx64 = (t[sel].contiguous() for t in anchor_nodes(f64,
+                                                                 check_x))
+    rows_x = matx32.shape[0]
+    a_x = check_a(k32, matx32, galx32, k64, matx64, galx64, cheb32, cheb64)
+    mix_x, same_x, cx_max_x = branch_mix(k32, matx32, galx32)
+    warp_x = bwd_route_mix(k32, matx32, galx32, hc._lens(f32),
+                           hc.n_moments(f32))
+    per_anchor = [(matx32.view(n_x, j_x, *matx32.shape[1:])[:, j]
+                   .contiguous(),
+                   galx32.view(n_x, j_x, *galx32.shape[1:])[:, j]
+                   .contiguous()) for j in range(j_x)]
+
+    def six_launches():
+        for m, g in per_anchor:
+            hc.halo_contract(k32, m, g, cheb32)
+
+    ms_a_x, ms_a_x6 = in_turns_ms(
+        lambda: hc.halo_contract(k32, matx32, galx32, cheb32), six_launches,
+        reps=20, other_reps=20)
+    bound_a_x = bound_a_of(k32, matx32, galx32)
+    profiled["halo_contract exact-z"] = (
+        lambda: hc.halo_contract(k32, matx32, galx32, cheb32), None, 5)
+    bwd_x = check_a_bwd(k32, matx32, galx32, k64, matx64, galx64, 30)
+    gx_a = seeded((rows_x, hc.N_OUT, k32.numel()), 31, f32)
+    ms_abwd_x = events_ms(lambda: hc.halo_contract_bwd(
+        k32, matx32, galx32, cheb32, gx_a), 20)
+    bound_abwd_x = bound_abwd_of(k32, matx32, galx32, gx_a)
+    profiled["halo_contract_bwd exact-z"] = (
+        lambda: hc.halo_contract_bwd(k32, matx32, galx32, cheb32, gx_a),
+        None, 5)
+    z_nodes_x = limber_fft._cheb_nodes(1e-3, pipe_x.z_hi_anchor, j_x)[0]
+    print(f"[exact-z A] anchor node set: B x J = {n_x} x {j_x} = {rows_x} "
+          f"rows at z = {np.round(z_nodes_x, 4).tolist()}, NK={k32.numel()} "
+          f"NM={matx32.shape[1]} NG={galx32.shape[1]} | f64 rel_to_peak="
+          f"{a_x['f64']:.3e} (8 rows, gate 1e-12) | f32 vs plain version on "
+          f"the same inputs in f64: rel_to_peak={a_x['f32']:.3e} max_abs="
+          f"{a_x['abs']:.3e} (gate 2e-6, and <= 1.5x the plain f32 "
+          f"version's own {a_x['plain32']:.3e}) | deterministic="
+          f"{a_x['same']} | one launch over {rows_x} rows {ms_a_x:.3f} ms, "
+          f"{j_x} launches of {n_x} rows {ms_a_x6:.3f} ms (CUDA events, 20 "
+          f"calls, in turns) | bound {bound_a_x[0]:.4f} ms by "
+          f"{bound_a_x[1]}", flush=True)
+    print(f"[exact-z A] branch mix: " + ", ".join(
+        f"{n} {v:.4f}" for n, v in mix_x.items())
+        + f" | galaxy nodes with one profile {same_x:.3f} | max |cx| "
+        f"{cx_max_x:.4g} | per warp (lanes on k): warp-steps on more than "
+        f"one path {warp_x['lanes_on_k'][1]:.4f}, issued/useful at A' "
+        f"prices {warp_x['lanes_on_k'][0]:.4f}x", flush=True)
+    print(f"[exact-z A'] anchor node set ({rows_x} rows): f64 "
+          f"field_peak_rel={bwd_x['f64']:.3e} (8 rows, gate 1e-12) | f32 vs "
+          f"plain backward on the same inputs in f64: field_peak_rel="
+          f"{bwd_x['f32']:.3e} max_abs={bwd_x['abs']:.3e} (gate 2e-5, and <= "
+          f"1.5x the plain f32 backward's own {bwd_x['plain32']:.3e}) | "
+          f"deterministic={bwd_x['same']} | kernel {ms_abwd_x:.3f} ms (CUDA "
+          f"events, 20 calls) | bound {bound_abwd_x[0]:.4f} ms by "
+          f"{bound_abwd_x[1]}", flush=True)
+    for name, q in (("halo_contract exact-z", a_x),):
+        if not q["f64"] <= 1e-12:
+            fail(f"{name}: float64 error {q['f64']}")
+        if not (q["f32"] <= 2e-6 and q["f32"] <= 1.5 * q["plain32"]):
+            fail(f"{name}: float32 error {q['f32']} (plain float32 "
+                 f"{q['plain32']})")
+        if not q["same"]:
+            fail(f"{name}: two launches differ")
+    if not (bwd_x["f64"] <= 1e-12 and bwd_x["f32"] <= 2e-5
+            and bwd_x["f32"] <= 1.5 * bwd_x["plain32"] and bwd_x["same"]):
+        fail(f"halo_contract_bwd exact-z: {bwd_x}")
+    del per_anchor
+
+    # The lattice exact-z C_ell at the configuration of the JAX package's
+    # tests/test_exact_z_lattice.py, float64 on the card.
+    rc = ref_x["cl_exact_z"]
+    kw64 = dict(device=dev, dtype=f64)
+    st_g = Statics(GridSpec(**rc["grid"]), **kw64)
+    win_gz = projection.WindowGalaxy(DNdzGaussian(
+        *(torch.tensor(v, **kw64) for v in rc["dist"])))
+    cl_g = limber_fft.limber_cl_fft_exact_z(
+        default_cosmo(**kw64), default_halo(**kw64), default_hod(**kw64),
+        win_gz, win_gz, np.asarray(rc["ells"]), st_g, "power_gg",
+        n_z_anchor=rc["n_z_anchor"])[0].cpu().numpy()
+    err_cl_tab = worst_bin(cl_g, rc["table"])
+    err_cl_lat = float(np.max(np.abs(cl_g - rc["lattice"]))
+                       / np.max(np.abs(rc["lattice"])))
+
+    # Walls, peak memory, forward+backward (launch counts zeroed just
+    # before and read just after), Jacobians.
+    weights_x = seeded((n_x, 2 * DEFAULT_GRID.n_theta), 32, f32)
+    oms_x = np.linspace(0.24, 0.32, n_x)
+    s8s_x = np.linspace(0.75, 0.88, n_x)
+
+    def grad_run_x():
+        om = torch.tensor(oms_x, dtype=f32, device=dev, requires_grad=True)
+        s8 = torch.tensor(s8s_x, dtype=f32, device=dev, requires_grad=True)
+        out = pipe_x(broadcast_cosmo(default_cosmo(device=dev, dtype=f32),
+                                     omega_m0=om, omega_l0=1.0 - om,
+                                     sigma_8=s8))
+        vec = torch.cat([out["w_theta"], out["gamma_t"]], dim=-1)
+        return torch.autograd.grad((vec * weights_x).sum(), (om, s8))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    g_x = grad_run_x()
+    torch.cuda.synchronize()
+    grad_launches_x = counts()
+    peak_x_fb = torch.cuda.max_memory_allocated() / 1e9
+    finite_gx = all(bool(torch.isfinite(g).all()) for g in g_x)
+    with torch.no_grad():
+        wall_x = median_wall(lambda: pipe_x(batch_x))
+    wall_x_fb = median_wall(grad_run_x)
+
+    p_ref_x = np.stack([rb["omega_m0"], rb["sigma_8"]], axis=1)
+    th32, _ = inference.make_theory_fn(pipe_x, default_cosmo(device=dev,
+                                                             dtype=f32))
+    th64, _ = inference.make_theory_fn(pipe_x64, default_cosmo(**kw64))
+    p32_ = torch.tensor(p_ref_x, dtype=f32, device=dev)
+    p64_ = torch.tensor(p_ref_x, **kw64)
+    jx32 = inference.jacobian(th32, p32_, chunk=64).cpu().numpy()
+    jx64k = inference.jacobian(th64, p64_, chunk=64).cpu().numpy()
+    with plain_path():
+        jx64p = inference.jacobian(th64, p64_, chunk=64).cpu().numpy()
+    jax_jx = np.asarray(rb["jacobian"])
+    je_x = {"f32_vs_plain64": jac_err(jx32, jx64p),
+            "k64_vs_plain64": jac_err(jx64k, jx64p),
+            "plain64_vs_jax": jac_err(jx64p, jax_jx),
+            "f32_vs_jax": jac_err(jx32, jax_jx)}
+    want_x = {"halo_contract": 1, "df_contract": 2, "hankel_matmul": 0}
+    print(f"[exact-z] bench config B (exact_z_anchors={j_x}, z_pivot 0), "
+          f"DEFAULT_GRID, B={n_x}, float32 | forward launches {launches_x} | "
+          f"finite={finite_x} shape_ok={shape_x} | worst bin vs card f64 "
+          f"plain path={err_x_plain:.3e} (8 cosmologies, gate 1e-4) | vs JAX "
+          f"f64 reference={err_x_jax:.3e} (3 cosmologies, gate 1e-4) | card "
+          f"f64 plain vs JAX f64={err_x_jax64:.3e} (gate 1e-10) | card f64 "
+          f"kernels vs f64 plain={err_x_k64:.3e} (gate 1e-12) | J-channel "
+          f"conv f32 in, f64 sums vs f64: worst rel={err_conv_x:.3e} (gate "
+          f"1e-6) | lattice exact-z C_ell (J=8, grid G, f64 on the card) vs "
+          f"JAX limber_cl_exact_z {err_cl_tab:.3e} (gate 1e-4; JAX's own "
+          f"lattice route {rc['jax_lattice_vs_table_worst']:.3e}), vs JAX "
+          f"lattice route {err_cl_lat:.3e} of peak (gate 1e-10) | forward "
+          f"wall median of 5 = {wall_x * 1e3:.1f} ms ({wall_x / n_x * 1e3:.3f}"
+          f" ms/cosmology), peak device memory {peak_x:.2f} GB", flush=True)
+    print(f"[exact-z] forward+backward (autograd.grad of a seeded linear "
+          f"functional of (w, gamma_t) wrt (omega_m0, sigma_8)), B={n_x}: "
+          f"launches forward {grad_launches_x[0]}, backward "
+          f"{grad_launches_x[1]} | finite={finite_gx} | wall median of 5 = "
+          f"{wall_x_fb * 1e3:.1f} ms | peak device memory {peak_x_fb:.2f} GB"
+          f" | Jacobian at the 3 reference cosmologies (inference.jacobian, "
+          f"chunks of 64 replicas): f32 vs card f64 plain path "
+          f"{je_x['f32_vs_plain64']:.3e} (gate 1e-3), f64 kernels vs f64 "
+          f"plain {je_x['k64_vs_plain64']:.3e} (gate 1e-10), f64 plain vs "
+          f"JAX jacfwd {je_x['plain64_vs_jax']:.3e} (gate 1e-9), f32 vs JAX "
+          f"{je_x['f32_vs_jax']:.3e}", flush=True)
+    if launches_x != want_x:
+        fail(f"exact-z forward launches {launches_x}; want {want_x}")
+    if grad_launches_x != (want_x, want_x):
+        fail(f"exact-z forward+backward launches {grad_launches_x}; want "
+             f"{want_x} each")
+    if not (finite_x and shape_x and finite_gx):
+        fail("exact-z outputs or gradient not finite, or of the wrong shape")
+    for name, val, gate in (
+            ("float32 vs float64 plain path", err_x_plain, 1e-4),
+            ("float32 vs JAX float64", err_x_jax, 1e-4),
+            ("float64 plain path vs JAX", err_x_jax64, 1e-10),
+            ("float64 kernels vs plain path", err_x_k64, 1e-12),
+            ("J-channel convolution float32", err_conv_x, 1e-6),
+            ("lattice exact-z C_ell vs JAX table route", err_cl_tab, 1e-4),
+            ("lattice exact-z C_ell vs JAX lattice route", err_cl_lat, 1e-10),
+            ("Jacobian f32 vs f64 plain", je_x["f32_vs_plain64"], 1e-3),
+            ("Jacobian f64 kernels vs plain", je_x["k64_vs_plain64"], 1e-10),
+            ("Jacobian f64 plain vs JAX", je_x["plain64_vs_jax"], 1e-9)):
+        if not val <= gate:
+            fail(f"exact-z {name}: {val} (gate {gate})")
+    del out_x, out_x64, out_x64k, g_x
+
+    # -- 12. shear: configuration A with include_shear=True ---------------
+    rs = ref_x["shear"]
+    idx_s = np.asarray(rs["indices"])
+    if rs["n_cosmo"] != N_COSMO or not np.allclose(rs["omega_m0"],
+                                                   oms[idx_s]):
+        fail("shear reference file does not match this run's cosmologies")
+    both_s = [i for i, c in enumerate(check) if c in set(idx_s.tolist())]
+    jpos_s = [idx_s.tolist().index(check[i]) for i in both_s]
+    keys_s = ("w_theta", "gamma_t", "xi_plus", "xi_minus")
+
+    def shear_err(got, ref):
+        """{key: error}: worst bin for w, gamma_t and xi+, and for xi-
+        both its worst bin and its worst error relative to each row's
+        peak over theta (xi- is small at small theta)."""
+        e = {k: worst_bin(got[k], ref[k]) for k in keys_s}
+        g, r = np.asarray(got["xi_minus"]), np.asarray(ref["xi_minus"])
+        e["xi_minus_peak"] = float(np.max(np.max(np.abs(g - r), axis=1)
+                                          / np.max(np.abs(r), axis=1)))
+        return e
+
+    def gated(e):
+        """The gated figure of shear_err: xi- by its row peak."""
+        return max(v for k, v in e.items() if k != "xi_minus")
+
+    def pipe_s_of(dtype, method, hp_, hod_, dist_):
+        return make_pipeline(hp_, hod_, dist_, power_spec="power_gg",
+                             grid=DEFAULT_GRID, include_lensing=True,
+                             z_pivot=1.0, include_shear=True, method=method,
+                             device=dev, dtype=dtype)
+
+    def host(out, rows=None):
+        return {k: (out[k].double().cpu().numpy() if rows is None
+                    else out[k].double().cpu().numpy()[rows])
+                for k in keys_s}
+
+    want_s = {"lattice": {"halo_contract": 1, "df_contract": 3,
+                          "hankel_matmul": 0},
+              "table": {"halo_contract": 1, "df_contract": 0,
+                        "hankel_matmul": 4}}
+    weights_s = seeded((N_COSMO, 4 * DEFAULT_GRID.n_theta), 33, f32)
+    shear, shear64 = {}, {}
+    for route, method in (("lattice", "fft"), ("table", "table")):
+        pipe_s = pipe_s_of(f32, method, hp, hod, dist)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero()
+        with torch.no_grad():
+            out_s = pipe_s(batch)
+        torch.cuda.synchronize()
+        fw = counts()[0]
+        peak_s = torch.cuda.max_memory_allocated() / 1e9
+        got = host(out_s)
+        finite_s = all(bool(np.all(np.isfinite(v))) for v in got.values())
+        pipe_s64 = pipe_s_of(f64, method, hp64, hod64, dist64)
+        with plain_path():
+            plain = host(pipe_s64(batch64))
+        kern64 = host(pipe_s64(batch64))
+        ref_r = {k: np.asarray(rs["fft" if route == "lattice" else "table"][k])
+                 for k in keys_s}
+        with torch.no_grad():
+            wall_s = median_wall(lambda: pipe_s(batch))
+
+        def grad_run_s():
+            om = torch.tensor(oms, dtype=f32, device=dev, requires_grad=True)
+            s8 = torch.tensor(s8s, dtype=f32, device=dev, requires_grad=True)
+            out = pipe_s(broadcast_cosmo(default_cosmo(device=dev,
+                                                       dtype=f32),
+                                         omega_m0=om, omega_l0=1.0 - om,
+                                         sigma_8=s8))
+            vec = torch.cat([out[k] for k in keys_s], dim=-1)
+            return torch.autograd.grad((vec * weights_s).sum(), (om, s8))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero()
+        g_s = grad_run_s()
+        torch.cuda.synchronize()
+        gl = counts()
+        peak_s_fb = torch.cuda.max_memory_allocated() / 1e9
+        finite_gs = all(bool(torch.isfinite(g).all()) for g in g_s)
+        wall_s_fb = median_wall(grad_run_s)
+        shear[route] = {
+            "launches": fw, "grad_launches": gl, "finite": finite_s,
+            "finite_grad": finite_gs, "peak": peak_s, "peak_fb": peak_s_fb,
+            "wall": wall_s, "wall_fb": wall_s_fb,
+            "vs_plain": shear_err({k: v[check] for k, v in got.items()},
+                                  plain),
+            "vs_jax": shear_err({k: v[idx_s] for k, v in got.items()}, ref_r),
+            "k64": shear_err(kern64, plain),
+            "plain_vs_jax": shear_err(
+                {k: v[both_s] for k, v in plain.items()},
+                {k: v[jpos_s] for k, v in ref_r.items()})}
+        shear64[route] = plain
+        if route == "table":
+            pipe_ts = pipe_s
+        del out_s, g_s
+    gap = rs["jax_table_vs_lattice"]
+    cross_s = shear_err(shear64["table"], shear64["lattice"])
+    gate_p = max(3e-5, 2.0 * gap["xi_plus_worst_bin"])
+    gate_m = max(3e-5, 2.0 * gap["xi_minus_row_peak"])
+
+    # Kernel C on the mu = 4 operator (phase 3's gates), on phase 3's
+    # seeded rows at its window.
+    j_lo4, j_hi4, a_np4 = limber_fft.wtheta_lattice_operator(
+        theta, DEFAULT_GRID, 4.0)
+    c64_4 = torch.tensor(np.random.default_rng(0).lognormal(
+        0.0, 1.0, (N_COSMO, j_hi4 - j_lo4)), device=dev)
+    c_mu4 = check_c(c64_4, a_np4)
+    # Kernel B on the kappa-kappa C_ell rows of the 512 cosmologies with
+    # the mu = 4 operator (phase 6's gates).
+    cosmo_ts, model_ts = pipe_ts.halo_model(batch)
+    tab_mm = projection.power_tables_halo(cosmo_ts, pipe_ts.halo_params,
+                                          model_ts, ("power_mm",),
+                                          pipe_ts.st)["power_mm"]
+    cl_kk = projection.limber_cl(cosmo_ts, pipe_ts.win_k, pipe_ts.win_k,
+                                 pipe_ts.ells, tab_mm, pipe_ts.st).contiguous()
+    op_mu4 = getattr(pipe_ts, f"op{pipe_ts.mus.index(4.0)}_t")
+    b_mu4 = check_b(cl_kk, op_mu4)
+    del cosmo_ts, model_ts, tab_mm
+
+    for route, q in shear.items():
+        print(f"[shear] {route} route, bench config A with include_shear="
+              f"True, DEFAULT_GRID, B={N_COSMO}, float32 | forward launches "
+              f"{q['launches']}, forward+backward {q['grad_launches'][0]} / "
+              f"{q['grad_launches'][1]} | finite={q['finite']} (gradient "
+              f"{q['finite_grad']}) | vs card f64 plain path (8 cosmologies):"
+              f" w {q['vs_plain']['w_theta']:.3e}, gamma_t "
+              f"{q['vs_plain']['gamma_t']:.3e}, xi+ "
+              f"{q['vs_plain']['xi_plus']:.3e} (worst bin), xi- "
+              f"{q['vs_plain']['xi_minus_peak']:.3e} of row peak (worst bin "
+              f"{q['vs_plain']['xi_minus']:.3e}) (gates 1e-4) | vs JAX f64 (3 "
+              f"cosmologies): xi+ {q['vs_jax']['xi_plus']:.3e}, xi- "
+              f"{q['vs_jax']['xi_minus_peak']:.3e} of row peak (worst bin "
+              f"{q['vs_jax']['xi_minus']:.3e}), all {gated(q['vs_jax']):.3e} "
+              f"(gate 1e-4) | f64 kernels vs plain {gated(q['k64']):.3e} "
+              f"(gate 1e-12) | f64 plain vs JAX "
+              f"{gated(q['plain_vs_jax']):.3e} (gate 1e-10) | forward wall "
+              f"median of 5 = {q['wall'] * 1e3:.1f} ms, peak {q['peak']:.2f} "
+              f"GB | forward+backward wall median of 5 = "
+              f"{q['wall_fb'] * 1e3:.1f} ms, peak {q['peak_fb']:.2f} GB",
+              flush=True)
+    print(f"[shear] f64 table vs lattice route (8 cosmologies): xi+ "
+          f"{cross_s['xi_plus']:.3e} (gate {gate_p:.3e}; JAX "
+          f"{gap['xi_plus_worst_bin']:.3e}), xi- "
+          f"{cross_s['xi_minus_peak']:.3e} of row peak (gate {gate_m:.3e}; "
+          f"JAX {gap['xi_minus_row_peak']:.3e}; worst bin "
+          f"{cross_s['xi_minus']:.3e}, JAX {gap['xi_minus_worst_bin']:.3e})",
+          flush=True)
+    print(f"[shear] kernel C, mu = 4 operator ({N_COSMO}, {j_hi4 - j_lo4}) x "
+          f"({a_np4.shape[0]}, {j_hi4 - j_lo4}) | f64 rel_to_peak="
+          f"{c_mu4['f64']:.3e} (gate 1e-12) | f32 vs plain rel_to_peak="
+          f"{c_mu4['plain']:.3e} (gate 1e-6) | f32 vs exact rel_to_peak="
+          f"{c_mu4['exact']:.3e} (gate 1e-7) | deterministic={c_mu4['same']}"
+          f" | kernel B on the kappa-kappa C_ell rows {tuple(cl_kk.shape)} "
+          f"@ mu = 4 operator {tuple(op_mu4.shape)} | f64 rel_to_row_peak="
+          f"{b_mu4['f64']:.3e} (gate 1e-12) | f32 vs plain max rel="
+          f"{b_mu4['plain']:.3e} (gate 2e-5) | f32 vs exact max rel="
+          f"{b_mu4['exact']:.3e}, torch.matmul f32 {b_mu4['lib_exact']:.3e} "
+          f"(gate 2x) | deterministic={b_mu4['same']}", flush=True)
+    for route, q in shear.items():
+        if q["launches"] != want_s[route] or q["grad_launches"] != (
+                want_s[route], want_s[route]):
+            fail(f"shear {route} launches: forward {q['launches']}, "
+                 f"forward+backward {q['grad_launches']}; want "
+                 f"{want_s[route]} each")
+        if not (q["finite"] and q["finite_grad"]):
+            fail(f"shear {route}: outputs or gradient not finite")
+        for name, val, gate in (("vs f64 plain", gated(q["vs_plain"]), 1e-4),
+                                ("vs JAX", gated(q["vs_jax"]), 1e-4),
+                                ("f64 kernels vs plain", gated(q["k64"]),
+                                 1e-12),
+                                ("f64 plain vs JAX", gated(q["plain_vs_jax"]),
+                                 1e-10)):
+            if not val <= gate:
+                fail(f"shear {route} {name}: {val} (gate {gate})")
+    if not (cross_s["xi_plus"] < gate_p and cross_s["xi_minus_peak"] < gate_m):
+        fail(f"shear table vs lattice route in float64: {cross_s}")
+    if not (c_mu4["f64"] <= 1e-12 and c_mu4["plain"] <= 1e-6
+            and c_mu4["exact"] <= 1e-7 and c_mu4["same"]):
+        fail(f"df_contract on the mu = 4 operator: {c_mu4}")
+    if not (b_mu4["f64"] <= 1e-12 and b_mu4["plain"] <= 2e-5
+            and b_mu4["exact"] <= 2.0 * b_mu4["lib_exact"] and b_mu4["same"]):
+        fail(f"hankel_matmul on the mu = 4 operator: {b_mu4}")
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -1462,17 +1952,26 @@ def main():
               f"calls)", flush=True)
 
     # The device's busy share of one forward+backward per route.
-    for route, (pipe_r, _) in pipes.items():
-        busy = device_ms(lambda: grad_run(pipe_r), reps=1)
-        wall_fb = grad_info[route]["fwd_bwd_wall"] * 1e3
-        print(f"[device time] {route} route forward+backward, B={N_COSMO}: "
+    runs = {route: (lambda p=pipe_r: grad_run(p),
+                    grad_info[route]["fwd_bwd_wall"] * 1e3)
+            for route, (pipe_r, _) in pipes.items()}
+    runs["exact-z"] = (grad_run_x, wall_x_fb * 1e3)
+    for route, (run, wall_fb) in runs.items():
+        busy = device_ms(run, reps=1)
+        print(f"[device time] {route} forward+backward, B="
+              f"{n_x if route == 'exact-z' else N_COSMO}: "
               f"device busy {fmt_ms(busy)} of a {wall_fb:.1f} ms wall"
               + (f" ({busy / wall_fb:.1%} busy)" if busy else ""),
               flush=True)
 
-    paths = {"lattice": launches, "table": launches_t}
+    paths = {"lattice": launches, "table": launches_t,
+             "exact_z": launches_x, "shear_lattice": shear["lattice"][
+                 "launches"], "shear_table": shear["table"]["launches"]}
+    bwd_of = dict(grad_launches, exact_z=grad_launches_x,
+                  shear_lattice=shear["lattice"]["grad_launches"],
+                  shear_table=shear["table"]["grad_launches"])
     bwd_paths = {route: {f"{n}_bwd": c for n, c in bw.items()}
-                 for route, (_fw, bw) in grad_launches.items()}
+                 for route, (_fw, bw) in bwd_of.items()}
 
     def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
                dev, library_dev, paths=paths):
@@ -1492,7 +1991,11 @@ def main():
            "feedback_device_ms": dtimes["halo_contract feedback"][0],
            "feedback_bound_ms": bound_a_fb[0],
            "table_k_device_ms": dtimes["halo_contract table k"][0],
-           "table_k_bound_ms": bound_a_tab[0]},
+           "table_k_bound_ms": bound_a_tab[0],
+           "exact_z_rows": rows_x, "exact_z_ms": ms_a_x,
+           "exact_z_six_launches_ms": ms_a_x6,
+           "exact_z_device_ms": dtimes["halo_contract exact-z"][0],
+           "exact_z_bound_ms": bound_a_x[0]},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
                bound_c, lib_ms_c, *dtimes["df_contract"]),
@@ -1509,7 +2012,10 @@ def main():
            "feedback_bound_ms": bound_abwd_fb[0],
            "table_k_ms": ms_abwd_tab,
            "table_k_device_ms": dtimes["halo_contract_bwd table k"][0],
-           "table_k_bound_ms": bound_abwd_tab[0], "geometry": geo_main},
+           "table_k_bound_ms": bound_abwd_tab[0], "geometry": geo_main,
+           "exact_z_ms": ms_abwd_x,
+           "exact_z_device_ms": dtimes["halo_contract_bwd exact-z"][0],
+           "exact_z_bound_ms": bound_abwd_x[0]},
         record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
                "no backward kernel in the JAX package",

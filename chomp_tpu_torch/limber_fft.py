@@ -1,18 +1,24 @@
-"""Lattice Limber projection — the separable route of the w(theta) pipeline.
+"""Lattice Limber projection — the w(theta) pipeline's lattice route.
 
-PyTorch counterpart of the separable half of the JAX package's
-``limber_fft.py``.
-With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du G(u) P(e^{s-u}) is a
-1-D convolution of the P lattice (static ln k) with the window weights G
-on the matching static ln chi lattice; z(chi) on that lattice comes from
-Newton iteration off a static fiducial seed.  The numpy builders (the
-lattices, the fiducial tables, the Catmull-Rom s-interpolation and the
-composed lattice -> Hankel -> theta-bins operator) are copied from the
-JAX module; the runtime pieces are batched torch.
+PyTorch counterpart of the JAX package's ``limber_fft.py`` (the direct
+convolution; the whitened-FFT convolution and the tomographic spectra
+are not ported).  With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du
+G(u) P(e^{s-u}) is a 1-D convolution of the P lattice (static ln k) with
+the window weights G on the matching static ln chi lattice; z(chi) on
+that lattice comes from Newton iteration off a static fiducial seed.
+The separable route freezes the halo-model shape at one pivot; the
+exact-z route expands it over Chebyshev redshift anchors
+(:func:`exact_z_anchor_spectra`, one halo-model evaluation over B x J
+rows) and convolves J channels per probe row.  The numpy builders (the
+lattices, the fiducial tables, the Catmull-Rom s-interpolation, the
+composed lattice -> Hankel -> theta-bins operator and the Chebyshev
+nodes) are copied from the JAX module; the runtime pieces are batched
+torch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from functools import lru_cache
 
 import numpy as np
@@ -21,6 +27,7 @@ import torch.nn.functional as F
 
 from chomp_tpu_torch import background, correlation
 from chomp_tpu_torch.grids import catmull_rom_weights_np
+from chomp_tpu_torch.ops.hankel_matmul import full_fp32_matmul
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams, GridSpec, col
 from chomp_tpu_torch.projection import WindowConvergence, dndz
 
@@ -80,6 +87,13 @@ def _s_weights(ells_key, ell_offset: float, key):
     return catmull_rom_weights_np(n_out, (s_ell - s0) / dln)
 
 
+def _used_window(w_full):
+    """[j_lo, j_hi): the conv-output positions an s-interpolation matrix
+    reads."""
+    used = np.nonzero(np.any(w_full != 0.0, axis=0))[0]
+    return int(used[0]), int(used[-1]) + 1
+
+
 @lru_cache(maxsize=None)
 def wtheta_lattice_operator(theta_key, grid: GridSpec, mu: float = 0.0,
                             ell_offset: float = 0.5):
@@ -88,8 +102,7 @@ def wtheta_lattice_operator(theta_key, grid: GridSpec, mu: float = 0.0,
     Hankel + binning operator), restricted to the conv positions it uses."""
     ells = correlation.ell_grid(grid)[0]
     w_full = _s_weights(tuple(ells.tolist()), ell_offset, _lattice_key(grid))
-    used = np.nonzero(np.any(w_full != 0.0, axis=0))[0]
-    j_lo, j_hi = int(used[0]), int(used[-1]) + 1
+    j_lo, j_hi = _used_window(w_full)
     bins_op = correlation.wtheta_bins_operator(theta_key, grid, mu)
     return j_lo, j_hi, np.ascontiguousarray(bins_op @ w_full[:, j_lo:j_hi])
 
@@ -97,16 +110,23 @@ def wtheta_lattice_operator(theta_key, grid: GridSpec, mu: float = 0.0,
 def _conv_direct_rows(p_rows, g_rows, j_lo: int, j_hi: int):
     """Paired per-row direct convolution over conv-output positions
     [j_lo, j_hi): ``p_rows`` (B, R, n_k), ``g_rows`` (B, R, n_chi) ->
-    (B, R, j_hi - j_lo).  One grouped ``conv1d`` (groups = B R); like
-    the JAX code, g is flipped so the cross-correlation is a convolution.
+    (B, R, j_hi - j_lo) in the input dtype (:func:`_conv_direct_rows64`
+    rounded once)."""
+    return _conv_direct_rows64(p_rows, g_rows, j_lo, j_hi).to(p_rows.dtype)
 
-    The sum is accumulated in float64 whatever the input dtype (the
-    output keeps it): PyTorch's grouped float32 conv1d sums the ~1.3k
-    taps in float32, measured on an H100 (700 W) at 6.2e-6 worst
-    relative error per output on the pipeline's own rows, against ~6e-8
-    (the output rounding) in float64 at +0.8 ms per 512-cosmology batch.
-    (Its TF32 switch does not reach this grouped kernel: measured the
-    same error with it on.)"""
+
+def _conv_direct_rows64(p_rows, g_rows, j_lo: int, j_hi: int):
+    """The float64 sums of :func:`_conv_direct_rows`.  One grouped
+    ``conv1d`` (groups = B R); like the JAX code, g is flipped so the
+    cross-correlation is a convolution.
+
+    The sum is accumulated in float64 whatever the input dtype:
+    PyTorch's grouped float32 conv1d sums the ~1.3k taps in float32,
+    measured on an H100 (700 W) at 6.2e-6 worst relative error per
+    output on the pipeline's own rows, against ~6e-8 (the output
+    rounding) in float64 at +0.8 ms per 512-cosmology batch.  (Its TF32
+    switch does not reach this grouped kernel: measured the same error
+    with it on.)"""
     b, r, n_k = p_rows.shape
     n_chi = g_rows.shape[-1]
     lhs = p_rows.reshape(1, b * r, n_k).to(torch.float64)
@@ -115,8 +135,7 @@ def _conv_direct_rows(p_rows, g_rows, j_lo: int, j_hi: int):
     pad_r = max(j_hi - n_k, 0)
     lhs = F.pad(lhs, (pad_l, pad_r))
     out = F.conv1d(lhs, rhs, groups=b * r)
-    return out[0, :, :j_hi - j_lo].reshape(b, r, j_hi - j_lo).to(
-        p_rows.dtype)
+    return out[0, :, :j_hi - j_lo].reshape(b, r, j_hi - j_lo)
 
 
 def _window_on_lattice(cosmo, win, z, chi, st, z_mid):
@@ -156,6 +175,17 @@ def _lattice_z(cosmo: CosmoParams, st):
     return chi, z, z_mid
 
 
+def _window_rows(cosmo, pairs, st, z, chi, z_mid):
+    """W_a W_b / chi * dln on the lattice for each window pair in
+    ``pairs``: (B, R, n_chi), each distinct window evaluated once."""
+    wins = {}
+    for win in (w for pair in pairs for w in pair):
+        if id(win) not in wins:
+            wins[id(win)] = _window_on_lattice(cosmo, win, z, chi, st, z_mid)
+    return torch.stack([wins[id(wa)] * wins[id(wb)] / chi
+                        * st.grid.lattice_dln for wa, wb in pairs], dim=1)
+
+
 def _lattice_g_rows(cosmo: CosmoParams, pairs, st, growth_pivot):
     """Limber lattice weights G(u) = W_a W_b D^2 / chi * dln for each
     window pair in ``pairs``: (B, R, n_chi).  The lattice redshifts, the
@@ -163,12 +193,205 @@ def _lattice_g_rows(cosmo: CosmoParams, pairs, st, growth_pivot):
     chi, z, z_mid = _lattice_z(cosmo, st)
     d = (background.growth_factor(cosmo, z, st, st.grid.n_growth)
          / col(growth_pivot, 1))
-    wins = {}
-    for win in (w for pair in pairs for w in pair):
-        if id(win) not in wins:
-            wins[id(win)] = _window_on_lattice(cosmo, win, z, chi, st, z_mid)
-    return torch.stack([wins[id(wa)] * wins[id(wb)] * d * d / chi
-                        * st.grid.lattice_dln for wa, wb in pairs], dim=1)
+    return _window_rows(cosmo, pairs, st, z, chi, z_mid) * (d * d)[:, None]
+
+
+def _ells_window(ells, ell_offset, st):
+    """(j_lo, j_hi, S): the conv-output window that the static ``ells``
+    read and the Catmull-Rom matrix S (n_ell, j_hi - j_lo) on it."""
+    w_full = _s_weights(tuple(np.asarray(ells, dtype=np.float64).tolist()),
+                        ell_offset, _lattice_key(st.grid))
+    j_lo, j_hi = _used_window(w_full)
+    return j_lo, j_hi, torch.as_tensor(w_full[:, j_lo:j_hi], dtype=st.dtype,
+                                       device=st.device)
+
+
+def limber_cl_fft(cosmo: CosmoParams, win_a, win_b, ells, p_lattice, st,
+                  ell_offset: float = 0.5, growth_pivot=1.0,
+                  conv_method: str = "direct"):
+    """Separable C_ell at the static (numpy) ``ells`` from P sampled on
+    the k lattice, ``p_lattice`` (B|1, n_k), with the growth pivot
+    ``growth_pivot`` (a float or (B,)): (B, n_ell).  Only the direct
+    convolution is ported (``conv_method="direct"``)."""
+    if conv_method == "fft":
+        raise NotImplementedError(
+            "limber_cl_fft(conv_method='fft') (the whitened FFT "
+            "convolution) is not ported to chomp_tpu_torch yet: ROADMAP "
+            "queue 1, item 7 (make_pipeline options)")
+    if conv_method != "direct":
+        raise ValueError(f"conv_method must be 'direct' or 'fft', got "
+                         f"{conv_method!r}")
+    j_lo, j_hi, w = _ells_window(ells, ell_offset, st)
+    piv = torch.as_tensor(growth_pivot, dtype=st.dtype, device=st.device)
+    g = _lattice_g_rows(cosmo, [(win_a, win_b)], st, piv)
+    p = p_lattice.expand(g.shape[0], -1)[:, None]
+    conv = _conv_direct_rows(p, g, j_lo, j_hi)[:, 0]
+    with full_fp32_matmul():
+        return conv @ w.T
+
+
+def _cheb_nodes(lo: float, hi: float, n: int):
+    """Chebyshev (2nd kind / extrema) nodes on [lo, hi] + barycentric
+    weights (numpy, static)."""
+    j = np.arange(n)
+    x = np.cos(np.pi * j / (n - 1))          # [1, -1]
+    z = 0.5 * (lo + hi) + 0.5 * (hi - lo) * x[::-1]
+    w = np.ones(n)
+    w[1::2] = -1.0
+    w[0] *= 0.5
+    w[-1] *= 0.5
+    # Reversed to ascending z; barycentric weights pick up (-1)^(n-1).
+    return z, w[::-1].copy()
+
+
+def _barycentric_rows(z_query, z_nodes_np, w_np):
+    """L_j(z_query): Lagrange basis rows by the barycentric formula,
+    (..., n) -> (..., n, J) for the static nodes ``z_nodes_np`` (J,) and
+    weights ``w_np``.  A query within 1e-12 of a node is nudged off it,
+    as in the JAX code (the nudged row still sums to the hit's basis
+    row)."""
+    zn = torch.as_tensor(z_nodes_np, dtype=z_query.dtype,
+                         device=z_query.device)
+    w = torch.as_tensor(w_np, dtype=z_query.dtype, device=z_query.device)
+    diff = z_query[..., None] - zn
+    diff = torch.where(diff.abs() < 1e-12, 1e-12, diff)
+    terms = w / diff
+    return terms / terms.sum(-1, keepdim=True)
+
+
+def _repeat_rows(params, b: int, j: int):
+    """``params`` with every field of batch length ``b`` > 1 repeated
+    ``j`` times per row, b-major (row b j + i is row b, copy i); 0-d and
+    length-1 fields broadcast as before."""
+    return dataclasses.replace(params, **{
+        k: v.repeat_interleave(j, dim=0) if v.dim() and v.shape[0] == b > 1
+        else v for k, v in params.fields().items()})
+
+
+def exact_z_anchor_spectra(cosmo, halo_params, hod, kinds, n_z_anchor: int,
+                           z_anchor_lo: float, z_anchor_hi: float, st,
+                           matter_power: str = "halo"):
+    """Halo spectra on the k lattice at the ``n_z_anchor`` Chebyshev
+    redshift anchors on [z_anchor_lo, z_anchor_hi], for every kind in
+    ``kinds``, from ONE halo model over B x J rows: row b J + j is
+    cosmology b at anchor j, so ``halo.powers`` launches kernel A once
+    (the JAX code runs the anchors one after another under ``lax.map``).
+
+    Returns dict(p_j={kind: (B, J, n_k)}, d_j (B, J) the growth at the
+    anchors, z_nodes and w_bary (numpy), z_lo and z_hi)."""
+    from chomp_tpu_torch import halo as halo_mod
+
+    if matter_power != "halo":
+        raise NotImplementedError(
+            f"exact_z_anchor_spectra(matter_power={matter_power!r}) is not "
+            "ported to chomp_tpu_torch yet: ROADMAP queue 1, item 7 "
+            "(make_pipeline options)")
+    cosmo = cosmo.batched()
+    b, j = cosmo.batch, int(n_z_anchor)
+    z_nodes, w_bary = _cheb_nodes(z_anchor_lo, z_anchor_hi, j)
+    rows = _repeat_rows(cosmo, b, j)
+    hp, hod = _repeat_rows(halo_params, b, j), _repeat_rows(hod, b, j)
+    z = torch.as_tensor(z_nodes, dtype=st.dtype, device=st.device).repeat(b)
+    model = halo_mod.build_halo_model(rows, hp, hod, z, st)
+    p_all = halo_mod.powers(rows, hp, model, st.lattice_k, st)
+    return dict(p_j={k: p_all[k].reshape(b, j, -1) for k in kinds},
+                d_j=model.mass.growth.reshape(b, j), z_nodes=z_nodes,
+                w_bary=w_bary, z_lo=float(z_anchor_lo),
+                z_hi=float(z_anchor_hi))
+
+
+def exact_z_g_rows(cosmo, anchors, pairs, st):
+    """Per-anchor lattice weights for each window pair of ``pairs``:
+    (B, R, J, n_chi),
+
+        G_j(u) = W_a W_b / chi du * D(z_u)^2 L_j(z_u) / D_j^2,
+
+    L_j the Lagrange basis at z_u clipped into the anchor window (the
+    growth keeps the exact z_u).  The lattice z, the growth, the basis
+    rows and each distinct window are evaluated once."""
+    chi, z_u, z_mid = _lattice_z(cosmo, st)
+    d_u = background.growth_factor(cosmo, z_u, st, st.grid.n_growth)
+    lag = _barycentric_rows(torch.clamp(z_u, anchors["z_lo"],
+                                        anchors["z_hi"]),
+                            anchors["z_nodes"], anchors["w_bary"])
+    g0 = _window_rows(cosmo, pairs, st, z_u, chi, z_mid) * (d_u * d_u)[:, None]
+    d_j = anchors["d_j"]
+    return (g0[:, :, None] * lag.transpose(1, 2)[:, None]
+            / (d_j * d_j)[:, None, :, None])
+
+
+def anchor_conv(p_j, g_j, j_lo: int, j_hi: int):
+    """sum_j conv(P_j, G_j) over conv-output positions [j_lo, j_hi):
+    ``p_j`` (B, R, J, n_k), ``g_j`` (B, R, J, n_chi) -> (B, R, j_hi -
+    j_lo) in ``p_j``'s dtype.  All rows' anchors go through ONE grouped
+    convolution (B R J groups), summed over j in float64 and rounded
+    once."""
+    b, r, j, n_chi = g_j.shape
+    conv = _conv_direct_rows64(p_j.reshape(b, r * j, -1),
+                               g_j.reshape(b, r * j, n_chi), j_lo, j_hi)
+    return conv.reshape(b, r, j, -1).sum(2).to(p_j.dtype)
+
+
+def exact_z_conv_rows(cosmo, anchors, rows, st, j_lo: int, j_hi: int):
+    """The Chebyshev-anchored lattice convolution for each probe row of
+    ``rows`` (win_a, win_b, kind): (B, R, j_hi - j_lo), in the anchors'
+    dtype (:func:`exact_z_g_rows`, then :func:`anchor_conv`)."""
+    g_j = exact_z_g_rows(cosmo, anchors, [(wa, wb) for wa, wb, _k in rows],
+                         st)
+    p_j = torch.stack([anchors["p_j"][kind] for _wa, _wb, kind in rows],
+                      dim=1)
+    return anchor_conv(p_j, g_j, j_lo, j_hi)
+
+
+def limber_cl_fft_exact_z(cosmo, halo_params, hod, win_a, win_b, ells, st,
+                          kind: str = "power_gg", n_z_anchor: int = 8,
+                          z_anchor_lo: float = 1e-3, z_anchor_hi: float = 3.0,
+                          ell_offset: float = 0.5):
+    """Limber C_ell at the static (numpy) ``ells`` with the halo model's
+    exact redshift evolution (Chebyshev anchors, see
+    :func:`exact_z_g_rows`): (B, n_ell)."""
+    anchors = exact_z_anchor_spectra(cosmo, halo_params, hod, (kind,),
+                                     n_z_anchor, z_anchor_lo, z_anchor_hi, st)
+    j_lo, j_hi, w = _ells_window(ells, ell_offset, st)
+    conv = exact_z_conv_rows(cosmo, anchors, [(win_a, win_b, kind)], st,
+                             j_lo, j_hi)[:, 0]
+    with full_fp32_matmul():
+        return conv @ w.T
+
+
+def limber_wtheta_fft_exact_z(cosmo, halo_params, hod, win_a, win_b,
+                              theta_deg, st, kind: str = "power_gg",
+                              n_z_anchor: int = 8, z_anchor_lo: float = 1e-3,
+                              z_anchor_hi: float = 3.0, mu: float = 0.0,
+                              ell_offset: float = 0.5):
+    """w(theta bins) (mu 0) / gamma_t (mu 2) with the halo model's exact
+    redshift evolution: the anchored convolution through the composed
+    lattice -> Hankel -> bins operator and kernel C, (B, n_theta)."""
+    anchors = exact_z_anchor_spectra(cosmo, halo_params, hod, (kind,),
+                                     n_z_anchor, z_anchor_lo, z_anchor_hi, st)
+    return limber_wtheta_from_anchors(cosmo, anchors, win_a, win_b,
+                                      theta_deg, kind, st, mu, ell_offset)
+
+
+def limber_wtheta_from_anchors(cosmo, anchors, win_a, win_b, theta_deg,
+                               kind: str, st, mu: float = 0.0,
+                               ell_offset: float = 0.5):
+    """Exact-z w(theta bins) / gamma_t (B, n_theta) from prebuilt anchor
+    spectra: :func:`exact_z_conv_rows`, then kernel C on the float64
+    operator (float32: its hi/lo split)."""
+    from chomp_tpu_torch.ops.df32 import df_contract, split_operator
+
+    theta_key = tuple(np.asarray(theta_deg, dtype=np.float64).tolist())
+    j_lo, j_hi, a_np = wtheta_lattice_operator(theta_key, st.grid, mu,
+                                               ell_offset)
+    conv = exact_z_conv_rows(cosmo, anchors, [(win_a, win_b, kind)], st,
+                             j_lo, j_hi)[:, 0]
+    if conv.dtype == torch.float64:
+        ops = (torch.as_tensor(a_np, device=st.device), None)
+    else:
+        ops = (torch.as_tensor(x, device=st.device)
+               for x in split_operator(a_np))
+    return df_contract(conv.contiguous(), *ops)
 
 
 def p_lattice_halo_all(cosmo, halo_params, model, st):
@@ -176,4 +399,18 @@ def p_lattice_halo_all(cosmo, halo_params, model, st):
     from chomp_tpu_torch import halo as halo_mod
 
     return halo_mod.powers(cosmo, halo_params, model, st.lattice_k, st)
+
+
+def p_lattice_halo(cosmo, halo_params, model, kind: str, st):
+    """One halo-model spectrum on the k lattice, (B, n_k)."""
+    return p_lattice_halo_all(cosmo, halo_params, model, st)[kind]
+
+
+def p_lattice_linear(cosmo, st):
+    """Linear P(k, z = 0) on the k lattice, (B, n_k) (no BAO wiggles:
+    ``with_bao=True`` is ROADMAP queue 1, item 7)."""
+    from chomp_tpu_torch import linear
+
+    z = torch.zeros(1, dtype=st.dtype, device=st.device)
+    return linear.linear_power(cosmo, st.lattice_k[None, :], z, st)
 

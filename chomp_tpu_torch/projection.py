@@ -205,7 +205,8 @@ def limber_cl(cosmo: CosmoParams, win_a, win_b, ells, p_table: PowerTable,
     d = (background.growth_factor(cosmo, z, st, g.n_growth)
          / col(p_table.growth_pivot, 1))
     wa = win_a.window_z(cosmo, z, st)
-    wb = win_b.window_z(cosmo, z, st)
+    # kappa-kappa (xi_+-): one nested convergence window serves both.
+    wb = wa if win_b is win_a else win_b.window_z(cosmo, z, st)
     dchi_dz = C_OVER_H0 / background.ez(cosmo, z)
     kern = wa * wb * dchi_dz / chi**2 * d * d * wz            # (B, nz)
     k = (ells[None, :, None] + ell_offset) / chi[:, None, :]  # (B, nl, nz)

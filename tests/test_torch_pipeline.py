@@ -116,8 +116,6 @@ def test_pipeline_rejects_mismatched_batch():
 
 
 @pytest.mark.parametrize("option", [
-    dict(exact_z_anchors=6),
-    dict(include_shear=True), dict(method="table", include_shear=True),
     dict(include_cmb_lensing=True),
     dict(geometry="curved"), dict(nonlimber_ell_switch=40),
     dict(nonlimber_ell_switch=40, nonlimber_rsd=True),

@@ -100,14 +100,20 @@ def main():
             batch, pipe.halo_params, pipe.hod, z, st))
         p_all = mark("spectra (kernel A)", lambda: limber_fft
                      .p_lattice_halo_all(batch, pipe.halo_params, model, st))
-        rows = [(pipe.win_g, pipe.win_g, p_all["power_gg"], [0]),
-                (pipe.win_k, pipe.win_g, p_all["power_gm"], [1])]
+        pairs = [(pipe.win_g, pipe.win_g), (pipe.win_k, pipe.win_g)]
+        p_rows = torch.stack([p_all["power_gg"], p_all["power_gm"]], dim=1)
+
+        def conv(j_lo, j_hi):
+            return limber_fft._conv_direct_rows(
+                p_rows, limber_fft._lattice_g_rows(batch, pairs, st,
+                                                   model.mass.growth),
+                j_lo, j_hi)
+
         mark("lattice_g+conv+kernel C", lambda: _fused_probe_rows(
-            batch, st, model.mass.growth, rows, pipe.operator))
+            conv, [[0], [1]], pipe.operator))
         g = mark("lattice_g", lambda: limber_fft._lattice_g_rows(
-            batch, [(r[0], r[1]) for r in rows], st, model.mass.growth))
+            batch, pairs, st, model.mass.growth))
         j_lo, j_hi = pipe.windows[0]
-        p_rows = torch.stack([r[2] for r in rows], dim=1)
         mark("conv", lambda: limber_fft._conv_direct_rows(p_rows, g, j_lo,
                                                           j_hi))
         return t

@@ -22,11 +22,26 @@ writes
   tests' tiny grid (``tests/torch_parity.GRID`` and its 3 cosmologies),
   plus d P_gg(k = 1) / d omega_m0 at z = 0 on that grid (the quantity of
   tests/test_halo.py::test_jit_grad_through_halo_power).  Each block
-  records its grid spec, so a test can tell when the file is stale.
+  records its grid spec, so a test can tell when the file is stale;
+- ``tests/data/torch_exactz_reference.json``: bench.py configuration B
+  (``exact_z_anchors=6``, z_pivot 0, 64-point linspaces) at 3
+  cosmologies, w(theta) and gamma_t with their ``jax.jacfwd``;
+  configuration A with ``include_shear=True`` on both routes (xi_plus,
+  xi_minus, w, gamma_t) at the 3 cosmologies of the files above, and the
+  float64 gap between the routes' xi_+- on the 9 cosmologies that
+  ``chip_smoke.py`` compares; ``projection.limber_cl_exact_z`` (32 GL
+  nodes, each with its own halo model) and ``limber_fft.
+  limber_cl_fft_exact_z`` (J = 8) at the configuration of
+  tests/test_exact_z_lattice.py::test_exact_z_gg_matches_table_route;
+  and, on the parity tests' tiny grid at its 3 cosmologies, the outputs
+  of an exact-z pipeline with shear (J = 4) and of both separable routes
+  with shear, and the exact-z pipeline's ``jax.jacfwd``.
 
 ``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
-    python tools/torch_slice_reference.py
+    python tools/torch_slice_reference.py [FILE ...]
+
+writes the named files (all four by default).
 """
 
 import dataclasses
@@ -50,15 +65,28 @@ def measured_indices():
     return sorted(set(check.astype(int).tolist()) | set(INDICES))
 
 
-def cosmologies(idx):
-    oms = np.linspace(0.24, 0.32, N_COSMO)[list(idx)]
-    s8s = np.linspace(0.75, 0.88, N_COSMO)[list(idx)]
+def cosmologies(idx, n=N_COSMO):
+    """(omega_m0, sigma_8) at ``idx`` of bench.py's n-point linspaces."""
+    oms = np.linspace(0.24, 0.32, n)[list(idx)]
+    s8s = np.linspace(0.75, 0.88, n)[list(idx)]
     return oms, s8s
 
 
-def run(method, idx):
-    """{"w_theta", "gamma_t", "theta_deg"} of one route at the JAX
-    package's current precision (x64 on or off)."""
+def jax_batch(oms, s8s):
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo
+    from chomp_tpu.parallel.sweep import broadcast_cosmo
+
+    return broadcast_cosmo(default_cosmo(), omega_m0=jnp.asarray(oms),
+                           omega_l0=jnp.asarray(1.0 - oms),
+                           sigma_8=jnp.asarray(s8s))
+
+
+def run(method, idx, **options):
+    """{"w_theta", "gamma_t", "theta_deg"} (and ``xi_plus`` /
+    ``xi_minus`` with ``include_shear=True`` in ``options``) of one route
+    at the JAX package's current precision (x64 on or off)."""
     import jax
     import jax.numpy as jnp
 
@@ -72,14 +100,15 @@ def run(method, idx):
         z0=jnp.asarray(1.0), sigma_z=jnp.asarray(0.2))
     fn = make_pipeline(default_halo(), default_hod(), dist,
                        power_spec="power_gg", grid=DEFAULT_GRID,
-                       include_lensing=True, z_pivot=1.0, method=method)
+                       include_lensing=True, z_pivot=1.0, method=method,
+                       **options)
     oms, s8s = cosmologies(idx)
     batch = broadcast_cosmo(default_cosmo(), omega_m0=jnp.asarray(oms),
                             omega_l0=jnp.asarray(1.0 - oms),
                             sigma_8=jnp.asarray(s8s))
     out = jax.jit(jax.vmap(fn))(batch)
-    return {k: np.asarray(out[k], dtype=np.float64)
-            for k in ("w_theta", "gamma_t", "theta_deg")}
+    return {k: np.asarray(v, dtype=np.float64) for k, v in out.items()
+            if k != "n_g"}
 
 
 def worst_bin(got, ref):
@@ -92,22 +121,29 @@ def worst_bin(got, ref):
 FIDUCIAL = (0.278, 0.811)
 
 
-def jacobians(method, grid, batch):
-    """{"value": (B, 2 n_theta), "jacobian": (B, 2 n_theta, 2)}: the
-    route's data vector (w, then gamma_t) and its ``jax.jacfwd`` with
-    respect to (omega_m0, sigma_8) at each cosmology of ``batch`` (a
-    batched JAX CosmoParams), omega_l0 = 1 - omega_m0, float64."""
-    import jax
-    import jax.numpy as jnp
-
+def jax_pipeline(grid, **options):
+    """The JAX make_pipeline of bench.py's configurations on ``grid``
+    (power_gg, lensing, DNdzGaussian(0, 2, 1, 0.2)); ``options`` as
+    make_pipeline's (z_pivot 1.0 unless given)."""
     from chomp_tpu import default_halo
     from chomp_tpu.hod import default_hod
     from chomp_tpu.parallel.sweep import make_pipeline
     from tests import torch_parity as tp
 
-    fn = make_pipeline(default_halo(), default_hod(), tp.jax_dist(),
-                       power_spec="power_gg", grid=grid, include_lensing=True,
-                       z_pivot=1.0, method=method)
+    return make_pipeline(default_halo(), default_hod(), tp.jax_dist(),
+                         power_spec="power_gg", grid=grid,
+                         include_lensing=True,
+                         **{"z_pivot": 1.0, **options})
+
+
+def jacobians(fn, batch):
+    """{"value": (B, 2 n_theta), "jacobian": (B, 2 n_theta, 2)}: the
+    pipeline ``fn``'s data vector (w, then gamma_t) and its
+    ``jax.jacfwd`` with respect to (omega_m0, sigma_8) at each cosmology
+    of ``batch`` (a batched JAX CosmoParams), omega_l0 = 1 - omega_m0,
+    float64."""
+    import jax
+    import jax.numpy as jnp
 
     def one(c):
         def vec(p):
@@ -145,8 +181,10 @@ def grad_reference():
             "omega_m0": oms.tolist(), "sigma_8": s8s.tolist()}
     tiny = {"grid": dataclasses.asdict(tp.GRID), "cosmo": tp.COSMO}
     for method in ("fft", "table"):
-        full[method] = jacobians(method, DEFAULT_GRID, batch)
-        tiny[method] = jacobians(method, tp.GRID, tp.jax_batch())
+        full[method] = jacobians(jax_pipeline(DEFAULT_GRID, method=method),
+                                 batch)
+        tiny[method] = jacobians(jax_pipeline(tp.GRID, method=method),
+                                 tp.jax_batch())
 
     def p_gg(om):
         c = dataclasses.replace(default_cosmo(), omega_m0=om,
@@ -172,6 +210,144 @@ def write_grad_reference():
     print(f"wrote {path}")
 
 
+#: bench.py's configuration B: N_COSMO_EXACT cosmologies, J anchors.
+N_COSMO_EXACT = 64
+EXACT_J = 6
+EXACT_INDICES = (0, 27, 63)
+#: The anchors of the tiny-grid exact-z pipeline with shear.
+TINY_J = 4
+
+
+def _peak_gap(got, ref):
+    """max over rows of max|got - ref| / max|ref| (axis 1 = theta)."""
+    return float(np.max(np.max(np.abs(got - ref), axis=1)
+                        / np.max(np.abs(ref), axis=1)))
+
+
+def exactz_reference():
+    """The content of tests/data/torch_exactz_reference.json (JAX
+    float64; see the module docstring)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo, default_halo, limber_fft, projection
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.params import DEFAULT_GRID
+    from tests import test_exact_z_lattice as tz
+    from tests import torch_parity as tp
+
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"[{time.perf_counter() - t0:7.1f} s] {what}", flush=True)
+
+    oms, s8s = cosmologies(EXACT_INDICES, N_COSMO_EXACT)
+    fn_b = jax_pipeline(DEFAULT_GRID, z_pivot=0.0,
+                        exact_z_anchors=EXACT_J)
+    jac_b = jacobians(fn_b, jax_batch(oms, s8s))
+    n_theta = DEFAULT_GRID.n_theta
+    value = np.asarray(jac_b["value"])
+    config_b = {
+        "config": "bench.py configuration B: make_pipeline(default_halo(), "
+                  "default_hod(), DNdzGaussian(0, 2, 1, 0.2), power_spec="
+                  "'power_gg', include_lensing=True, exact_z_anchors=6) "
+                  "(z_pivot 0), JAX float64 CPU; jacobian columns = "
+                  "(omega_m0, sigma_8) with omega_l0 = 1 - omega_m0, rows "
+                  "w_theta then gamma_t",
+        "grid": dataclasses.asdict(DEFAULT_GRID), "exact_z_anchors": EXACT_J,
+        "z_pivot": 0.0, "n_cosmo": N_COSMO_EXACT,
+        "indices": list(EXACT_INDICES), "omega_m0": oms.tolist(),
+        "sigma_8": s8s.tolist(),
+        "w_theta": value[:, :n_theta].tolist(),
+        "gamma_t": value[:, n_theta:].tolist(),
+        "jacobian": jac_b["jacobian"]}
+    lap("configuration B and its jacfwd")
+
+    idx = measured_indices()
+    routes = {m: run(m, idx, include_shear=True) for m in ("fft", "table")}
+    pos = [idx.index(i) for i in INDICES]
+    keys = ("w_theta", "gamma_t", "xi_plus", "xi_minus")
+    lat, tab = routes["fft"], routes["table"]
+    gaps = {}
+    for k in ("xi_plus", "xi_minus"):
+        gaps[f"{k}_worst_bin"] = float(np.max(np.abs(tab[k] / lat[k] - 1.0)))
+        gaps[f"{k}_row_peak"] = _peak_gap(tab[k], lat[k])
+    oms_a, s8s_a = cosmologies(INDICES)
+    shear = {
+        "config": "bench.py configuration A with include_shear=True "
+                  "(z_pivot 1), both routes, JAX float64 CPU; "
+                  "jax_table_vs_lattice: float64 table route against the "
+                  "lattice route on the cosmologies 'measured_on'",
+        "grid": dataclasses.asdict(DEFAULT_GRID), "n_cosmo": N_COSMO,
+        "indices": list(INDICES), "omega_m0": oms_a.tolist(),
+        "sigma_8": s8s_a.tolist(),
+        "theta_deg": lat["theta_deg"][0].tolist(),
+        "fft": {k: lat[k][pos].tolist() for k in keys},
+        "table": {k: tab[k][pos].tolist() for k in keys},
+        "measured_on": idx, "jax_table_vs_lattice": gaps}
+    lap(f"shear, both routes ({len(idx)} cosmologies): gaps {gaps}")
+
+    win = tz._win()
+    ells = np.logspace(1, 3, 6)
+    fid = default_cosmo()
+    h, hod = default_halo(), default_hod()
+    cl_table = jax.jit(lambda c: projection.limber_cl_exact_z(
+        c, h, hod, win, win, jnp.asarray(ells), "power_gg", n_z=32,
+        grid=tz.G))(fid)
+    cl_lat = jax.jit(lambda c: limber_fft.limber_cl_fft_exact_z(
+        c, h, hod, win, win, ells, "power_gg", n_z_anchor=8,
+        grid=tz.G))(fid)
+    cl_table, cl_lat = np.asarray(cl_table), np.asarray(cl_lat)
+    dist = win.dist
+    cl = {"config": "tests/test_exact_z_lattice.py::test_exact_z_gg_"
+                    "matches_table_route: default_cosmo(), power_gg, "
+                    "WindowGalaxy(DNdzGaussian(z_min, z_max, z0, sigma_z)) "
+                    "on both sides; 'table': projection.limber_cl_exact_z "
+                    "(n_z = 32), 'lattice': limber_fft.limber_cl_fft_exact_z "
+                    "(n_z_anchor = 8, anchors on [1e-3, 3]); JAX float64 CPU",
+          "grid": dataclasses.asdict(tz.G),
+          "dist": [float(dist.z_min), float(dist.z_max), float(dist.z0),
+                   float(dist.sigma_z)],
+          "ells": ells.tolist(), "n_z": 32, "n_z_anchor": 8,
+          "table": cl_table.tolist(), "lattice": cl_lat.tolist(),
+          "jax_lattice_vs_table_worst": float(np.max(np.abs(
+              cl_lat / cl_table - 1.0)))}
+    lap(f"exact-z C_ell at G: JAX lattice vs table "
+        f"{cl['jax_lattice_vs_table_worst']:.3e}")
+
+    fn_t = jax_pipeline(tp.GRID, z_pivot=tp.Z_PIVOT, exact_z_anchors=TINY_J,
+                        include_shear=True)
+    fns = {"exact_z": fn_t,
+           "fft": jax_pipeline(tp.GRID, z_pivot=tp.Z_PIVOT,
+                               include_shear=True),
+           "table": jax_pipeline(tp.GRID, z_pivot=tp.Z_PIVOT,
+                                 include_shear=True, method="table")}
+    outs = jax.jit(jax.vmap(lambda c: {name: fn(c) for name, fn
+                                       in fns.items()}))(tp.jax_batch())
+    tiny = {"config": "on tests/torch_parity.GRID at its 3 cosmologies, "
+                      "z_pivot 1, include_shear=True, JAX float64 CPU: "
+                      "'exact_z' make_pipeline(..., exact_z_anchors=4), "
+                      "'fft' and 'table' the separable routes; 'value' and "
+                      "'jacobian': (w_theta, gamma_t) of 'exact_z' and its "
+                      "jacfwd",
+            "grid": dataclasses.asdict(tp.GRID), "cosmo": tp.COSMO,
+            "exact_z_anchors": TINY_J,
+            **{name: {k: np.asarray(v).tolist() for k, v in out.items()
+                      if k != "theta_deg"} for name, out in outs.items()},
+            **jacobians(fn_t, tp.jax_batch())}
+    lap("tiny-grid pipelines and the exact-z jacfwd")
+    return {"config_b": config_b, "shear": shear, "cl_exact_z": cl,
+            "tiny_grid": tiny}
+
+
+def write_exactz_reference():
+    path = DATA / "torch_exactz_reference.json"
+    path.write_text(json.dumps(exactz_reference(), indent=1) + "\n")
+    print(f"wrote {path}")
+
+
 def write(name, config, idx, out, **extra):
     oms, s8s = cosmologies(idx)
     pos = [measured_indices().index(i) for i in idx]
@@ -186,12 +362,36 @@ def write(name, config, idx, out, **extra):
     print(f"wrote {path}")
 
 
+FILES = ("torch_slice_reference.json", "torch_table_reference.json",
+         "torch_grad_reference.json", "torch_exactz_reference.json")
+
+
 def main():
     os.environ["JAX_PLATFORMS"] = "cpu"
     sys.path.insert(0, str(REPO))
     import jax
 
+    names = sys.argv[1:] or list(FILES)
+    unknown = set(names) - set(FILES)
+    if unknown:
+        raise SystemExit(f"unknown file(s) {sorted(unknown)}; choose from "
+                         f"{FILES}")
     jax.config.update("jax_platforms", "cpu")
+    if set(names) & set(FILES[:2]):
+        write_slice_and_table()
+    else:
+        jax.config.update("jax_enable_x64", True)
+    if FILES[2] in names:
+        write_grad_reference()
+    if FILES[3] in names:
+        write_exactz_reference()
+
+
+def write_slice_and_table():
+    """The first two files (either asked for writes both: they share the
+    runs)."""
+    import jax
+
     idx = measured_indices()
     # The float32 leg runs first, before 64-bit mode is switched on.
     jax.config.update("jax_enable_x64", False)
@@ -212,7 +412,6 @@ def main():
           "JAX float64 CPU", INDICES, table,
           measured_on=idx, jax_f32_vs_f64_worst_bin=f32_err,
           jax_table_vs_lattice_worst_bin=cross)
-    write_grad_reference()
 
 
 if __name__ == "__main__":
