@@ -109,7 +109,31 @@ order (any failure exits nonzero; nothing falls back):
    route's (3e-5, or 2x the JAX package's own gap); kernel C on the mu =
    4 operator at phase 3's gates and kernel B on the kappa-kappa C_ell
    rows with it at phase 6's; forward and forward+backward walls and peak
-   memory per route.
+   memory per route;
+13. the tomographic 3x2pt cell, DES Y3-like (tests/data/
+   torch_tomo_reference.json: 5 lens x 4 source bins, per-bin Zheng
+   HODs, z_pivot 0.6, ``with_nuisance`` and ``include_magnification`` at
+   the file's nuisance point, 65 convolution rows) at B = 512, float32:
+   launch counts (A 1 over the B x 5 = 2560 folded rows, C 3); finiteness
+   and shapes; w, gamma_t and xi+ worst bin (rows that change sign over
+   theta, and xi-, relative to the row's peak) < 1e-4 against the card's
+   float64 plain path and the committed JAX float64 values, float64
+   kernels vs plain (1e-12), plain vs JAX (1e-10); kernel A on the 2560
+   folded rows at phase 2's gates, with its time and bound; kernel C on
+   the forward's own rows of each operator (M = 12800, 20480, 5120) at
+   phase 3's gates, with its time, the float64 ``torch.matmul``'s and the
+   bound; the forward wall and peak memory;
+14. tomographic gradients: one ``torch.autograd.grad`` of a seeded
+   linear functional of the data vector with respect to (omega_m0,
+   sigma_8) per cosmology and the nuisance point's (dz_src, m, a_ia),
+   launch counts forward and backward (A 1, C 3 each), walls and peak
+   memory; the Jacobian of the vector over (omega_m0, sigma_8, dz_src[4],
+   m[4], a_ia) at the fiducial through ``inference.make_theory_fn``'s
+   nuisance slots (float32 < 1e-3 of each column's peak over theta
+   against the card's float64, float64 < 1e-9 against the committed JAX
+   jacfwd, exact zeros where JAX's column is zero); ``hmc`` over 64
+   chains (2 steps x 5 leapfrogs, Fisher mass with the DES Y3 priors)
+   must stay finite with mean acceptance > 0.5.
 
 Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
 over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
@@ -117,10 +141,11 @@ taken in turns with the library call or plain version (other, kernel,
 kernel, other); after phase 10, each kernel's and library call's device
 time per call from torch.profiler's kernel records ("not measured" where
 it records none), and the device's busy share of one forward+backward
-per route and of configuration B's.  Each main path (phases 5, 7, each
-route's forward+backward in 9, and the forwards and forward+backwards of
-11 and 12) runs with every launch count set to 0 just before it and read
-just after.  The last lines are the card
+per route, of configuration B's and of the tomographic cell's (and of
+its forward).  Each main path (phases 5, 7, each route's
+forward+backward in 9, and the forwards and forward+backwards of 11, 12,
+13 and 14) runs with every launch count set to 0 just before it and
+read just after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
 FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
@@ -497,6 +522,51 @@ def jac_err(got, ref):
         axis=2)))
 
 
+def tomo_cell(ref, *, device, dtype):
+    """(pipeline, nuisance point without a batch axis) of the tomographic
+    cell that ``ref`` (tests/data/torch_tomo_reference.json) defines:
+    Gaussian lens and source dN/dz, per-bin Zheng HODs, DEFAULT_GRID,
+    ``with_nuisance`` and ``include_magnification``."""
+    import torch
+
+    from chomp_tpu_torch import (DNdzGaussian, default_halo, default_hod,
+                                 make_tomographic_pipeline)
+    from chomp_tpu_torch.params import DEFAULT_GRID
+    from chomp_tpu_torch.parallel.sweep import Nuisance3x2pt
+
+    cell = ref["cell"]
+    kw = dict(device=device, dtype=dtype)
+
+    def gauss(z0, sz, z_max):
+        return DNdzGaussian(*(torch.tensor(v, **kw)
+                              for v in (0.0, z_max, z0, sz)))
+
+    lens = [gauss(z0, cell["lens_sigma_z"], cell["lens_z_max"])
+            for z0 in cell["lens_z0"]]
+    src = [gauss(z0, sz, cell["src_z_max"])
+           for z0, sz in zip(cell["src_z0"], cell["src_sigma_z"])]
+    hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                        log10_m_1p=m + cell["log10_m_1p_offset"], **kw)
+            for m in cell["log10_m_min"]]
+    pipe = make_tomographic_pipeline(
+        default_halo(**kw), hods, lens, src, grid=DEFAULT_GRID,
+        z_pivot=cell["z_pivot"], with_nuisance=True,
+        include_magnification=True, **kw)
+    return pipe, Nuisance3x2pt(**{k: torch.tensor(v, **kw)
+                                  for k, v in ref["nuisance"].items()})
+
+
+def once_ms(fn):
+    """(fn(), host-clock ms of that one call between synchronizations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def median_wall(fn, reps=5):
     """Median host-clock seconds of ``fn()`` between synchronizations."""
     import torch
@@ -592,9 +662,11 @@ def main():
         got32 = hc.halo_contract(k, mat32, gal32, cheb32)
         exact = hc.halo_contract_ref(k.double(), mat32.double(),
                                      gal32.double())
-        plain32 = hc.halo_contract_ref(k, mat32, gal32)
+        plain32, plain_ms = once_ms(lambda: hc.halo_contract_ref(k, mat32,
+                                                                 gal32))
         return {"f64": rel_to_peak(got64, hc.halo_contract_ref(k64, mat64,
                                                                gal64)),
+                "plain_ms": plain_ms,
                 "f32": rel_to_peak(got32.double(), exact),
                 "abs": float((got32.double() - exact).abs().max()),
                 "plain32": rel_to_peak(plain32.double(), exact),
@@ -692,6 +764,12 @@ def main():
     j_lo, j_hi, a_np = limber_fft.wtheta_lattice_operator(
         theta, DEFAULT_GRID, 0.0)
 
+    def ref_rows(c, a_hi, a_lo=None, step=1024):
+        """Kernel C's plain version in blocks of ``step`` rows (its (rows,
+        T, K) products would not fit the card at the tomographic rows)."""
+        return torch.cat([df32.df_contract_ref(c[i:i + step], a_hi, a_lo)
+                          for i in range(0, c.shape[0], step)])
+
     def check_c(c64, a_np, with_f64=True):
         """Kernel C on c64 (R, n) and the operator a_np (T, n): float64
         and float32 against the plain version (relative to the peak),
@@ -702,9 +780,9 @@ def main():
                   for x in df32.split_operator(a_np))
         c32 = c64.to(f32)
         got = df32.df_contract(c32, hi, lo)
-        ref = df32.df_contract_ref(c32, hi, lo)
+        ref, plain_ms = once_ms(lambda: ref_rows(c32, hi, lo))
         exact = c32.double() @ a64.T
-        r = {"abs": float((got - ref).abs().max()),
+        r = {"abs": float((got - ref).abs().max()), "plain_ms": plain_ms,
              "exact": float((got.double() - exact).abs().max()
                             / exact.abs().max()),
              "same": torch.equal(got, df32.df_contract(c32, hi, lo)),
@@ -712,7 +790,7 @@ def main():
         r["plain"] = r["abs"] / float(ref.abs().max())
         if with_f64:
             got = df32.df_contract(c64, a64)
-            ref = df32.df_contract_ref(c64, a64)
+            ref = ref_rows(c64, a64)
             r["f64"] = float((got - ref).abs().max() / ref.abs().max())
             r["same"] &= torch.equal(got, df32.df_contract(c64, a64))
         return r
@@ -1068,20 +1146,31 @@ def main():
         return torch.tensor(np.random.default_rng(seed).normal(size=shape),
                             dtype=dtype, device=dev)
 
+    def bwd_ref_rows(k, mat, gal, cheb, g, step=512):
+        """Kernel A's plain backward in blocks of ``step`` rows (each row
+        is its own sum; whole, its float64 products at the tomographic
+        rows would take tens of GB)."""
+        parts = [hc.halo_contract_bwd_ref(k, mat[i:i + step],
+                                          gal[i:i + step], cheb,
+                                          g[i:i + step])
+                 for i in range(0, mat.shape[0], step)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
     def check_a_bwd(k, mat32, gal32, k64, mat64, gal64, seed):
         """Kernel A's backward under a seeded normal cotangent: float64
         against the plain backward (relative to each gradient field's
         peak); float32 against the plain backward in float64 on the same
-        float32 inputs, beside the plain float32 backward's own error;
-        two launches bit for bit."""
+        float32 inputs, beside the plain float32 backward's own error
+        (and the host ms of that one call); two launches bit for bit."""
         g32 = seeded((mat32.shape[0], hc.N_OUT, k.numel()), seed, f32)
         g64 = g32[:mat64.shape[0]].double()
         got64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64)
-        ref64 = hc.halo_contract_bwd_ref(k64, mat64, gal64, cheb64, g64)
+        ref64 = bwd_ref_rows(k64, mat64, gal64, cheb64, g64)
         got32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32)
-        exact = hc.halo_contract_bwd_ref(k.double(), mat32.double(),
-                                         gal32.double(), cheb64, g32.double())
-        plain32 = hc.halo_contract_bwd_ref(k, mat32, gal32, cheb32, g32)
+        exact = bwd_ref_rows(k.double(), mat32.double(), gal32.double(),
+                             cheb64, g32.double())
+        plain32, plain_ms = once_ms(lambda: bwd_ref_rows(k, mat32, gal32,
+                                                         cheb32, g32))
         again32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32)
         again64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64)
         return {"f64": max(field_peak_rel(a, r) for a, r in zip(got64,
@@ -1092,6 +1181,7 @@ def main():
                            for a, r in zip(got32, exact)),
                 "plain32": max(field_peak_rel(a.double(), r)
                                for a, r in zip(plain32, exact)),
+                "plain_ms": plain_ms,
                 "same": all(torch.equal(a, b) for a, b in
                             zip(got32 + got64, again32 + again64))}
 
@@ -1623,8 +1713,8 @@ def main():
           f"version's own {a_x['plain32']:.3e}) | deterministic="
           f"{a_x['same']} | one launch over {rows_x} rows {ms_a_x:.3f} ms, "
           f"{j_x} launches of {n_x} rows {ms_a_x6:.3f} ms (CUDA events, 20 "
-          f"calls, in turns) | bound {bound_a_x[0]:.4f} ms by "
-          f"{bound_a_x[1]}", flush=True)
+          f"calls, in turns), plain {a_x['plain_ms']:.1f} ms (1 call) | "
+          f"bound {bound_a_x[0]:.4f} ms by {bound_a_x[1]}", flush=True)
     print(f"[exact-z A] branch mix: " + ", ".join(
         f"{n} {v:.4f}" for n, v in mix_x.items())
         + f" | galaxy nodes with one profile {same_x:.3f} | max |cx| "
@@ -1637,8 +1727,8 @@ def main():
           f"{bwd_x['f32']:.3e} max_abs={bwd_x['abs']:.3e} (gate 2e-5, and <= "
           f"1.5x the plain f32 backward's own {bwd_x['plain32']:.3e}) | "
           f"deterministic={bwd_x['same']} | kernel {ms_abwd_x:.3f} ms (CUDA "
-          f"events, 20 calls) | bound {bound_abwd_x[0]:.4f} ms by "
-          f"{bound_abwd_x[1]}", flush=True)
+          f"events, 20 calls), plain {bwd_x['plain_ms']:.1f} ms (1 call) | "
+          f"bound {bound_abwd_x[0]:.4f} ms by {bound_abwd_x[1]}", flush=True)
     for name, q in (("halo_contract exact-z", a_x),):
         if not q["f64"] <= 1e-12:
             fail(f"{name}: float64 error {q['f64']}")
@@ -1941,6 +2031,424 @@ def main():
             and b_mu4["exact"] <= 2.0 * b_mu4["lib_exact"] and b_mu4["same"]):
         fail(f"hankel_matmul on the mu = 4 operator: {b_mu4}")
 
+    # -- 13. the tomographic 3x2pt cell (DES Y3-like) ----------------------
+    import dataclasses
+
+    ref_tm = json.loads((REPO / "tests" / "data"
+                         / "torch_tomo_reference.json").read_text())
+    cell, rtm = ref_tm["cell"], ref_tm["default_grid"]
+    idx_tm = np.asarray(rtm["indices"])
+    if rtm["n_cosmo"] != N_COSMO or not np.allclose(rtm["omega_m0"],
+                                                    oms[idx_tm]):
+        fail("tomographic reference file does not match this run's "
+             "cosmologies")
+    # The float64 rows: phase 5's 8 checked cosmologies and the 3 of the
+    # reference file.
+    meas_tm = sorted(set(check.tolist()) | set(idx_tm.tolist()))
+    pos_chk = [meas_tm.index(i) for i in check]
+    pos_ref = [meas_tm.index(i) for i in idx_tm]
+    n_th = DEFAULT_GRID.n_theta
+    keys_tm = ("w_theta", "gamma_t", "xi_plus", "xi_minus")
+
+    def tomo_of(dtype):
+        return tomo_cell(ref_tm, device=dev, dtype=dtype)
+
+    def tomo_host(out, rows=None):
+        sel = slice(None) if rows is None else rows
+        return {k: out[k].double().cpu().numpy()[sel]
+                for k in keys_tm + ("n_g",)}
+
+    def tomo_err(got, ref):
+        """{key: error}: for w, gamma_t and xi+ the worst bin over the rows
+        that keep one sign over theta, and for xi- and any row that
+        changes sign the worst error relative to the row's peak; n_g by
+        its worst element."""
+        e = {"n_g": worst_bin(got["n_g"], ref["n_g"])}
+        for k in keys_tm:
+            g, r = np.asarray(got[k]), np.asarray(ref[k])
+            peak = np.abs(g - r).max(-1) / np.abs(r).max(-1)
+            bins = np.abs(g / r - 1.0).max(-1)
+            one_sign = ((r > 0).all(-1) | (r < 0).all(-1)) & (
+                k != "xi_minus")
+            e[k] = float(np.where(one_sign, bins, peak).max())
+            e[f"{k} row peak"] = float(peak.max())
+        return e
+
+    def gated_tm(e):
+        """The gated figures of tomo_err (row-peak ones are reported)."""
+        return max(v for k, v in e.items() if not k.endswith("row peak"))
+
+    pipe_tm, nu_tm = tomo_of(f32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    with torch.no_grad():
+        out_tm = pipe_tm(batch, nu_tm)
+    torch.cuda.synchronize()
+    launches_tm = counts()[0]
+    peak_tm = torch.cuda.max_memory_allocated() / 1e9
+    got_tm = tomo_host(out_tm)
+    vec_shape = tuple(out_tm["vector"].shape)
+    finite_tm = (all(bool(np.all(np.isfinite(v))) for v in got_tm.values())
+                 and bool(torch.isfinite(out_tm["vector"]).all()))
+    shape_tm = (got_tm["w_theta"].shape == (N_COSMO, 5, n_th)
+                and got_tm["gamma_t"].shape == (N_COSMO, 20, n_th)
+                and got_tm["xi_plus"].shape == (N_COSMO, 10, n_th)
+                and got_tm["n_g"].shape == (N_COSMO, 5)
+                and vec_shape == (N_COSMO, 45 * n_th))
+    sign_rows = {k: int((~((np.asarray(rtm[k]) > 0).all(-1)
+                           | (np.asarray(rtm[k]) < 0).all(-1))).sum())
+                 for k in keys_tm}
+    del out_tm
+    pipe_tm64, nu_tm64 = tomo_of(f64)
+    batch_tm64 = setup(f64, meas_tm)[0]
+    with plain_path():
+        plain_tm = tomo_host(pipe_tm64(batch_tm64, nu_tm64))
+    kern_tm = tomo_host(pipe_tm64(batch_tm64, nu_tm64))
+    ref_tm_out = {k: np.asarray(rtm[k]) for k in keys_tm + ("n_g",)}
+    err_tm = {
+        "vs_plain": tomo_err({k: v[check] for k, v in got_tm.items()},
+                             {k: v[pos_chk] for k, v in plain_tm.items()}),
+        "vs_jax": tomo_err({k: v[idx_tm] for k, v in got_tm.items()},
+                           ref_tm_out),
+        "k64": tomo_err(kern_tm, plain_tm),
+        "plain_vs_jax": tomo_err({k: v[pos_ref] for k, v in
+                                  plain_tm.items()}, ref_tm_out)}
+    with torch.no_grad():
+        wall_tm = median_wall(lambda: pipe_tm(batch, nu_tm))
+
+    want_tm = {"halo_contract": 1, "df_contract": 3, "hankel_matmul": 0}
+    print(f"[tomo] DES Y3-like 3x2pt cell (5 lens x 4 source bins, 45 "
+          f"probes + 30 magnification rows = 65 convolution rows; per-bin "
+          f"HODs, z_pivot {cell['z_pivot']}, nuisance point of seed "
+          f"{ref_tm['seed']}), DEFAULT_GRID, B={N_COSMO}, float32 | forward "
+          f"launches {launches_tm} | finite={finite_tm} shape_ok={shape_tm} "
+          f"(vector {vec_shape}) | rows changing sign over theta in the JAX "
+          f"values {sign_rows} (held to their row peak) | vs card f64 plain "
+          f"path ({len(check)} cosmologies): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err_tm["vs_plain"].items())
+          + " (gate 1e-4 on all but the row-peak figures, which are "
+          "reported) | vs JAX f64 (3 cosmologies): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err_tm["vs_jax"].items())
+          + f" (gate 1e-4) | f64 kernels vs plain "
+          f"{gated_tm(err_tm['k64']):.3e} (gate 1e-12) | f64 plain vs "
+          f"JAX {gated_tm(err_tm['plain_vs_jax']):.3e} (gate 1e-10) | "
+          f"forward wall median of 5 = {wall_tm * 1e3:.1f} ms "
+          f"({wall_tm / N_COSMO * 1e3:.3f} ms/cosmology), peak device "
+          f"memory {peak_tm:.2f} GB", flush=True)
+    if launches_tm != want_tm:
+        fail(f"tomographic forward launches {launches_tm}; want {want_tm}")
+    if not (finite_tm and shape_tm):
+        fail("tomographic outputs not finite, or of the wrong shape")
+    for name, val, gate in (
+            ("float32 vs float64 plain path", gated_tm(err_tm["vs_plain"]),
+             1e-4),
+            ("float32 vs JAX float64", gated_tm(err_tm["vs_jax"]), 1e-4),
+            ("float64 kernels vs plain path", gated_tm(err_tm["k64"]), 1e-12),
+            ("float64 plain path vs JAX", gated_tm(err_tm["plain_vs_jax"]),
+             1e-10)):
+        if not val <= gate:
+            fail(f"tomographic {name}: {val} (gate {gate})")
+
+    # Kernels A and A' over the cell's folded rows: B x 5 = 2560, row 5 b
+    # + i = cosmology b with lens bin i's galaxy pack, as the forward
+    # launches them (TomographicPipeline.contraction_rows).
+    def tomo_nodes(pipe_, batch_):
+        launches_ = pipe_.contraction_rows(batch_)
+        if len(launches_) != 1:
+            fail(f"tomographic kernel A inputs: {len(launches_)} launches")
+        return (t.contiguous() for t in launches_[0])
+
+    mat_tm32, gal_tm32 = tomo_nodes(pipe_tm, batch)
+    mat_tm64, gal_tm64 = tomo_nodes(pipe_tm64, batch_tm64)
+    # 8 float64 rows: checked cosmology c with lens bin c mod 5.
+    sel = torch.tensor([pos_chk[c] * 5 + c % 5 for c in range(len(check))],
+                       device=dev)
+    mat_tm64, gal_tm64 = mat_tm64[sel].contiguous(), gal_tm64[sel].contiguous()
+    rows_tm = mat_tm32.shape[0]
+    a_tm = check_a(k32, mat_tm32, gal_tm32, k64, mat_tm64, gal_tm64, cheb32,
+                   cheb64)
+    ms_a_tm = events_ms(lambda: hc.halo_contract(k32, mat_tm32, gal_tm32,
+                                                 cheb32), 20)
+    bound_a_tm = bound_a_of(k32, mat_tm32, gal_tm32)
+    profiled["halo_contract tomographic"] = (
+        lambda: hc.halo_contract(k32, mat_tm32, gal_tm32, cheb32), None, 5)
+    # The share of A's operations there that repeat bin 0's mass pack
+    # (h_m and pp_mm of rows 5 b + 1..4, thrown away; A' then sums five
+    # equal mat gradients), by the operation count of the bound.
+    flops_tm = halo_contract_flops(k32, mat_tm32, gal_tm32, hc._lens(f32),
+                                   hc.n_moments(f32))
+    flops_tm_mat = halo_contract_flops(k32, mat_tm32, gal_tm32[:, :0],
+                                       hc._lens(f32), hc.n_moments(f32))
+    bwd_tm = check_a_bwd(k32, mat_tm32, gal_tm32, k64, mat_tm64, gal_tm64,
+                         35)
+    ga_tm = seeded((rows_tm, hc.N_OUT, k32.numel()), 36, f32)
+    ms_abwd_tm = events_ms(lambda: hc.halo_contract_bwd(
+        k32, mat_tm32, gal_tm32, cheb32, ga_tm), 20)
+    bound_abwd_tm = bound_abwd_of(k32, mat_tm32, gal_tm32, ga_tm)
+    profiled["halo_contract_bwd tomographic"] = (
+        lambda: hc.halo_contract_bwd(k32, mat_tm32, gal_tm32, cheb32, ga_tm),
+        None, 5)
+    if not (a_tm["f64"] <= 1e-12 and a_tm["f32"] <= 2e-6
+            and a_tm["f32"] <= 1.5 * a_tm["plain32"] and a_tm["same"]):
+        fail(f"halo_contract at the tomographic rows: {a_tm}")
+    if not (bwd_tm["f64"] <= 1e-12 and bwd_tm["f32"] <= 2e-5
+            and bwd_tm["f32"] <= 1.5 * bwd_tm["plain32"]
+            and bwd_tm["same"]):
+        fail(f"halo_contract_bwd at the tomographic rows: {bwd_tm}")
+    del mat_tm64, gal_tm64
+
+    # Kernel C at the cell's row counts: the forward's own convolution
+    # rows (float32 inputs, float64 sums) of each operator.
+    with torch.no_grad():
+        cos_c, _nu_c, models_c, rows_c = pipe_tm.probe_rows(batch, nu_tm)
+        ops_tm = [pipe_tm.operator(i) for i in range(len(pipe_tm.mus))]
+        jl_tm = min(o[0] for o in ops_tm)
+        jh_tm = max(o[1] for o in ops_tm)
+        g_rows = limber_fft._lattice_g_rows(
+            cos_c, [(wa, wb) for wa, wb, _p, _s in rows_c], pipe_tm.st,
+            models_c[0].mass.growth)
+        p_rows = torch.stack([p for _a, _b, p, _s in rows_c], dim=1)
+        conv_tm = limber_fft._conv_direct_rows64(p_rows, g_rows, jl_tm,
+                                                 jh_tm)
+        del cos_c, models_c, g_rows, p_rows
+    c_tm, cb_tm = {}, {}
+    for i, mu in enumerate(pipe_tm.mus):
+        rl = [r for r, row in enumerate(rows_c) if i in row[3]]
+        lo, hi = ops_tm[i][0], ops_tm[i][1]
+        c64_i = conv_tm[:, rl, lo - jl_tm:hi - jl_tm].reshape(
+            -1, hi - lo).contiguous()
+        a_np_i = limber_fft.wtheta_lattice_operator(pipe_tm.theta_key,
+                                                    DEFAULT_GRID, mu)[2]
+        q = check_c(c64_i, a_np_i)
+        c32_i = c64_i.to(f32)
+        c32_i64 = c32_i.double()
+        a64_i = torch.tensor(a_np_i, device=dev)
+        hi_i, lo_i = (torch.tensor(x, device=dev)
+                      for x in df32.split_operator(a_np_i))
+        ms_i, lib_i = in_turns_ms(
+            lambda c=c32_i, h=hi_i, l=lo_i: df32.df_contract(c, h, l),
+            lambda c=c32_i64, a=a64_i: c @ a.T)
+        m_i, n_i, t_i = c32_i.shape[0], c32_i.shape[1], hi_i.shape[0]
+        q.update(rows=m_i, n=n_i, ms=ms_i, lib_ms=lib_i, bound=bound(
+            2.0 * m_i * n_i * t_i, 4 * (m_i * n_i + 2 * t_i * n_i
+                                        + m_i * t_i)),
+            geometry=geometry(m_i, n_i, t_i))
+        c_tm[mu] = q
+        profiled[f"df_contract tomographic mu={mu:g}"] = (
+            lambda c=c32_i, h=hi_i, l=lo_i: df32.df_contract(c, h, l),
+            lambda c=c32_i64, a=a64_i: c @ a.T, 20)
+        if not (q["f64"] <= 1e-12 and q["plain"] <= 1e-6
+                and q["exact"] <= 1e-7 and q["same"]):
+            fail(f"df_contract at the tomographic mu = {mu:g} rows: {q}")
+        # C' at the same M under a seeded (M, 64) cotangent, phase 8's
+        # check and gates (its products are plain matmuls: (M, n) float64
+        # is 0.36 GB at M = 20480).
+        g_i = seeded((m_i, t_i), 40 + i)
+        qb = check_bc_bwd(df32.df_contract_bwd, g_i, (a64_i,),
+                          (hi_i, lo_i), prod_c)
+        g32_i = g_i.to(f32)
+        g32_i64 = g32_i.double()
+        ms_b, lib_b = in_turns_ms(
+            lambda g=g32_i, h=hi_i, l=lo_i: df32.df_contract_bwd(g, h, l),
+            lambda g=g32_i64, a=a64_i: g @ a)
+        qb.update(rows=m_i, n=n_i, ms=ms_b, lib_ms=lib_b,
+                  plain_ms=events_ms(
+                      lambda g=g32_i, h=hi_i, l=lo_i:
+                      df32.df_contract_bwd_ref(g, h, l), 20),
+                  bound=bound(2.0 * m_i * n_i * t_i,
+                              4 * (m_i * t_i + 2 * t_i * n_i + m_i * n_i)))
+        cb_tm[mu] = qb
+        profiled[f"df_contract_bwd tomographic mu={mu:g}"] = (
+            lambda g=g32_i, h=hi_i, l=lo_i: df32.df_contract_bwd(g, h, l),
+            lambda g=g32_i64, a=a64_i: g @ a, 20)
+        if not (qb["f64"] <= 1e-12 and qb["exact"] <= 2.0 * qb["lib_exact"]
+                and qb["same"]):
+            fail(f"df_contract_bwd at the tomographic mu = {mu:g} rows: "
+                 f"{qb}")
+    del conv_tm, rows_c
+
+    print(f"[tomo A] folded node set: B x n_lens = {N_COSMO} x 5 = "
+          f"{rows_tm} rows, NK={k32.numel()} NM={mat_tm32.shape[1]} NG="
+          f"{gal_tm32.shape[1]} | f64 rel_to_peak={a_tm['f64']:.3e} (8 rows, "
+          f"gate 1e-12) | f32 vs plain version on the same inputs in f64: "
+          f"rel_to_peak={a_tm['f32']:.3e} max_abs={a_tm['abs']:.3e} (gate "
+          f"2e-6, and <= 1.5x the plain f32 version's own "
+          f"{a_tm['plain32']:.3e}) | deterministic={a_tm['same']} | kernel "
+          f"{ms_a_tm:.3f} ms (CUDA events, 20 calls), plain "
+          f"{a_tm['plain_ms']:.1f} ms (1 call) | bound {bound_a_tm[0]:.4f} ms "
+          f"by {bound_a_tm[1]} | the mass pack's share of the operations "
+          f"{flops_tm_mat / flops_tm:.4f}, of which 4/5 repeat bin 0's: "
+          f"{0.8 * flops_tm_mat / flops_tm:.4f} of A's operations",
+          flush=True)
+    print(f"[tomo A'] folded node set ({rows_tm} rows): f64 field_peak_rel="
+          f"{bwd_tm['f64']:.3e} (8 rows, gate 1e-12) | f32 vs plain backward "
+          f"on the same inputs in f64: field_peak_rel={bwd_tm['f32']:.3e} "
+          f"max_abs={bwd_tm['abs']:.3e} (gate 2e-5, and <= 1.5x the plain "
+          f"f32 backward's own {bwd_tm['plain32']:.3e}) | deterministic="
+          f"{bwd_tm['same']} | kernel {ms_abwd_tm:.3f} ms (CUDA events, 20 "
+          f"calls), plain {bwd_tm['plain_ms']:.1f} ms (1 call, in blocks of "
+          f"512 rows) | bound {bound_abwd_tm[0]:.4f} ms by "
+          f"{bound_abwd_tm[1]}", flush=True)
+    for mu, q in c_tm.items():
+        print(f"[tomo C] mu = {mu:g}: ({q['rows']}, {q['n']}) rows | f64 "
+              f"rel_to_peak={q['f64']:.3e} (gate 1e-12) | f32 vs "
+              f"plain rel_to_peak={q['plain']:.3e} (gate 1e-6) | f32 vs "
+              f"exact rel_to_peak={q['exact']:.3e} (gate 1e-7) | "
+              f"deterministic={q['same']} | kernel {q['ms']:.4f} ms, f64 "
+              f"torch.matmul {q['lib_ms']:.4f} ms (CUDA events, 100 calls, "
+              f"in turns) | bound {q['bound'][0]:.5f} ms by "
+              f"{q['bound'][1]} | plain {q['plain_ms']:.2f} ms (1 call, in "
+              f"blocks of 1024 rows) | {q['geometry']}", flush=True)
+    for mu, q in cb_tm.items():
+        print(f"[tomo C'] mu = {mu:g}: ({q['rows']}, 64) -> ({q['rows']}, "
+              f"{q['n']}) | f64 rel_to_row_peak={q['f64']:.3e} (gate 1e-12) "
+              f"| f32 vs exact f64 product rel_to_peak={q['exact']:.3e} "
+              f"max_abs={q['abs']:.3e}, torch.matmul f32 "
+              f"{q['lib_exact']:.3e} (gate 2x) | deterministic={q['same']} "
+              f"| kernel {q['ms']:.4f} ms, f64 torch.matmul "
+              f"{q['lib_ms']:.4f} ms (CUDA events, 100 calls, in turns), "
+              f"plain {q['plain_ms']:.4f} ms (20 calls) | bound "
+              f"{q['bound'][0]:.5f} ms by {q['bound'][1]} | "
+              f"{geometry(q['rows'], 64, q['n'])}", flush=True)
+    # -- 14. tomographic gradients and inference -------------------------
+    weights_tm = seeded((N_COSMO, 45 * n_th), 34, f32)
+
+    def grad_run_tm():
+        """One torch.autograd.grad of a seeded linear functional of the
+        data vector with respect to (omega_m0, sigma_8) per cosmology and
+        the nuisance point's (dz_src, m, a_ia)."""
+        om = torch.tensor(oms, dtype=f32, device=dev, requires_grad=True)
+        s8 = torch.tensor(s8s, dtype=f32, device=dev, requires_grad=True)
+        leaves = {k: getattr(nu_tm, k).clone().requires_grad_(True)
+                  for k in ("dz_src", "m", "a_ia")}
+        out = pipe_tm(broadcast_cosmo(default_cosmo(device=dev, dtype=f32),
+                                      omega_m0=om, omega_l0=1.0 - om,
+                                      sigma_8=s8),
+                      dataclasses.replace(nu_tm, **leaves))
+        return torch.autograd.grad((out["vector"] * weights_tm).sum(),
+                                   (om, s8, *leaves.values()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    g_tm = grad_run_tm()
+    torch.cuda.synchronize()
+    grad_launches_tm = counts()
+    peak_tm_fb = torch.cuda.max_memory_allocated() / 1e9
+    finite_gtm = all(bool(torch.isfinite(g).all()) for g in g_tm)
+    del g_tm
+    wall_tm_fb = median_wall(grad_run_tm)
+
+    rj = rtm["jacobian"]
+
+    def theory_tm(pipe_, nu_, dtype):
+        return inference.make_theory_fn(
+            pipe_, default_cosmo(device=dev, dtype=dtype),
+            tuple(rj["cosmo_names"]), output="vector", nuisance0=nu_,
+            nuisance_names=tuple(rj["nuisance_names"]))
+
+    th_tm32, p0_tm32 = theory_tm(pipe_tm, nu_tm, f32)
+    th_tm64, p0_tm64 = theory_tm(pipe_tm64, nu_tm64, f64)
+    if not np.allclose(p0_tm64[:2].cpu().numpy(), [rj["omega_m0"],
+                                                   rj["sigma_8"]]):
+        fail("tomographic Jacobian reference is not at the fiducial")
+    t0 = time.perf_counter()
+    jac_tm32 = inference.jacobian(th_tm32, p0_tm32, chunk=512)
+    torch.cuda.synchronize()
+    jac_wall32 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jac_tm64 = inference.jacobian(th_tm64, p0_tm64, chunk=256)
+    torch.cuda.synchronize()
+    jac_wall64 = time.perf_counter() - t0
+    jax_jtm = np.asarray(rj["jacobian"])
+
+    def jac_err_tm(got, ref):
+        """(max over (probe row, parameter) of the worst entry over theta
+        relative to that column's peak over theta, max |got| where the
+        reference column is identically 0)."""
+        got = np.asarray(got, dtype=np.float64).reshape(45, n_th, -1)
+        ref = np.asarray(ref, dtype=np.float64).reshape(45, n_th, -1)
+        d = np.abs(got - ref).max(axis=1)
+        peak = np.abs(ref).max(axis=1)
+        nz = peak > 0
+        return (float((d[nz] / peak[nz]).max()),
+                float(d[~nz].max()) if (~nz).any() else 0.0)
+
+    j32 = jac_tm32.cpu().numpy()
+    j64 = jac_tm64.cpu().numpy()
+    je_tm = {"f32_vs_f64": jac_err_tm(j32, j64),
+             "f64_vs_jax": jac_err_tm(j64, jax_jtm),
+             "f32_vs_jax": jac_err_tm(j32, jax_jtm)}
+
+    # A short HMC over the Jacobian's 11 parameters: the float64 vector at
+    # the fiducial as data, sigma_i = 0.05 |d_i| + 1e-3 of the probe row's
+    # peak, the DES Y3 prior widths on the nuisances (1 on A_ia), and the
+    # Fisher matrix with those priors as the mass.
+    with torch.no_grad():
+        data_tm = th_tm64(p0_tm64)[0]
+    row_pk = data_tm.reshape(45, n_th).abs().amax(1, keepdim=True)
+    sig_tm = 0.05 * data_tm.abs() + 1e-3 * row_pk.expand(45, n_th).reshape(-1)
+    ps = cell["prior_sigma"]
+    prior_sig = np.array([np.inf, np.inf] + [ps["dz_src"]] * 4
+                         + [ps["m"]] * 4 + [1.0])
+    like_tm = inference.GaussianLikelihood(
+        th_tm32, data_tm, torch.diag(sig_tm * sig_tm),
+        prior_mean=p0_tm64.cpu().numpy(), prior_sigma=prior_sig)
+    jw = jac_tm64 / sig_tm[:, None]
+    fisher_tm = jw.T @ jw + torch.diag(torch.tensor(
+        np.where(np.isfinite(prior_sig), prior_sig ** -2.0, 0.0), dtype=f64,
+        device=dev))
+    gen_tm = torch.Generator(device=dev).manual_seed(ref_tm["seed"])
+    z_tm = torch.randn((64, p0_tm64.numel()), generator=gen_tm, device=dev,
+                       dtype=f64)
+    q0_tm = p0_tm64 + torch.linalg.solve_triangular(
+        torch.linalg.cholesky(fisher_tm).T, z_tm.T, upper=True).T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples_tm, accept_tm = inference.hmc(like_tm.neg_log_post, fisher_tm,
+                                          q0_tm, gen_tm, n_steps=2,
+                                          n_leap=5, eps=0.3)
+    torch.cuda.synchronize()
+    hmc_wall_tm = time.perf_counter() - t0
+    acc_tm = float(accept_tm.double().mean())
+    hmc_finite_tm = bool(torch.isfinite(samples_tm).all())
+    print(f"[tomo grad] forward+backward (autograd.grad of a seeded linear "
+          f"functional of the vector wrt (omega_m0, sigma_8) per cosmology "
+          f"and (dz_src, m, a_ia)), B={N_COSMO}, float32: launches forward "
+          f"{grad_launches_tm[0]}, backward {grad_launches_tm[1]} | "
+          f"finite={finite_gtm} | wall median of 5 = {wall_tm_fb * 1e3:.1f} "
+          f"ms | peak device memory {peak_tm_fb:.2f} GB", flush=True)
+    print(f"[tomo grad] Jacobian of the vector ({data_tm.numel()} entries) "
+          f"over {list(rj['cosmo_names']) + list(rj['nuisance_names'])} "
+          f"({p0_tm64.numel()} parameters) at the fiducial "
+          f"(inference.jacobian by replicas, f32 chunks of 512 in "
+          f"{jac_wall32:.1f} s, f64 chunks of 256 in {jac_wall64:.1f} s): "
+          f"f32 vs card f64 {je_tm['f32_vs_f64'][0]:.3e} of each column's "
+          f"peak over theta (gate 1e-3), f64 vs JAX jacfwd "
+          f"{je_tm['f64_vs_jax'][0]:.3e} (gate 1e-9), f32 vs JAX "
+          f"{je_tm['f32_vs_jax'][0]:.3e}; where JAX's column is 0: f32 "
+          f"{je_tm['f32_vs_jax'][1]:.1e}, f64 {je_tm['f64_vs_jax'][1]:.1e} "
+          f"(gate 0)", flush=True)
+    print(f"[tomo inference] hmc: 64 chains x 2 steps x 5 leapfrogs over the "
+          f"{p0_tm64.numel()} parameters, eps 0.3, Fisher mass with priors: "
+          f"finite={hmc_finite_tm}, mean acceptance {acc_tm:.4f} (gate > "
+          f"0.5), wall {hmc_wall_tm:.2f} s", flush=True)
+    if grad_launches_tm != (want_tm, want_tm):
+        fail(f"tomographic forward+backward launches {grad_launches_tm}; "
+             f"want {want_tm} each")
+    if not finite_gtm:
+        fail("tomographic gradient not finite")
+    for name, (val, zero), gate in (
+            ("Jacobian f32 vs f64", je_tm["f32_vs_f64"], 1e-3),
+            ("Jacobian f64 vs JAX", je_tm["f64_vs_jax"], 1e-9)):
+        if not (val <= gate and zero == 0.0):
+            fail(f"tomographic {name}: {val} (gate {gate}), {zero} where "
+                 f"the reference column is 0")
+    if not (hmc_finite_tm and acc_tm > 0.5):
+        fail(f"tomographic hmc: finite={hmc_finite_tm}, acceptance {acc_tm}")
+    del jac_tm32, jac_tm64, samples_tm
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -1956,9 +2464,18 @@ def main():
                     grad_info[route]["fwd_bwd_wall"] * 1e3)
             for route, (pipe_r, _) in pipes.items()}
     runs["exact-z"] = (grad_run_x, wall_x_fb * 1e3)
-    for route, (run, wall_fb) in runs.items():
+    runs["tomographic"] = (grad_run_tm, wall_tm_fb * 1e3)
+
+    def fwd_tm():
+        with torch.no_grad():
+            pipe_tm(batch, nu_tm)
+
+    for route, (run, wall_fb) in [*runs.items(),
+                                  ("tomographic forward",
+                                   (fwd_tm, wall_tm * 1e3))]:
         busy = device_ms(run, reps=1)
-        print(f"[device time] {route} forward+backward, B="
+        what = "" if route.endswith("forward") else " forward+backward"
+        print(f"[device time] {route}{what}, B="
               f"{n_x if route == 'exact-z' else N_COSMO}: "
               f"device busy {fmt_ms(busy)} of a {wall_fb:.1f} ms wall"
               + (f" ({busy / wall_fb:.1%} busy)" if busy else ""),
@@ -1966,10 +2483,12 @@ def main():
 
     paths = {"lattice": launches, "table": launches_t,
              "exact_z": launches_x, "shear_lattice": shear["lattice"][
-                 "launches"], "shear_table": shear["table"]["launches"]}
+                 "launches"], "shear_table": shear["table"]["launches"],
+             "tomographic": launches_tm}
     bwd_of = dict(grad_launches, exact_z=grad_launches_x,
                   shear_lattice=shear["lattice"]["grad_launches"],
-                  shear_table=shear["table"]["grad_launches"])
+                  shear_table=shear["table"]["grad_launches"],
+                  tomographic=grad_launches_tm)
     bwd_paths = {route: {f"{n}_bwd": c for n, c in bw.items()}
                  for route, (_fw, bw) in bwd_of.items()}
 
@@ -1994,11 +2513,26 @@ def main():
            "table_k_bound_ms": bound_a_tab[0],
            "exact_z_rows": rows_x, "exact_z_ms": ms_a_x,
            "exact_z_six_launches_ms": ms_a_x6,
+           "exact_z_plain_ms": a_x["plain_ms"],
            "exact_z_device_ms": dtimes["halo_contract exact-z"][0],
-           "exact_z_bound_ms": bound_a_x[0]},
+           "exact_z_bound_ms": bound_a_x[0],
+           "tomographic_rows": rows_tm, "tomographic_ms": ms_a_tm,
+           "tomographic_plain_ms": a_tm["plain_ms"],
+           "tomographic_device_ms": dtimes["halo_contract tomographic"][0],
+           "tomographic_bound_ms": bound_a_tm[0],
+           "tomographic_repeated_mat_share": 0.8 * flops_tm_mat / flops_tm},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
-               bound_c, lib_ms_c, *dtimes["df_contract"]),
+               bound_c, lib_ms_c, *dtimes["df_contract"])
+        | {"tomographic": [
+            {"mu": mu, "rows": q["rows"], "max_abs_err": q["abs"],
+             "ms": q["ms"], "plain_ms": q["plain_ms"],
+             "library_ms": q["lib_ms"],
+             "device_ms": dtimes[f"df_contract tomographic mu={mu:g}"][0],
+             "library_device_ms": dtimes[
+                 f"df_contract tomographic mu={mu:g}"][1],
+             "bound_ms": q["bound"][0], "bound_by": q["bound"][1]}
+            for mu, q in c_tm.items()]},
         record("hankel_matmul", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47", main_b["abs"], ms_b,
                plain_ms_b, bound_b, lib_ms_b, *dtimes["hankel_matmul"]),
@@ -2013,15 +2547,29 @@ def main():
            "table_k_ms": ms_abwd_tab,
            "table_k_device_ms": dtimes["halo_contract_bwd table k"][0],
            "table_k_bound_ms": bound_abwd_tab[0], "geometry": geo_main,
-           "exact_z_ms": ms_abwd_x,
+           "exact_z_ms": ms_abwd_x, "exact_z_plain_ms": bwd_x["plain_ms"],
            "exact_z_device_ms": dtimes["halo_contract_bwd exact-z"][0],
-           "exact_z_bound_ms": bound_abwd_x[0]},
+           "exact_z_bound_ms": bound_abwd_x[0],
+           "tomographic_rows": rows_tm, "tomographic_ms": ms_abwd_tm,
+           "tomographic_plain_ms": bwd_tm["plain_ms"],
+           "tomographic_device_ms": dtimes[
+               "halo_contract_bwd tomographic"][0],
+           "tomographic_bound_ms": bound_abwd_tm[0]},
         record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
                "no backward kernel in the JAX package",
                checks_bc[("df_contract_bwd", (N_COSMO, 64, j_hi - j_lo))][
                    "abs"], ms_cbwd, plain_ms_cbwd, bound_cbwd, lib_ms_cbwd,
-               *dtimes["df_contract_bwd"], paths=bwd_paths),
+               *dtimes["df_contract_bwd"], paths=bwd_paths)
+        | {"tomographic": [
+            {"mu": mu, "rows": q["rows"], "max_abs_err": q["abs"],
+             "ms": q["ms"], "plain_ms": q["plain_ms"],
+             "library_ms": q["lib_ms"],
+             "device_ms": dtimes[f"df_contract_bwd tomographic mu={mu:g}"][0],
+             "library_device_ms": dtimes[
+                 f"df_contract_bwd tomographic mu={mu:g}"][1],
+             "bound_ms": q["bound"][0], "bound_by": q["bound"][1]}
+            for mu, q in cb_tm.items()]},
         record("hankel_matmul_bwd", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47 (the forward's site); "
                "autodiff; no backward kernel in the JAX package",

@@ -1,9 +1,11 @@
 """chomp_tpu_torch: the PyTorch + CUDA port of the JAX package.
 
-The port so far is the separable-growth, flat-sky w(theta) + gamma_t
-pipeline (``parallel.sweep.make_pipeline``) on both of its routes: the
-lattice route (``method="fft"``) and the GL + cubic-table route
-(``method="table"``, with ``correlation``'s public surface).  Three
+The port so far is the flat-sky w(theta) + gamma_t (+ xi_+-) pipeline
+(``parallel.sweep.make_pipeline``) on both of its routes: the lattice
+route (``method="fft"``, separable or exact-z) and the GL + cubic-table
+route (``method="table"``, with ``correlation``'s public surface); and
+the separable tomographic 3x2pt pipeline with its nuisances
+(``parallel.sweep.make_tomographic_pipeline``).  Three
 hand-written CUDA kernels carry them: the halo-model mass contraction
 (``ops.halo_contract``), the compensated operator contraction
 (``ops.df32``) and the Hankel-operator product (``ops.hankel_matmul``),
@@ -16,9 +18,14 @@ scipy only; the JAX package beside it is its reference in the tests.
 from chomp_tpu_torch.hod import HODZheng, default_hod
 from chomp_tpu_torch.params import (DEFAULT_GRID, CosmoParams, GridSpec,
                                     HaloParams, default_cosmo, default_halo)
-from chomp_tpu_torch.parallel.sweep import broadcast_cosmo, make_pipeline
-from chomp_tpu_torch.projection import DNdzGaussian
+from chomp_tpu_torch.parallel.sweep import (Nuisance3x2pt, broadcast_cosmo,
+                                            default_nuisance, make_pipeline,
+                                            make_tomographic_pipeline)
+from chomp_tpu_torch.projection import (DNdzGaussian, DNdzInterpolation,
+                                        DNdzMagLim, DNdzShifted)
 
-__all__ = ["CosmoParams", "DEFAULT_GRID", "DNdzGaussian", "GridSpec",
-           "HODZheng", "HaloParams", "broadcast_cosmo", "default_cosmo",
-           "default_halo", "default_hod", "make_pipeline"]
+__all__ = ["CosmoParams", "DEFAULT_GRID", "DNdzGaussian",
+           "DNdzInterpolation", "DNdzMagLim", "DNdzShifted", "GridSpec",
+           "HODZheng", "HaloParams", "Nuisance3x2pt", "broadcast_cosmo",
+           "default_cosmo", "default_halo", "default_hod",
+           "default_nuisance", "make_pipeline", "make_tomographic_pipeline"]

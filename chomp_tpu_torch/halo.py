@@ -73,10 +73,13 @@ def _switch_lnm(moment_fn, tables: MassTables):
     return torch.clamp(seed, tables.ln_m[:, 0], tables.ln_m[:, -1])
 
 
-def build_halo_model(cosmo: CosmoParams, halo: HaloParams, hod, z, st
-                     ) -> HaloModel:
-    """Mass tables + HOD moments + n_g at redshift ``z`` ((B|1,))."""
-    t = build_mass_tables(cosmo, halo, z, st)
+def build_halo_model(cosmo: CosmoParams, halo: HaloParams, hod, z, st,
+                     mass_tables: MassTables | None = None) -> HaloModel:
+    """Mass tables + HOD moments + n_g at redshift ``z`` ((B|1,)); a
+    prebuilt ``mass_tables`` (of the same cosmologies and z) is used as
+    is."""
+    t = (mass_tables if mass_tables is not None
+         else build_mass_tables(cosmo, halo, z, st))
     n_first = hod.first_moment(t.m)
     n_second = hod.second_moment(t.m)
     lo, hi = t.ln_m[:, 0], t.ln_m[:, -1]
@@ -105,8 +108,67 @@ def build_halo_model(cosmo: CosmoParams, halo: HaloParams, hod, z, st
                      ln_m_sw1=sw1, ln_m_sw2=sw2)
 
 
+def build_halo_models(cosmo: CosmoParams, halo: HaloParams, hods, z, st
+                      ) -> list[HaloModel]:
+    """Halo models of several galaxy samples (HODs) on ONE mass-table
+    build: only the HOD moments, switch masses and galaxy packs are per
+    sample."""
+    t = build_mass_tables(cosmo, halo, z, st)
+    return [build_halo_model(cosmo, halo, h, z, st, mass_tables=t)
+            for h in hods]
+
+
 def _mu(c):
     return torch.log(1.0 + c) - c / (1.0 + c)
+
+
+def _mat_nodes(cosmo: CosmoParams, halo: HaloParams, t: MassTables, mstar):
+    """Kernel A's ``mat`` (B, nM, 4): the matter profile with the feedback
+    hooks (c x bary_c, k x nu^(bary_eta/2), folded into r_s) at the mass
+    nodes, 1/mu(c), the GL weights and the mass-function factors."""
+    c_m = profiles.concentration(halo, t.m, mstar, t.z) * col(cosmo.bary_c, 1)
+    rs_m = (profiles.virial_radius(cosmo, halo, t.m, t.z) / c_m
+            * torch.sqrt(t.nu) ** col(cosmo.bary_eta, 1))
+    mu_m = _mu(c_m)
+    f_dnu = t.f_nu * t.dnu_dlnm
+    return torch.stack([
+        rs_m, c_m,
+        t.w_lnm * f_dnu * t.bias / mu_m,
+        t.w_lnm * f_dnu * t.m / col(cosmo.rho_bar, 1) / (mu_m * mu_m),
+    ], dim=-1).contiguous()
+
+
+def _galaxy_profile(halo: HaloParams, cosmo: CosmoParams, m, mstar, z):
+    """(r_vir, c, mu(c)) of the unmodified NFW galaxy profile at ``m``."""
+    c_g = profiles.concentration(halo, m, mstar, z)
+    return profiles.virial_radius(cosmo, halo, m, z), c_g, _mu(c_g)
+
+
+def _gal_nodes(cosmo: CosmoParams, halo: HaloParams, model: HaloModel):
+    """Kernel A's ``gal`` (B, nG, 9) of one galaxy sample: the matter
+    profile with the feedback hooks and the galaxy profile at the pack's
+    nodes, the HOD and mass-function factors and the Scranton y / y^2
+    select folded into the weights."""
+    t, g = model.mass, model.gal
+    rv_g, c_g, mu_g = _galaxy_profile(halo, cosmo, g.m, model.m_star, t.z)
+    rho = col(cosmo.rho_bar, 1)
+    n_g = col(model.n_g, 1)
+    c_gm = c_g * col(cosmo.bary_c, 1)
+    rs_gm = rv_g / c_gm * torch.sqrt(g.nu) ** col(cosmo.bary_eta, 1)
+    mu_gm = _mu(c_gm)
+    zero = torch.zeros_like(mu_g)
+    w_gg = g.w_lnm * g.dndlnm * g.n_second / n_g**2
+    p1_gg = g.ln_m < col(model.ln_m_sw2, 1)
+    w_gm = g.w_lnm * g.dndlnm * g.m * g.n_first / (n_g * rho)
+    p1_gm = g.ln_m < col(model.ln_m_sw1, 1)
+    return torch.stack([
+        rs_gm, c_gm, rv_g / c_g, c_g,
+        g.w_lnm * g.dndlnm * g.n_first * g.bias / n_g / mu_g,
+        torch.where(p1_gg, w_gg / mu_g, zero),
+        torch.where(p1_gg, zero, w_gg / (mu_g * mu_g)),
+        torch.where(p1_gm, w_gm / mu_gm, zero),
+        torch.where(p1_gm, zero, w_gm / (mu_gm * mu_g)),
+    ], dim=-1).contiguous()
 
 
 def contraction_nodes(cosmo: CosmoParams, halo: HaloParams,
@@ -116,44 +178,8 @@ def contraction_nodes(cosmo: CosmoParams, halo: HaloParams,
     profile carries the feedback hooks (c x bary_c, k x nu^(bary_eta/2),
     folded into r_s); 1/mu(c), the GL weights, the mass-function and
     HOD factors and the Scranton y / y^2 select go into the weights."""
-    t, g = model.mass, model.gal
-    z, mstar = t.z, model.m_star
-    c_scale = col(cosmo.bary_c, 1)
-    eta = col(cosmo.bary_eta, 1)
-    rho = col(cosmo.rho_bar, 1)
-    n_g = col(model.n_g, 1)
-
-    c_m = profiles.concentration(halo, t.m, mstar, z) * c_scale
-    rs_m = (profiles.virial_radius(cosmo, halo, t.m, z) / c_m
-            * torch.sqrt(t.nu) ** eta)
-    mu_m = _mu(c_m)
-    f_dnu = t.f_nu * t.dnu_dlnm
-    mat = torch.stack([
-        rs_m, c_m,
-        t.w_lnm * f_dnu * t.bias / mu_m,
-        t.w_lnm * f_dnu * t.m / rho / (mu_m * mu_m),
-    ], dim=-1)
-
-    c_g = profiles.concentration(halo, g.m, mstar, z)
-    rv_g = profiles.virial_radius(cosmo, halo, g.m, z)
-    mu_g = _mu(c_g)
-    c_gm = c_g * c_scale
-    rs_gm = rv_g / c_gm * torch.sqrt(g.nu) ** eta
-    mu_gm = _mu(c_gm)
-    zero = torch.zeros_like(mu_g)
-    w_gg = g.w_lnm * g.dndlnm * g.n_second / n_g**2
-    p1_gg = g.ln_m < col(model.ln_m_sw2, 1)
-    w_gm = g.w_lnm * g.dndlnm * g.m * g.n_first / (n_g * rho)
-    p1_gm = g.ln_m < col(model.ln_m_sw1, 1)
-    gal = torch.stack([
-        rs_gm, c_gm, rv_g / c_g, c_g,
-        g.w_lnm * g.dndlnm * g.n_first * g.bias / n_g / mu_g,
-        torch.where(p1_gg, w_gg / mu_g, zero),
-        torch.where(p1_gg, zero, w_gg / (mu_g * mu_g)),
-        torch.where(p1_gm, w_gm / mu_gm, zero),
-        torch.where(p1_gm, zero, w_gm / (mu_gm * mu_g)),
-    ], dim=-1)
-    return mat.contiguous(), gal.contiguous()
+    return (_mat_nodes(cosmo, halo, model.mass, model.m_star),
+            _gal_nodes(cosmo, halo, model))
 
 
 def contractions(cosmo: CosmoParams, halo: HaloParams, model: HaloModel,
@@ -164,17 +190,23 @@ def contractions(cosmo: CosmoParams, halo: HaloParams, model: HaloModel,
     return halo_contract(k.contiguous(), mat, gal, st.cheb).unbind(1)
 
 
-def powers(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k, st):
-    """All halo-model spectra at the static ``k`` (nk,): dict with keys
-    ``linear_power, power_mm, power_gm, power_mg, power_gg``, (B, nk)."""
-    z = model.mass.z
+def _linear(cosmo: CosmoParams, z, k, st):
+    """(P_lin of the cb sector, r = D_cbnu / D_cb) at redshift ``z`` and
+    the static ``k``, (B, nk) each."""
     kb = k[None, :]
-    p_lin = linear.linear_power(cosmo, kb, z, st, species="cb")
-    h_m, h_g, pp_mm, pp_gg, pp_gm = contractions(cosmo, halo, model, k, st)
+    return (linear.linear_power(cosmo, kb, z, st, species="cb"),
+            neutrino.m_over_cb(cosmo, kb, z, st, st.grid.n_growth))
+
+
+def _spectra(cosmo: CosmoParams, p_lin, r, ints):
+    """The halo-model spectra dict (keys ``linear_power, power_mm,
+    power_gm, power_mg, power_gg``, (B, nk)) from kernel A's five
+    integrals ``ints`` (B, 5, nk) and :func:`_linear`'s ``p_lin``,
+    ``r``."""
+    h_m, h_g, pp_mm, pp_gg, pp_gm = ints.unbind(1)
     p_mm = pp_mm + p_lin * h_m * h_m
     p_gg = pp_gg + p_lin * h_g * h_g
     p_gm = pp_gm + p_lin * h_m * h_g
-    r = neutrino.m_over_cb(cosmo, kb, z, st, st.grid.n_growth)
     p_lin_m = p_lin * r * r
     p_mm_m = p_mm * r * r
     a = col(cosmo.a_mod, 1)
@@ -185,3 +217,140 @@ def powers(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k, st):
         "power_mg": p_gm * r,
         "power_gg": p_gg,
     }
+
+
+def powers(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k, st):
+    """All halo-model spectra at the static ``k`` (nk,): dict with keys
+    ``linear_power, power_mm, power_gm, power_mg, power_gg``, (B, nk)."""
+    mat, gal = contraction_nodes(cosmo, halo, model)
+    ints = halo_contract(k.contiguous(), mat, gal, st.cheb)
+    return _spectra(cosmo, *_linear(cosmo, model.mass.z, k, st), ints)
+
+
+def _cross_gal_pack(cosmo: CosmoParams, halo: HaloParams,
+                    model_a: HaloModel, model_b: HaloModel, st):
+    """(ln_m, w_lnm, m, dndlnm, sw), (B, nG) each and sw (B,): the GL pack
+    of the cross-sample 1-halo integral of two galaxy samples on one
+    mass-table build, with panel edges at both HODs' breakpoints and at
+    the Newton-solved mass where <N_A><N_B> crosses 1 (the Scranton
+    criterion on the independent-occupation cross moment)."""
+    t = model_a.mass
+    hod_a, hod_b = model_a.hod, model_b.hod
+    lo, hi = t.ln_m[:, 0], t.ln_m[:, -1]
+
+    def prod_moment(m):
+        return hod_a.first_moment(m) * hod_b.first_moment(m)
+
+    sw = (_switch_lnm(prod_moment, t) if st.grid.scranton_switch
+          else lo.clone())
+    marks = torch.sort(torch.stack(
+        [torch.clamp(b.expand_as(lo), lo, hi) for b in
+         (*hod_a.breakpoints(), *hod_b.breakpoints(), sw)], dim=-1),
+        dim=-1).values
+    n_per = max(st.grid.n_mass // (marks.shape[-1] + 1), 64)
+    edges = torch.cat([lo[:, None], marks, hi[:, None]], dim=-1)
+    pack = node_pack(cosmo, halo, t, edges[:, :-1], edges[:, 1:], n_per, st)
+    return pack.ln_m, pack.w_lnm, torch.exp(pack.ln_m), pack.dndlnm, sw
+
+
+def _cross_nodes(cosmo: CosmoParams, halo: HaloParams, model_a: HaloModel,
+                 model_b: HaloModel, st):
+    """Kernel A's ``gal`` (B, nG, 9) whose pp_gg output is the cross
+    1-halo term sum_M w <N_A><N_B> y^(1|2) / (n_A n_B): the galaxy
+    profile in both profile slots (one profile a node), the cross
+    weights in the gg columns, zeros in the h_g and gm columns."""
+    t = model_a.mass
+    ln_g, w_g, m_g, dndlnm, sw = _cross_gal_pack(cosmo, halo, model_a,
+                                                 model_b, st)
+    rv, c, mu = _galaxy_profile(halo, cosmo, m_g, model_a.m_star, t.z)
+    rs = rv / c
+    w = (w_g * dndlnm * model_a.hod.first_moment(m_g)
+         * model_b.hod.first_moment(m_g)
+         / col(model_a.n_g * model_b.n_g, 1))
+    p1 = ln_g < col(sw, 1)
+    zero = torch.zeros_like(w)
+    return torch.stack([rs, c, rs, c, zero,
+                        torch.where(p1, w / mu, zero),
+                        torch.where(p1, zero, w / (mu * mu)),
+                        zero, zero], dim=-1).contiguous()
+
+
+def fold_rows(mat, gals):
+    """Kernel A's inputs for several ``gal`` packs that share ``mat`` (B,
+    nM, 4): the packs of one node count fold into the batch as rows b n +
+    i (row b's mat repeated n times), so each distinct node count is one
+    launch.  Returns [(pack indices, mat rows (B n, nM, 4), gal rows (B n,
+    nG, 9))], one entry a launch."""
+    b = mat.shape[0]
+    by_ng = {}
+    for i, g in enumerate(gals):
+        by_ng.setdefault(g.shape[1], []).append(i)
+    out = []
+    for idx in by_ng.values():
+        gal = torch.stack([gals[i] for i in idx], dim=1)
+        out.append((idx, mat.repeat_interleave(len(idx), dim=0),
+                    gal.reshape(b * len(idx), *gal.shape[2:])))
+    return out
+
+
+def tomographic_nodes(cosmo: CosmoParams, halo: HaloParams, models, st,
+                      with_cross: bool = True):
+    """(mat (B, nM, 4), gal packs, cross pairs) of
+    :func:`tomographic_powers`: the one mass pack, every sample's galaxy
+    pack and then, with ``with_cross``, the cross pack of each pair i < j
+    (:func:`_cross_nodes`), in the order of the pairs."""
+    mat = _mat_nodes(cosmo, halo, models[0].mass, models[0].m_star)
+    gals = [_gal_nodes(cosmo, halo, m) for m in models]
+    n = len(models)
+    pairs = ([(i, j) for i in range(n) for j in range(i + 1, n)]
+             if with_cross else [])
+    gals += [_cross_nodes(cosmo, halo, models[i], models[j], st)
+             for i, j in pairs]
+    return mat, gals, pairs
+
+
+def tomographic_powers(cosmo: CosmoParams, halo: HaloParams, models, k, st,
+                       with_cross: bool = True):
+    """All spectra of several galaxy samples on one mass-table build
+    (:func:`build_halo_models`) at the static ``k`` (nk,): "power_mm"
+    (from sample 0's row), ("power_gm", i), ("power_gg", i, i) and, with
+    ``with_cross``, ("power_gg", i, j) for i < j, each (B, nk).  The
+    cross 1-halo term assumes independent occupations, <N_A N_B> =
+    <N_A><N_B>, with the Scranton y / y^2 switch where that product
+    crosses 1.
+
+    Every sample's galaxy pack, and each cross pack, folds into the
+    batch as rows b L + i over the one mass pack (:func:`fold_rows`), so
+    the whole set takes one kernel A launch (one per distinct galaxy node
+    count: Zheng HODs all have the same)."""
+    mat, gals, pairs = tomographic_nodes(cosmo, halo, models, st,
+                                         with_cross)
+    b = mat.shape[0]
+    ints = [None] * len(gals)
+    for idx, mat_r, gal_r in fold_rows(mat, gals):
+        out = halo_contract(k.contiguous(), mat_r, gal_r, st.cheb)
+        out = out.reshape(b, len(idx), *out.shape[1:])
+        for j, i in enumerate(idx):
+            ints[i] = out[:, j]
+    p_lin, r = _linear(cosmo, models[0].mass.z, k, st)
+    n = len(models)
+    out = {}
+    for i in range(n):
+        ps = _spectra(cosmo, p_lin, r, ints[i])
+        if i == 0:
+            out["power_mm"] = ps["power_mm"]
+        out[("power_gg", i, i)] = ps["power_gg"]
+        out[("power_gm", i)] = ps["power_gm"]
+    for (i, j), cross in zip(pairs, ints[n:]):
+        out[("power_gg", i, j)] = (cross[:, 3]
+                                   + p_lin * ints[i][:, 1] * ints[j][:, 1])
+    return out
+
+
+def power_gg_cross(cosmo: CosmoParams, halo: HaloParams, model_a: HaloModel,
+                   model_b: HaloModel, k, st):
+    """P_gg between two galaxy samples on one mass-table build, (B, nk):
+    :func:`tomographic_powers`' ("power_gg", 0, 1) of the pair, whose
+    three packs go through one kernel A launch."""
+    return tomographic_powers(cosmo, halo, [model_a, model_b], k,
+                              st)[("power_gg", 0, 1)]

@@ -26,6 +26,8 @@ ROADMAP queue 1, item 10.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -34,43 +36,61 @@ from chomp_tpu_torch.parallel.sweep import broadcast_cosmo
 
 def make_theory_fn(pipeline, cosmo0, cosmo_names=("omega_m0", "sigma_8"),
                    flat: bool = True, output=("w_theta", "gamma_t"),
-                   nuisance0=None):
+                   nuisance0=None, nuisance_names=()):
     """(theory_fn, p0): ``theory_fn(p)`` maps a parameter batch ``p``
     (n, n_par) to the data vector (n, n_data), the ``output`` entries of
-    ``pipeline(cosmo)`` concatenated in order (w(theta), then gamma_t);
-    ``p0`` (n_par,) is the fiducial vector, on ``cosmo0``'s device and in
-    its dtype.
+    ``pipeline(cosmo)`` concatenated in order (w(theta), then gamma_t by
+    default; ``"vector"`` for the tomographic pipeline); ``p0`` (n_par,)
+    is the fiducial vector, on ``cosmo0``'s device and in its dtype.
 
     ``cosmo0`` is a single cosmology (0-d fields); the named fields are
     replaced by the columns of ``p`` through :func:`broadcast_cosmo`,
     with omega_l0 = 1 - omega_m0 when ``flat`` and omega_m0 is sampled
     (and omega_l0 is not).  A ``p`` of another dtype is cast to the
-    pipeline's, differentiably.  Nuisance parameters belong to the
-    tomographic pipeline, which is not ported: ``nuisance0`` raises."""
-    if nuisance0 is not None:
-        raise NotImplementedError(
-            "make_theory_fn(nuisance0=...): the nuisance slots belong to the "
-            "tomographic pipeline, which is not ported yet: ROADMAP queue 1, "
-            "item 8")
+    pipeline's, differentiably.
+
+    ``nuisance0`` (e.g. ``sweep.default_nuisance``, fields without a
+    batch axis) makes the map ``pipeline(cosmo, nuisance)``: the fields
+    in ``nuisance_names`` follow the cosmology block in ``p`` and are
+    replaced whole, a (k,) field taking k consecutive columns, each row
+    of ``p`` its own nuisance point; the other fields stay at
+    ``nuisance0``."""
     cosmo_names = tuple(cosmo_names)
+    nuisance_names = tuple(nuisance_names)
     for name in cosmo_names:
         if not hasattr(cosmo0, name):
             raise AttributeError(f"CosmoParams has no field {name!r}")
+    if nuisance_names and nuisance0 is None:
+        raise ValueError("nuisance_names need nuisance0")
     output = (output,) if isinstance(output, str) else tuple(output)
     apply_flat = (flat and "omega_m0" in cosmo_names
                   and "omega_l0" not in cosmo_names)
+    n_cos = len(cosmo_names)
+    shapes = [tuple(getattr(nuisance0, n).shape) for n in nuisance_names]
+    offs = np.concatenate([[0], np.cumsum([int(np.prod(sh))
+                                           for sh in shapes])]).astype(int)
 
     def theory_fn(p):
         p = torch.atleast_2d(p)
         upd = {name: p[:, i] for i, name in enumerate(cosmo_names)}
         if apply_flat:
             upd["omega_l0"] = 1.0 - upd["omega_m0"]
-        out = pipeline(broadcast_cosmo(cosmo0, **upd))
+        cosmo = broadcast_cosmo(cosmo0, **upd)
+        if nuisance0 is None:
+            out = pipeline(cosmo)
+        else:
+            nupd = {name: p[:, n_cos + offs[i]:n_cos + offs[i + 1]]
+                    .reshape(p.shape[0], *shapes[i])
+                    .to(getattr(nuisance0, name).dtype)
+                    for i, name in enumerate(nuisance_names)}
+            out = pipeline(cosmo, dataclasses.replace(nuisance0, **nupd))
         return torch.cat([out[key] for key in output], dim=-1)
 
     ref = cosmo0.omega_m0
-    p0 = torch.stack([getattr(cosmo0, name).reshape(()).to(ref)
-                      for name in cosmo_names])
+    p0 = torch.cat([torch.stack([getattr(cosmo0, name).reshape(()).to(ref)
+                                 for name in cosmo_names])]
+                   + [getattr(nuisance0, name).reshape(-1).to(ref)
+                      for name in nuisance_names])
     return theory_fn, p0
 
 

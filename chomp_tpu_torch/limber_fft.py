@@ -1,8 +1,8 @@
 """Lattice Limber projection — the w(theta) pipeline's lattice route.
 
 PyTorch counterpart of the JAX package's ``limber_fft.py`` (the direct
-convolution; the whitened-FFT convolution and the tomographic spectra
-are not ported).  With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du
+convolution and the tomographic spectra; the whitened-FFT convolution
+is not ported).  With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du
 G(u) P(e^{s-u}) is a 1-D convolution of the P lattice (static ln k) with
 the window weights G on the matching static ln chi lattice; z(chi) on
 that lattice comes from Newton iteration off a static fiducial seed.
@@ -29,7 +29,8 @@ from chomp_tpu_torch import background, correlation
 from chomp_tpu_torch.grids import catmull_rom_weights_np
 from chomp_tpu_torch.ops.hankel_matmul import full_fp32_matmul
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams, GridSpec, col
-from chomp_tpu_torch.projection import WindowConvergence, dndz
+from chomp_tpu_torch.projection import (WindowConvergence,
+                                        WindowConvergenceIA, dndz)
 
 
 def _lattice_key(grid: GridSpec):
@@ -141,7 +142,12 @@ def _conv_direct_rows64(p_rows, g_rows, j_lo: int, j_hi: int):
 def _window_on_lattice(cosmo, win, z, chi, st, z_mid):
     """Window values at the lattice nodes, (B, n_chi).  The convergence
     window uses cumulative Simpson in u = ln chi' with the exact-lattice
-    midpoints (O(du^4), one reverse cumsum for each inner integral)."""
+    midpoints (O(du^4), one reverse cumsum for each inner integral); the
+    NLA window adds its local IA term at the nodes to that."""
+    if isinstance(win, WindowConvergenceIA):
+        kappa = _window_on_lattice(cosmo, WindowConvergence(dist=win.dist),
+                                   z, chi, st, z_mid)
+        return kappa + win.ia_term_z(cosmo, z, st)
     if isinstance(win, WindowConvergence):
         dln = st.grid.lattice_dln
         chi_mid = chi * float(np.exp(0.5 * dln))
@@ -399,6 +405,20 @@ def p_lattice_halo_all(cosmo, halo_params, model, st):
     from chomp_tpu_torch import halo as halo_mod
 
     return halo_mod.powers(cosmo, halo_params, model, st.lattice_k, st)
+
+
+def p_lattice_tomographic(cosmo, halo_params, models, st,
+                          with_cross: bool = True):
+    """Per-sample spectra on the k lattice for halo models sharing one
+    mass-table build (:func:`halo.tomographic_powers`, one kernel A
+    launch for every sample): keys "power_mm", ("power_gm", i),
+    ("power_gg", i, i) and, with ``with_cross``, ("power_gg", i, j) for
+    i < j."""
+    from chomp_tpu_torch import halo as halo_mod
+
+    return halo_mod.tomographic_powers(cosmo, halo_params, models,
+                                       st.lattice_k, st,
+                                       with_cross=with_cross)
 
 
 def p_lattice_halo(cosmo, halo_params, model, kind: str, st):

@@ -1,9 +1,12 @@
 """Redshift distributions, radial windows, power tables and Limber C_ell.
 
 PyTorch counterpart of the JAX package's ``projection.py`` on the port's
-paths: the Gaussian dN/dz, its normalization, the galaxy and convergence
-windows (the convergence window's nested-GL form here; the lattice route
-evaluates it by cumulative Simpson in ``limber_fft._window_on_lattice``),
+paths: the dN/dz shapes (Gaussian, magnitude-limited, tabulated, and the
+photo-z shift of any of them), their normalization, the galaxy and
+convergence windows (the convergence window's nested-GL form here; the
+lattice route evaluates it by cumulative Simpson in
+``limber_fft._window_on_lattice``), the convergence window with NLA
+intrinsic alignments,
 the window-weighted mean redshift, the ln P tables on the static ln k
 grid and the Gauss-Legendre Limber integral of the ``method="table"``
 route.  Arrays carry the cosmology batch as their first axis.
@@ -18,6 +21,7 @@ import torch
 from chomp_tpu_torch import background, linear
 from chomp_tpu_torch.grids import (gl_integrate, interp_loglog_cubic, loggrid,
                                    recompute_in_backward)
+from chomp_tpu_torch.mass import interp
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams, _Params, col
 
 #: Elements of the (B, N, n_z_lens, n_dist) integrand of the nested
@@ -38,6 +42,92 @@ class DNdzGaussian(_Params):
     def raw_dndz(self, z):
         p = self.shaped(z.dim() - 1)
         return torch.exp(-0.5 * ((z - p.z0) / p.sigma_z) ** 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class DNdzMagLim(_Params):
+    """p(z) ∝ z^a exp(-(z/z0)^b) on [z_min, z_max]."""
+
+    z_min: torch.Tensor
+    z_max: torch.Tensor
+    a: torch.Tensor
+    z0: torch.Tensor
+    b: torch.Tensor
+
+    def raw_dndz(self, z):
+        p = self.shaped(z.dim() - 1)
+        zs = torch.clamp_min(z, 1e-12)
+        return zs**p.a * torch.exp(-((zs / p.z0) ** p.b))
+
+
+@dataclasses.dataclass(frozen=True)
+class DNdzInterpolation(_Params):
+    """Tabulated p(z), linear between the nodes and 0 outside them (the
+    JAX ``jnp.interp(..., left=0, right=0)``).  ``z_array`` / ``n_array``
+    are (n,) or (B, n), one table per cosmology (then with (B,) limits);
+    the limits (B,) or 0-d."""
+
+    z_min: torch.Tensor
+    z_max: torch.Tensor
+    z_array: torch.Tensor
+    n_array: torch.Tensor
+
+    def shaped(self, nd: int):
+        return dataclasses.replace(self, z_min=col(self.z_min, nd),
+                                   z_max=col(self.z_max, nd))
+
+    def rows(self, lo: int, hi: int):
+        def cut(v, rank):
+            return v[lo:hi] if v.dim() > rank and v.shape[0] > 1 else v
+
+        return DNdzInterpolation(
+            z_min=cut(self.z_min, 0), z_max=cut(self.z_max, 0),
+            z_array=cut(self.z_array, 1), n_array=cut(self.n_array, 1))
+
+    def raw_dndz(self, z):
+        zp = torch.atleast_2d(self.z_array)
+        fp = torch.atleast_2d(self.n_array)
+        if zp.shape[0] == 1:
+            zq, shape = z.reshape(1, -1), z.shape
+        else:
+            zq = z.reshape(z.shape[0], -1)
+            shape = (zp.shape[0],) + z.shape[1:]
+        inside = (zq >= zp[:, :1]) & (zq <= zp[:, -1:])
+        return torch.where(inside, interp(zq, zp, fp), 0.0).reshape(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class DNdzShifted:
+    """Additive photo-z shift of any dN/dz ``base``: p(z) = p_base(z - dz)
+    on [z_min + dz, z_max + dz].  ``dz`` is (B,) or 0-d, so the support
+    differs per cosmology row; the limits stay tensors."""
+
+    base: object
+    dz: torch.Tensor
+
+    @property
+    def z_min(self):
+        return self.base.z_min + self.dz
+
+    @property
+    def z_max(self):
+        return self.base.z_max + self.dz
+
+    def raw_dndz(self, z):
+        return self.base.raw_dndz(z - col(self.dz, z.dim() - 1))
+
+    def shaped(self, nd: int):
+        return DNdzShifted(base=self.base.shaped(nd), dz=col(self.dz, nd))
+
+    def rows(self, lo: int, hi: int):
+        dz = self.dz
+        return DNdzShifted(base=self.base.rows(lo, hi),
+                           dz=dz[lo:hi] if dz.dim() and dz.shape[0] > 1
+                           else dz)
+
+    def to(self, device=None, dtype=None):
+        return DNdzShifted(base=self.base.to(device, dtype),
+                           dz=self.dz.to(device=device, dtype=dtype))
 
 
 def dndz_norm(dist, st):
@@ -109,6 +199,46 @@ class WindowConvergence:
         integral = gl_integrate(efficiency, z, col(self.dist.z_max, nd), x, w)
         pref = col(1.5 * cosmo.omega_m0 / C_OVER_H0**2, nd)
         return pref * (1.0 + z) * chi * integral
+
+
+#: C1 rho_crit of the NLA intrinsic-alignment amplitude (C1 = 5e-14
+#: h^-2 M_sun^-1 Mpc^3; Hirata & Seljak 2004, Bridle & King 2007).
+C1_RHOCRIT = 0.0134
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowConvergenceIA:
+    """The lensing efficiency plus the NLA intrinsic-alignment term,
+    W_E = W_kappa + W_IA with
+
+        W_IA(chi) = -A_ia C1 rho_crit Omega_m / D(z)
+                    ((1+z)/(1+z0))^eta p(z) dz/dchi.
+
+    ``a_ia``, ``eta_ia`` and ``z0_ia`` are (B,) or 0-d.  Not a
+    :class:`WindowConvergence`: the lattice route adds the IA term to the
+    convergence window's cumulative path itself."""
+
+    dist: object
+    a_ia: torch.Tensor
+    eta_ia: torch.Tensor
+    z0_ia: torch.Tensor
+
+    def support(self):
+        return torch.zeros_like(self.dist.z_min), self.dist.z_max
+
+    def ia_term_z(self, cosmo: CosmoParams, z, st):
+        """W_IA at ``z`` (B|1, N) -> (B, N)."""
+        nd = z.dim() - 1
+        d = background.growth_factor(cosmo, z, st, st.grid.n_growth)
+        amp = (-col(self.a_ia, nd) * C1_RHOCRIT * col(cosmo.omega_m0, nd) / d
+               * ((1.0 + z) / (1.0 + col(self.z0_ia, nd)))
+               ** col(self.eta_ia, nd))
+        return amp * dndz(self.dist, z, st) * background.ez(cosmo, z) \
+            / C_OVER_H0
+
+    def window_z(self, cosmo: CosmoParams, z, st):
+        base = WindowConvergence(dist=self.dist).window_z(cosmo, z, st)
+        return base + self.ia_term_z(cosmo, z, st)
 
 
 def _limits(win_a, win_b, top):

@@ -15,8 +15,10 @@ import numpy as np
 import torch
 
 from chomp_tpu_torch.hod import HODZheng
+from chomp_tpu_torch.parallel.sweep import Nuisance3x2pt
 from chomp_tpu_torch.params import CosmoParams, HaloParams
-from chomp_tpu_torch.projection import DNdzGaussian, PowerTable
+from chomp_tpu_torch.projection import (DNdzGaussian, DNdzInterpolation,
+                                        DNdzMagLim, DNdzShifted, PowerTable)
 
 
 def _get(src, name):
@@ -50,6 +52,45 @@ def hod_zheng(src, *, device, dtype) -> HODZheng:
 
 def dndz_gaussian(src, *, device, dtype) -> DNdzGaussian:
     return _convert(DNdzGaussian, src, device, dtype)
+
+
+def hod_list(srcs, *, device, dtype) -> list[HODZheng]:
+    """Per-lens-bin HODs from a list of JAX-package HODZheng."""
+    return [hod_zheng(h, device=device, dtype=dtype) for h in srcs]
+
+
+def dndz_maglim(src, *, device, dtype) -> DNdzMagLim:
+    return _convert(DNdzMagLim, src, device, dtype)
+
+
+def dndz_interpolation(src, *, device, dtype) -> DNdzInterpolation:
+    return _convert(DNdzInterpolation, src, device, dtype)
+
+
+def dndz_shifted(src, *, device, dtype) -> DNdzShifted:
+    """DNdzShifted from a JAX-package DNdzShifted; its base is converted
+    by :func:`dndz`."""
+    return DNdzShifted(base=dndz(_get(src, "base"), device=device,
+                                 dtype=dtype),
+                       dz=torch.as_tensor(np.array(_get(src, "dz"),
+                                                   dtype=np.float64),
+                                          dtype=dtype, device=device))
+
+
+def dndz(src, *, device, dtype):
+    """Any of the JAX package's dN/dz objects, by its class name."""
+    conv = {"DNdzGaussian": dndz_gaussian, "DNdzMagLim": dndz_maglim,
+            "DNdzInterpolation": dndz_interpolation,
+            "DNdzShifted": dndz_shifted}.get(type(src).__name__)
+    if conv is None:
+        raise TypeError(f"no converter for {type(src).__name__}")
+    return conv(src, device=device, dtype=dtype)
+
+
+def nuisance_3x2pt(src, *, device, dtype) -> Nuisance3x2pt:
+    """Nuisance3x2pt from a JAX-package Nuisance3x2pt (a vmapped one
+    keeps its leading batch axis)."""
+    return _convert(Nuisance3x2pt, src, device, dtype)
 
 
 def power_table(src, *, device, dtype) -> PowerTable:

@@ -233,11 +233,16 @@ def test_make_theory_fn_on_the_lattice_pipeline(lattice_pipe):
 
 
 def test_make_theory_fn_refuses_nuisance_and_unknown_fields(lattice_pipe):
-    """The nuisance slots of the tomographic pipeline are not ported and
-    raise naming their ROADMAP item; unknown field names raise."""
+    """Nuisance slots without a fiducial nuisance point raise, and so do
+    unknown cosmology and nuisance field names (the slots themselves are
+    held in tests/test_torch_tomographic.py)."""
     cosmo0 = convert.cosmo_params(tp.jax_batch(), **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        inference.make_theory_fn(lattice_pipe, cosmo0, nuisance0=object())
+    with pytest.raises(ValueError, match="nuisance0"):
+        inference.make_theory_fn(lattice_pipe, cosmo0, nuisance_names=("m",))
+    with pytest.raises(AttributeError):
+        inference.make_theory_fn(
+            lattice_pipe, cosmo0, nuisance0=sweep.default_nuisance(1, 1, **KW),
+            nuisance_names=("dz_x",))
     with pytest.raises(AttributeError):
         inference.make_theory_fn(lattice_pipe, cosmo0,
                                  cosmo_names=("omega_x",))

@@ -1,11 +1,13 @@
 """Where the time of the port's slice goes on one CUDA GPU.
 
-    python3 tools/torch_slice_profile.py [--method fft|table]
+    python3 tools/torch_slice_profile.py [--method fft|table|tomographic]
                                          [--n-cosmo 512] [--reps 5]
 
 Runs bench.py configuration A (DEFAULT_GRID, float32) through
 ``chomp_tpu_torch`` on the lattice route (``--method fft``, the default)
-or the GL + cubic-table route (``--method table``) and prints, for the
+or the GL + cubic-table route (``--method table``), or the tomographic
+3x2pt cell of ``chip_smoke.py`` phases 13-14 (``--method tomographic``,
+defined by tests/data/torch_tomo_reference.json), and prints, for the
 same batch:
 
 - the wall time of each stage of the forward, median over ``--reps``
@@ -14,6 +16,10 @@ same batch:
   weights, the grouped convolution, the two kernel C contractions;
   table: halo model, the ln P tables with kernel A, the galaxy-galaxy
   and the convergence-galaxy Limber C_ell, the two kernel B products;
+  tomographic: the per-bin halo models with the spectra (kernel A over
+  B x n_lens rows), the lattice weights and grouped convolution of the
+  65 probe rows (``TomographicPipeline.conv_rows``), the three kernel C
+  contractions;
 - a ``torch.profiler`` table of device time by kernel over one run,
   and that device time as a share of the unprofiled median wall time
   (the device's busy share; the rest is idle, waiting on the host).
@@ -22,6 +28,7 @@ Needs a CUDA GPU; prints the card's name and power limit first.
 """
 
 import argparse
+import json
 import subprocess
 import sys
 import time
@@ -34,7 +41,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--method", choices=("fft", "table"), default="fft")
+    ap.add_argument("--method", choices=("fft", "table", "tomographic"),
+                    default="fft")
     ap.add_argument("--n-cosmo", type=int, default=512)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -64,9 +72,18 @@ def main():
                             sigma_8=np.linspace(0.75, 0.88, args.n_cosmo))
     dist = DNdzGaussian(*(torch.tensor(v, **kw)
                           for v in (0.0, 2.0, 1.0, 0.2)))
-    pipe = make_pipeline(default_halo(**kw), default_hod(**kw), dist,
-                         power_spec="power_gg", include_lensing=True,
-                         z_pivot=1.0, method=args.method, **kw)
+    args_fwd = (batch,)
+    if args.method == "tomographic":
+        from chip_smoke import tomo_cell
+
+        pipe, nu = tomo_cell(json.loads(
+            (REPO / "tests" / "data" / "torch_tomo_reference.json")
+            .read_text()), **kw)
+        args_fwd = (batch, nu)
+    else:
+        pipe = make_pipeline(default_halo(**kw), default_hod(**kw), dist,
+                             power_spec="power_gg", include_lensing=True,
+                             z_pivot=1.0, method=args.method, **kw)
     st, z = pipe.st, torch.ones(1, **kw)
 
     def stages():
@@ -81,6 +98,17 @@ def main():
             t[name] = (time.perf_counter() - t0) * 1e3
             return out
 
+        if args.method == "tomographic":
+            models = mark("halo models + spectra (kernel A)",
+                          lambda: pipe.spectra(batch))[0]
+            rows = pipe.probe_rows(batch, nu)[3]
+            j_lo = min(w[0] for w in pipe.windows)
+            j_hi = max(w[1] for w in pipe.windows)
+            c = mark("lattice_g + conv (65 rows)", lambda: pipe.conv_rows(
+                batch, models, rows, j_lo, j_hi))
+            mark("kernel C x3", lambda: _fused_probe_rows(
+                lambda _lo, _hi: c, [r[3] for r in rows], pipe.operator))
+            return t
         if args.method == "table":
             model = mark("halo_model", lambda: halo.build_halo_model(
                 batch, pipe.halo_params, pipe.hod, z, st))
@@ -118,13 +146,13 @@ def main():
                                                           j_hi))
         return t
 
-    pipe(batch)
+    pipe(*args_fwd)
     runs = [stages() for _ in range(args.reps)]
     walls = []
     for _ in range(args.reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe(batch)
+        pipe(*args_fwd)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     print(f"{args.method} route forward wall, B={args.n_cosmo}: median {np.median(walls):.2f} ms"
@@ -138,7 +166,7 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe(batch)
+        pipe(*args_fwd)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # Kernels only: the aten ops that launched them carry the same time.

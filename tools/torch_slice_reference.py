@@ -37,11 +37,23 @@ writes
   of an exact-z pipeline with shear (J = 4) and of both separable routes
   with shear, and the exact-z pipeline's ``jax.jacfwd``.
 
+- ``tests/data/torch_tomo_reference.json``: the tomographic cell of
+  ``chip_smoke.py`` phases 13-14, a DES Y3-like 3x2pt layout (Abbott et
+  al. 2022, arXiv:2105.13549: 5 lens bins, 4 source bins, 45 probes;
+  ``make_tomographic_pipeline`` with per-bin Zheng HODs, z_pivot 0.6,
+  ``with_nuisance`` and ``include_magnification`` on DEFAULT_GRID), its
+  definition (the Gaussian stand-in dN/dz, the HODs, and the nuisance
+  point drawn from ``--seed`` at DES Y3 prior widths), its outputs at 3
+  cosmologies of the 512-point linspaces and the ``jax.jacfwd`` of its
+  data vector with respect to (omega_m0, sigma_8, dz_src, m, a_ia) at the
+  fiducial; and, for tests/test_torch_tomographic.py, the ``jax.jacfwd``
+  of that file's magnification case on the parity grid (float64).
+
 ``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
-    python tools/torch_slice_reference.py [FILE ...]
+    python tools/torch_slice_reference.py [--seed N] [FILE ...]
 
-writes the named files (all four by default).
+writes the named files (all five by default).
 """
 
 import dataclasses
@@ -362,8 +374,173 @@ def write(name, config, idx, out, **extra):
     print(f"wrote {path}")
 
 
+#: The tomographic cell: lens and source bins of DES Y3 (Abbott et al.
+#: 2022, arXiv:2105.13549; redMaGiC lens edges 0.15/0.35/0.50/0.65/0.80/
+#: 0.90, source edges 0/0.358/0.631/0.872/2.0) with Gaussian stand-ins for
+#: their tabulated n(z), and per-bin Zheng HODs brighter with redshift.
+TOMO_CELL = dict(
+    lens_z0=[0.25, 0.425, 0.575, 0.725, 0.85], lens_sigma_z=0.06,
+    lens_z_max=1.5, src_z0=[0.33, 0.52, 0.75, 0.94],
+    src_sigma_z=[0.15, 0.15, 0.17, 0.22], src_z_max=2.5,
+    log10_m_min=[11.9, 12.0, 12.1, 12.2, 12.3], log10_m_1p_offset=1.3,
+    z_pivot=0.6, alpha_lens=[1.3, 0.5, 0.8, 2.2, 2.0], a_ia=0.5,
+    eta_ia=0.0, z0_ia=0.62,
+    prior_sigma=dict(dz_lens=0.007, dz_src=0.02, m=0.01))
+#: The Jacobian's parameters: cosmology, then nuisance fields.
+TOMO_COSMO_NAMES = ("omega_m0", "sigma_8")
+TOMO_NUISANCE_NAMES = ("dz_src", "m", "a_ia")
+
+
+def tomo_nuisance(seed: int) -> dict:
+    """The cell's nuisance point: photo-z shifts and shear calibrations
+    drawn from ``seed`` at the DES Y3 prior widths, the fixed IA and
+    magnification values (numpy float64)."""
+    rng = np.random.default_rng(seed)
+    ps = TOMO_CELL["prior_sigma"]
+    return dict(dz_lens=rng.normal(0.0, ps["dz_lens"], 5),
+                dz_src=rng.normal(0.0, ps["dz_src"], 4),
+                m=rng.normal(0.0, ps["m"], 4),
+                a_ia=np.asarray(TOMO_CELL["a_ia"]),
+                eta_ia=np.asarray(TOMO_CELL["eta_ia"]),
+                z0_ia=np.asarray(TOMO_CELL["z0_ia"]),
+                alpha_lens=np.asarray(TOMO_CELL["alpha_lens"]))
+
+
+def tomo_jax_pipeline(grid):
+    """The cell's JAX pipeline on ``grid``."""
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_halo, projection
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.parallel.sweep import make_tomographic_pipeline
+
+    c = TOMO_CELL
+
+    def gauss(z0, sz, z_max):
+        return projection.DNdzGaussian(
+            z_min=jnp.asarray(0.0), z_max=jnp.asarray(z_max),
+            z0=jnp.asarray(z0), sigma_z=jnp.asarray(sz))
+
+    lens = [gauss(z0, c["lens_sigma_z"], c["lens_z_max"])
+            for z0 in c["lens_z0"]]
+    src = [gauss(z0, sz, c["src_z_max"])
+           for z0, sz in zip(c["src_z0"], c["src_sigma_z"])]
+    hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                        log10_m_1p=m + c["log10_m_1p_offset"])
+            for m in c["log10_m_min"]]
+    return make_tomographic_pipeline(default_halo(), hods, lens, src,
+                                     grid=grid, z_pivot=c["z_pivot"],
+                                     with_nuisance=True,
+                                     include_magnification=True)
+
+
+def tomo_jacobian(fn, cosmo, nuisance, nuisance_names):
+    """(vector, jax.jacfwd of it) at one cosmology and nuisance point
+    with respect to (omega_m0, sigma_8, *nuisance_names), omega_l0 =
+    1 - omega_m0."""
+    import jax
+    import jax.numpy as jnp
+
+    sizes = [int(np.size(getattr(nuisance, n))) for n in nuisance_names]
+    offs = np.concatenate([[0], np.cumsum(sizes)]).astype(int) + 2
+
+    def vec(p):
+        c = dataclasses.replace(cosmo, omega_m0=p[0], omega_l0=1.0 - p[0],
+                                sigma_8=p[1])
+        nu = dataclasses.replace(nuisance, **{
+            n: p[offs[i]:offs[i + 1]].reshape(
+                np.shape(getattr(nuisance, n)))
+            for i, n in enumerate(nuisance_names)})
+        return fn(c, nu)["vector"]
+
+    p = jnp.concatenate([jnp.stack([cosmo.omega_m0, cosmo.sigma_8])]
+                        + [jnp.ravel(getattr(nuisance, n))
+                           for n in nuisance_names])
+    val, jac = jax.jit(lambda q: (vec(q), jax.jacfwd(vec)(q)))(p)
+    return np.asarray(val), np.asarray(jac)
+
+
+def tomo_reference(seed: int):
+    """The content of tests/data/torch_tomo_reference.json (JAX float64;
+    see the module docstring)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo, default_halo
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.params import DEFAULT_GRID
+    from chomp_tpu.parallel.sweep import (Nuisance3x2pt,
+                                          make_tomographic_pipeline)
+    from tests import test_torch_tomographic as tt
+
+    t0 = time.perf_counter()
+    fn = tomo_jax_pipeline(DEFAULT_GRID)
+    nu_np = tomo_nuisance(seed)
+    nu = Nuisance3x2pt(**{k: jnp.asarray(v) for k, v in nu_np.items()})
+    oms, s8s = cosmologies(INDICES)
+    out = jax.jit(jax.vmap(fn, in_axes=(0, None)))(jax_batch(oms, s8s), nu)
+    keys = ("w_theta", "gamma_t", "xi_plus", "xi_minus", "n_g")
+    full = {"grid": dataclasses.asdict(DEFAULT_GRID), "n_cosmo": N_COSMO,
+            "indices": list(INDICES), "omega_m0": oms.tolist(),
+            "sigma_8": s8s.tolist(),
+            **{k: np.asarray(out[k]).tolist() for k in keys}}
+    print(f"cell outputs: {time.perf_counter() - t0:.1f} s", flush=True)
+    fid = dataclasses.replace(default_cosmo(), omega_m0=FIDUCIAL[0],
+                              omega_l0=1.0 - FIDUCIAL[0],
+                              sigma_8=FIDUCIAL[1])
+    val, jac = tomo_jacobian(fn, fid, nu, TOMO_NUISANCE_NAMES)
+    full["jacobian"] = {"omega_m0": FIDUCIAL[0], "sigma_8": FIDUCIAL[1],
+                        "cosmo_names": list(TOMO_COSMO_NAMES),
+                        "nuisance_names": list(TOMO_NUISANCE_NAMES),
+                        "vector": val.tolist(), "jacobian": jac.tolist()}
+    print(f"cell jacfwd: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The parity grid: the four cases of tests/test_torch_tomographic.py
+    # and the jacfwd at row 1 of its magnification case.
+    row = 1
+    om, s8 = tt.cosmologies()
+    pts = {k: v[row] for k, v in tt.nuisance_points(True).items()}
+    fn_tiny = make_tomographic_pipeline(
+        default_halo(), [default_hod(), default_hod(**tt.HOD_B)], tt.LENS,
+        tt.SRC, grid=tt.GRID, z_pivot=tt.Z_PIVOT, with_nuisance=True,
+        include_magnification=True)
+    c = dataclasses.replace(default_cosmo(), omega_m0=om[row],
+                            omega_l0=1.0 - om[row], sigma_8=s8[row])
+    val, jac = tomo_jacobian(
+        fn_tiny, c, Nuisance3x2pt(**{k: jnp.asarray(v)
+                                     for k, v in pts.items()}),
+        TOMO_NUISANCE_NAMES)
+    cases = tt.jax_cases()
+    tiny = {"grid": dataclasses.asdict(tt.GRID), "omega_m0": om.tolist(),
+            "sigma_8": s8.tolist(),
+            "cases": {case: {k: v.tolist() for k, v in out.items()}
+                      for case, out in cases.items()},
+            "row": row,
+            "nuisance": {k: np.asarray(v).tolist() for k, v in pts.items()},
+            "nuisance_names": list(TOMO_NUISANCE_NAMES),
+            "vector": val.tolist(), "jacobian": jac.tolist()}
+    print(f"parity-grid jacfwd: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"config": "DES Y3-like tomographic 3x2pt cell "
+                      "(make_tomographic_pipeline, per-bin HODs, "
+                      "with_nuisance, include_magnification), JAX float64 "
+                      "CPU",
+            "seed": seed, "cell": TOMO_CELL,
+            "nuisance": {k: np.asarray(v).tolist() for k, v in nu_np.items()},
+            "default_grid": full, "tiny_grid": tiny}
+
+
+def write_tomo_reference(seed: int):
+    path = DATA / "torch_tomo_reference.json"
+    path.write_text(json.dumps(tomo_reference(seed), indent=1) + "\n")
+    print(f"wrote {path}")
+
+
 FILES = ("torch_slice_reference.json", "torch_table_reference.json",
-         "torch_grad_reference.json", "torch_exactz_reference.json")
+         "torch_grad_reference.json", "torch_exactz_reference.json",
+         "torch_tomo_reference.json")
 
 
 def main():
@@ -371,7 +548,13 @@ def main():
     sys.path.insert(0, str(REPO))
     import jax
 
-    names = sys.argv[1:] or list(FILES)
+    args = sys.argv[1:]
+    seed = 0
+    if "--seed" in args:
+        i = args.index("--seed")
+        seed = int(args[i + 1])
+        del args[i:i + 2]
+    names = args or list(FILES)
     unknown = set(names) - set(FILES)
     if unknown:
         raise SystemExit(f"unknown file(s) {sorted(unknown)}; choose from "
@@ -385,6 +568,8 @@ def main():
         write_grad_reference()
     if FILES[3] in names:
         write_exactz_reference()
+    if FILES[4] in names:
+        write_tomo_reference(seed)
 
 
 def write_slice_and_table():
