@@ -97,9 +97,10 @@ order (any failure exits nonzero; nothing falls back):
    at the JAX package's tests/test_exact_z_lattice.py configuration
    against its ``projection.limber_cl_exact_z`` (1e-4) and its lattice
    route (1e-10); forward and forward+backward walls and peak memory; the
-   Jacobians at the 3 reference cosmologies (float32 < 1e-3 against the
-   card's float64 plain path, float64 kernels < 1e-10, float64 plain
-   against the JAX jacfwd < 1e-9);
+   Jacobians at the 3 reference cosmologies (float32 < 1e-3 and float64
+   kernels < 1e-9 against the JAX jacfwd at all 3; at the first, float32
+   < 1e-3 against the card's float64 plain path, float64 kernels <
+   1e-10, float64 plain against the JAX jacfwd < 1e-9);
 12. shear: configuration A with ``include_shear=True`` on both routes at
    B = 512, float32: launch counts forward and backward (lattice A 1, C
    3; table A 1, B 4); w, gamma_t and xi+ worst bin and xi- relative to
@@ -118,8 +119,9 @@ order (any failure exits nonzero; nothing falls back):
    and shapes; w, gamma_t and xi+ worst bin (rows that change sign over
    theta, and xi-, relative to the row's peak) < 1e-4 against the card's
    float64 plain path and the committed JAX float64 values, float64
-   kernels vs plain (1e-12), plain vs JAX (1e-10); kernel A on the 2560
-   folded rows at phase 2's gates, with its time and bound; kernel C on
+   kernels vs plain (1e-12), plain vs JAX (1e-10); kernels A and A' on 8
+   of the 2560 folded rows at phase 2's and 8's gates, with their times
+   over all rows and bounds; kernel C on
    the forward's own rows of each operator (M = 12800, 20480, 5120) at
    phase 3's gates, with its time, the float64 ``torch.matmul``'s and the
    bound; the forward wall and peak memory;
@@ -133,19 +135,49 @@ order (any failure exits nonzero; nothing falls back):
    against the card's float64, float64 < 1e-9 against the committed JAX
    jacfwd, exact zeros where JAX's column is zero); ``hmc`` over 64
    chains (2 steps x 5 leapfrogs, Fisher mass with the DES Y3 priors)
-   must stay finite with mean acceptance > 0.5.
+   must stay finite with mean acceptance > 0.5;
+15-19. the pipelines' options, the cells of tests/data/
+   torch_options_reference.json (OPTION_CELLS of
+   tools/torch_slice_reference.py), each in float32 at full width: launch
+   counts around the forward (and forward+backward), finiteness and
+   shapes, the same gates as phases 5-14 (worst bin < 1e-4 against the
+   card's float64 plain path on the checked cosmologies and against the
+   committed JAX float64 values, relative to the row's peak for xi- and
+   for rows that change sign; float64 kernels vs plain 1e-12, plain vs
+   JAX 1e-10), walls and peak memory:
+   15. config A with shear, BAO, halofit, the kappa_CMB row and the
+       non-Limber repair at ell 60 with RSD (A 1, C 3; A' 1, C' 3), its
+       non-Limber corrections in float32 against float64 (1e-6 of the
+       corrected row's peak), kernel A on its BAO nodes (phase 2's
+       gates) and the Jacobian over (omega_m0, sigma_8) at the 3
+       reference cosmologies (float32 < 1e-3 of each column's peak
+       against float64 and JAX, float64 < 1e-9 against the JAX jacfwd);
+   16. curved sky at the 20 DES Y3 theta, Tinker, linear mm legs, kappa_CMB
+       and the curved non-Limber operator (A 1, C 4; A' 1, C' 4), kernel A
+       on its Tinker nodes and kernel C on the forward's own rows at each
+       curved operator (phase 3's gates, with the float64 torch.matmul);
+   17. config B (J = 6, 64 cosmologies) curved at DES theta with halofit
+       at the 384 anchor rows, BAO, shear and kappa_CMB (A 1, C 4);
+   18. the table route with BAO, Tinker and shear (A 1, B 4) and kernel B
+       on its gg C_ell rows (phase 6's gates);
+   19. the tomographic cell of phase 13 curved at DES theta with halofit,
+       BAO, kappa_CMB and the non-Limber repair with RSD (A 1 over 2560
+       rows, C 4; A' 1, C' 4), its non-Limber corrections in float32
+       against float64, A and A' on the 8 checked rows (phase 2's and
+       8's gates) with their times over all rows, and C and C' at each
+       curved operator's row count.
 
-Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
+Each phase prints its seconds (``[time] phase N``).  Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
 over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
 taken in turns with the library call or plain version (other, kernel,
 kernel, other); after phase 10, each kernel's and library call's device
 time per call from torch.profiler's kernel records ("not measured" where
 it records none), and the device's busy share of one forward+backward
 per route, of configuration B's and of the tomographic cell's (and of
-its forward).  Each main path (phases 5, 7, each route's
-forward+backward in 9, and the forwards and forward+backwards of 11, 12,
-13 and 14) runs with every launch count set to 0 just before it and
-read just after.  The last lines are the card
+its forward), and of each option cell's forward.  Each main path (phases 5, 7, each route's
+forward+backward in 9, and the forwards and forward+backwards of 11-19)
+runs with every launch count set to 0 just before it and read just
+after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
 FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
@@ -522,11 +554,12 @@ def jac_err(got, ref):
         axis=2)))
 
 
-def tomo_cell(ref, *, device, dtype):
+def tomo_cell(ref, *, device, dtype, halo_params=None, **options):
     """(pipeline, nuisance point without a batch axis) of the tomographic
     cell that ``ref`` (tests/data/torch_tomo_reference.json) defines:
     Gaussian lens and source dN/dz, per-bin Zheng HODs, DEFAULT_GRID,
-    ``with_nuisance`` and ``include_magnification``."""
+    ``with_nuisance`` and ``include_magnification``; ``options`` (and
+    ``halo_params``) as make_tomographic_pipeline's."""
     import torch
 
     from chomp_tpu_torch import (DNdzGaussian, default_halo, default_hod,
@@ -549,9 +582,9 @@ def tomo_cell(ref, *, device, dtype):
                         log10_m_1p=m + cell["log10_m_1p_offset"], **kw)
             for m in cell["log10_m_min"]]
     pipe = make_tomographic_pipeline(
-        default_halo(**kw), hods, lens, src, grid=DEFAULT_GRID,
-        z_pivot=cell["z_pivot"], with_nuisance=True,
-        include_magnification=True, **kw)
+        halo_params or default_halo(**kw), hods, lens, src,
+        grid=DEFAULT_GRID, z_pivot=cell["z_pivot"], with_nuisance=True,
+        include_magnification=True, **options, **kw)
     return pipe, Nuisance3x2pt(**{k: torch.tensor(v, **kw)
                                   for k, v in ref["nuisance"].items()})
 
@@ -616,6 +649,13 @@ def main():
               flush=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s (in parallel)",
           flush=True)
+    t_lap = [time.perf_counter()]
+
+    def lap(phase):
+        """Print the seconds since the last lap (or the build)."""
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
 
     oms = np.linspace(0.24, 0.32, N_COSMO)
     s8s = np.linspace(0.75, 0.88, N_COSMO)
@@ -759,6 +799,8 @@ def main():
         if not q["same"]:
             fail(f"halo_contract {name}: two launches differ")
 
+    lap("2")
+
     # -- 3. kernel C ----------------------------------------------------
     theta = tuple(np.logspace(-3, 0, 64).tolist())
     j_lo, j_hi, a_np = limber_fft.wtheta_lattice_operator(
@@ -870,6 +912,8 @@ def main():
     if not hostile < 5e-6:
         fail(f"df_contract hostile-cancellation error {hostile}")
 
+    lap("3")
+
     # -- 4. convolution precision ---------------------------------------
     # The pipeline's own lattice rows (float64, 8 cosmologies), rounded
     # to float32: the comparison isolates the float32 accumulation.
@@ -898,6 +942,8 @@ def main():
           f"{ms_conv:.3f} ms at B={N_COSMO}", flush=True)
     if not err_conv <= 1e-6:
         fail(f"conv1d float32 error {err_conv}")
+
+    lap("4")
 
     # -- 5. the slice ---------------------------------------------------
     batch, hp, hod, dist = setup(f32)
@@ -976,6 +1022,8 @@ def main():
     if not err_jax64 <= 1e-10:
         fail(f"slice float64 plain path vs JAX float64 reference: "
              f"{err_jax64}")
+
+    lap("5")
 
     # -- 6. kernel B ----------------------------------------------------
     # The table route's own C_ell rows (w: gg, gamma_t: kappa-g) of the
@@ -1060,6 +1108,8 @@ def main():
              f"{main_b['exact']} (torch.matmul: {main_b['lib_exact']})")
     del tabs, cosmo_t, model_t
 
+    lap("6")
+
     # -- 7. the table slice ---------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1138,6 +1188,8 @@ def main():
              f"{err_t_jax64}")
     if not cross < cross_gate:
         fail(f"table vs lattice route in float64: {cross}")
+
+    lap("7")
 
     # -- 8. the backward kernels against their plain versions -----------
     from chomp_tpu_torch import inference
@@ -1395,6 +1447,8 @@ def main():
         if not q["same"]:
             fail(f"{name} {shape}: two launches differ")
 
+    lap("8")
+
     # -- 9. gradients of both slices at full width ------------------------
     counted = {"halo_contract": hc.halo_contract,
                "df_contract": df32.df_contract,
@@ -1508,6 +1562,8 @@ def main():
                 fail(f"{route} route Jacobian {name}: {je[name]} (gate "
                      f"{gate})")
 
+    lap("9")
+
     # -- 10. inference on the card (lattice route) ------------------------
     fid = torch.tensor([0.278, 0.811], dtype=f64, device=dev)
     th64, p0 = inference.make_theory_fn(pipe64, default_cosmo(device=dev,
@@ -1572,6 +1628,8 @@ def main():
         fail(f"map_fit did not approach the fiducial: {d_start} -> {d_map}")
     if not (hmc_finite and acc_rate > 0.5):
         fail(f"hmc: finite={hmc_finite}, acceptance {acc_rate}")
+
+    lap("10")
 
     # -- 11. exact-z: bench.py configuration B ----------------------------
     from chomp_tpu_torch.params import GridSpec
@@ -1792,13 +1850,18 @@ def main():
     p64_ = torch.tensor(p_ref_x, **kw64)
     jx32 = inference.jacobian(th32, p32_, chunk=64).cpu().numpy()
     jx64k = inference.jacobian(th64, p64_, chunk=64).cpu().numpy()
+    # The plain path's Jacobian at the first reference cosmology only (all
+    # 3 until PR 8); the float64 kernels' Jacobian is held to the JAX
+    # jacfwd at all 3 (gate 1e-9), the float32 one to it (gate 1e-3).
     with plain_path():
-        jx64p = inference.jacobian(th64, p64_, chunk=64).cpu().numpy()
+        jx64p = inference.jacobian(th64, p64_[:1], chunk=64).cpu().numpy()
     jax_jx = np.asarray(rb["jacobian"])
-    je_x = {"f32_vs_plain64": jac_err(jx32, jx64p),
-            "k64_vs_plain64": jac_err(jx64k, jx64p),
-            "plain64_vs_jax": jac_err(jx64p, jax_jx),
-            "f32_vs_jax": jac_err(jx32, jax_jx)}
+    je_x = {"f32_vs_plain64": jac_err(jx32[:1], jx64p),
+            "k64_vs_plain64": jac_err(jx64k[:1], jx64p),
+            "plain64_vs_jax": jac_err(jx64p, jax_jx[:1]),
+            "f32_vs_jax": jac_err(jx32, jax_jx),
+            "k64_vs_jax": jac_err(jx64k, jax_jx),
+            "f32_vs_k64": jac_err(jx32, jx64k)}
     want_x = {"halo_contract": 1, "df_contract": 2, "hankel_matmul": 0}
     print(f"[exact-z] bench config B (exact_z_anchors={j_x}, z_pivot 0), "
           f"DEFAULT_GRID, B={n_x}, float32 | forward launches {launches_x} | "
@@ -1820,11 +1883,13 @@ def main():
           f"{grad_launches_x[1]} | finite={finite_gx} | wall median of 5 = "
           f"{wall_x_fb * 1e3:.1f} ms | peak device memory {peak_x_fb:.2f} GB"
           f" | Jacobian at the 3 reference cosmologies (inference.jacobian, "
-          f"chunks of 64 replicas): f32 vs card f64 plain path "
-          f"{je_x['f32_vs_plain64']:.3e} (gate 1e-3), f64 kernels vs f64 "
-          f"plain {je_x['k64_vs_plain64']:.3e} (gate 1e-10), f64 plain vs "
-          f"JAX jacfwd {je_x['plain64_vs_jax']:.3e} (gate 1e-9), f32 vs JAX "
-          f"{je_x['f32_vs_jax']:.3e}", flush=True)
+          f"chunks of 64 replicas; the plain path at the first): f32 vs "
+          f"card f64 plain path {je_x['f32_vs_plain64']:.3e} (gate 1e-3), "
+          f"f64 kernels vs f64 plain {je_x['k64_vs_plain64']:.3e} (gate "
+          f"1e-10), f64 plain vs JAX jacfwd {je_x['plain64_vs_jax']:.3e} "
+          f"(gate 1e-9); all 3: f64 kernels vs JAX {je_x['k64_vs_jax']:.3e} "
+          f"(gate 1e-9), f32 vs f64 kernels {je_x['f32_vs_k64']:.3e} (gate "
+          f"1e-3), f32 vs JAX {je_x['f32_vs_jax']:.3e}", flush=True)
     if launches_x != want_x:
         fail(f"exact-z forward launches {launches_x}; want {want_x}")
     if grad_launches_x != (want_x, want_x):
@@ -1842,10 +1907,14 @@ def main():
             ("lattice exact-z C_ell vs JAX lattice route", err_cl_lat, 1e-10),
             ("Jacobian f32 vs f64 plain", je_x["f32_vs_plain64"], 1e-3),
             ("Jacobian f64 kernels vs plain", je_x["k64_vs_plain64"], 1e-10),
-            ("Jacobian f64 plain vs JAX", je_x["plain64_vs_jax"], 1e-9)):
+            ("Jacobian f64 plain vs JAX", je_x["plain64_vs_jax"], 1e-9),
+            ("Jacobian f64 kernels vs JAX", je_x["k64_vs_jax"], 1e-9),
+            ("Jacobian f32 vs f64 kernels", je_x["f32_vs_k64"], 1e-3)):
         if not val <= gate:
             fail(f"exact-z {name}: {val} (gate {gate})")
     del out_x, out_x64, out_x64k, g_x
+
+    lap("11")
 
     # -- 12. shear: configuration A with include_shear=True ---------------
     rs = ref_x["shear"]
@@ -2031,6 +2100,8 @@ def main():
             and b_mu4["exact"] <= 2.0 * b_mu4["lib_exact"] and b_mu4["same"]):
         fail(f"hankel_matmul on the mu = 4 operator: {b_mu4}")
 
+    lap("12")
+
     # -- 13. the tomographic 3x2pt cell (DES Y3-like) ----------------------
     import dataclasses
 
@@ -2166,7 +2237,14 @@ def main():
                        device=dev)
     mat_tm64, gal_tm64 = mat_tm64[sel].contiguous(), gal_tm64[sel].contiguous()
     rows_tm = mat_tm32.shape[0]
-    a_tm = check_a(k32, mat_tm32, gal_tm32, k64, mat_tm64, gal_tm64, cheb32,
+    # A and A' are held to their plain versions on the same 8 rows in
+    # float32 as in float64 (all 2560 rows until PR 8: the plain versions
+    # over them cost tens of seconds); their times cover all rows.
+    sel32 = torch.tensor([int(check[c]) * 5 + c % 5
+                          for c in range(len(check))], device=dev)
+    mat_tc32, gal_tc32 = (mat_tm32[sel32].contiguous(),
+                          gal_tm32[sel32].contiguous())
+    a_tm = check_a(k32, mat_tc32, gal_tc32, k64, mat_tm64, gal_tm64, cheb32,
                    cheb64)
     ms_a_tm = events_ms(lambda: hc.halo_contract(k32, mat_tm32, gal_tm32,
                                                  cheb32), 20)
@@ -2180,7 +2258,7 @@ def main():
                                    hc.n_moments(f32))
     flops_tm_mat = halo_contract_flops(k32, mat_tm32, gal_tm32[:, :0],
                                        hc._lens(f32), hc.n_moments(f32))
-    bwd_tm = check_a_bwd(k32, mat_tm32, gal_tm32, k64, mat_tm64, gal_tm64,
+    bwd_tm = check_a_bwd(k32, mat_tc32, gal_tc32, k64, mat_tm64, gal_tm64,
                          35)
     ga_tm = seeded((rows_tm, hc.N_OUT, k32.numel()), 36, f32)
     ms_abwd_tm = events_ms(lambda: hc.halo_contract_bwd(
@@ -2201,7 +2279,8 @@ def main():
     # Kernel C at the cell's row counts: the forward's own convolution
     # rows (float32 inputs, float64 sums) of each operator.
     with torch.no_grad():
-        cos_c, _nu_c, models_c, rows_c = pipe_tm.probe_rows(batch, nu_tm)
+        cos_c, _nu_c, models_c, rows_c, _sp = pipe_tm.probe_rows(batch,
+                                                                  nu_tm)
         ops_tm = [pipe_tm.operator(i) for i in range(len(pipe_tm.mus))]
         jl_tm = min(o[0] for o in ops_tm)
         jh_tm = max(o[1] for o in ops_tm)
@@ -2276,7 +2355,8 @@ def main():
           f"2e-6, and <= 1.5x the plain f32 version's own "
           f"{a_tm['plain32']:.3e}) | deterministic={a_tm['same']} | kernel "
           f"{ms_a_tm:.3f} ms (CUDA events, 20 calls), plain "
-          f"{a_tm['plain_ms']:.1f} ms (1 call) | bound {bound_a_tm[0]:.4f} ms "
+          f"{a_tm['plain_ms']:.1f} ms (1 call on the 8 checked rows) | bound "
+          f"{bound_a_tm[0]:.4f} ms "
           f"by {bound_a_tm[1]} | the mass pack's share of the operations "
           f"{flops_tm_mat / flops_tm:.4f}, of which 4/5 repeat bin 0's: "
           f"{0.8 * flops_tm_mat / flops_tm:.4f} of A's operations",
@@ -2287,8 +2367,8 @@ def main():
           f"max_abs={bwd_tm['abs']:.3e} (gate 2e-5, and <= 1.5x the plain "
           f"f32 backward's own {bwd_tm['plain32']:.3e}) | deterministic="
           f"{bwd_tm['same']} | kernel {ms_abwd_tm:.3f} ms (CUDA events, 20 "
-          f"calls), plain {bwd_tm['plain_ms']:.1f} ms (1 call, in blocks of "
-          f"512 rows) | bound {bound_abwd_tm[0]:.4f} ms by "
+          f"calls), plain {bwd_tm['plain_ms']:.1f} ms (1 call on the 8 "
+          f"checked rows) | bound {bound_abwd_tm[0]:.4f} ms by "
           f"{bound_abwd_tm[1]}", flush=True)
     for mu, q in c_tm.items():
         print(f"[tomo C] mu = {mu:g}: ({q['rows']}, {q['n']}) rows | f64 "
@@ -2311,6 +2391,8 @@ def main():
               f"plain {q['plain_ms']:.4f} ms (20 calls) | bound "
               f"{q['bound'][0]:.5f} ms by {q['bound'][1]} | "
               f"{geometry(q['rows'], 64, q['n'])}", flush=True)
+    lap("13")
+
     # -- 14. tomographic gradients and inference -------------------------
     weights_tm = seeded((N_COSMO, 45 * n_th), 34, f32)
 
@@ -2449,6 +2531,483 @@ def main():
         fail(f"tomographic hmc: finite={hmc_finite_tm}, acceptance {acc_tm}")
     del jac_tm32, jac_tm64, samples_tm
 
+    lap("14")
+
+    # -- 15-19. the pipelines' options -------------------------------------
+    from chomp_tpu_torch import curved
+
+    ref_op = json.loads((REPO / "tests" / "data"
+                         / "torch_options_reference.json").read_text())
+    cells_op, rop = ref_op["cells"], ref_op["default_grid"]["cells"]
+    keys_op = ("w_theta", "gamma_t", "xi_plus", "xi_minus", "w_gk_cmb")
+
+    def op_host(out, rows=None):
+        sel = slice(None) if rows is None else rows
+        return {k: out[k].double().cpu().numpy()[sel]
+                for k in keys_op + ("n_g",) if k in out}
+
+    def op_err(got, ref):
+        """{key: error}: the worst bin of each row that keeps one sign over
+        theta, the worst error relative to the row's peak for the others
+        and for xi-; n_g by its worst element."""
+        e = {}
+        for k, r in ref.items():
+            g, r = np.asarray(got[k]), np.asarray(r)
+            if k == "n_g":
+                e[k] = worst_bin(g, r)
+                continue
+            peak = np.abs(g - r).max(-1) / np.abs(r).max(-1)
+            one_sign = ((r > 0).all(-1) | (r < 0).all(-1)) & (
+                k != "xi_minus")
+            with np.errstate(divide="ignore", invalid="ignore"):
+                bins = np.abs(g / r - 1.0).max(-1)
+            e[k] = float(np.where(one_sign, bins, peak).max())
+        return e
+
+    def opt_pipe(name, dtype, idx=None):
+        """(pipeline, forward arguments) of option cell ``name`` at ``idx``
+        of its configuration's linspaces (all of them by default)."""
+        cell = cells_op[name]
+        kw = dict(device=dev, dtype=dtype)
+        theta = ref_op["des_theta_deg"] if cell["theta"] == "des" else None
+        batch_, hp_, hod_, dist_ = setup(dtype, idx, n=rop[name]["n_cosmo"])
+        hp_ = dataclasses.replace(hp_, mass_fn=torch.tensor(cell["mass_fn"],
+                                                            **kw))
+        if cell["config"] == "tomo":
+            pipe_, nu_ = tomo_cell(ref_tm, halo_params=hp_, theta_deg=theta,
+                                   **cell["options"], **kw)
+            return pipe_, (batch_, nu_)
+        return make_pipeline(
+            hp_, hod_, dist_, power_spec="power_gg", grid=DEFAULT_GRID,
+            include_lensing=True, theta_deg=theta,
+            z_pivot=1.0 if cell["config"] == "A" else 0.0,
+            **cell["options"], **kw), (batch_,)
+
+    def run_cell(name, fwd_bwd=False):
+        """Option cell ``name`` at full width in float32: launch counts,
+        finiteness and shapes, the gates' errors against the card's
+        float64 plain path and the committed JAX values, forward wall and
+        peak memory; with ``fwd_bwd`` one torch.autograd.grad of a seeded
+        linear functional of every output (with respect to omega_m0,
+        sigma_8 and, on the tomographic cell, the nuisance point's dz_src,
+        m and a_ia), its launch counts, wall and peak."""
+        r = rop[name]
+        n = r["n_cosmo"]
+        idx_r = np.asarray(r["indices"])
+        chk = check if n == N_COSMO else check_x
+        if not np.allclose(r["omega_m0"], np.linspace(0.24, 0.32, n)[idx_r]):
+            fail(f"option cell {name}: reference cosmologies differ")
+        meas = sorted(set(chk.tolist()) | set(idx_r.tolist()))
+        pos_chk = [meas.index(i) for i in chk]
+        pos_ref = [meas.index(i) for i in idx_r]
+        t0 = time.perf_counter()
+        pipe_, args = opt_pipe(name, f32)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero()
+        with torch.no_grad():
+            out = pipe_(*args)
+        torch.cuda.synchronize()
+        fw = counts()[0]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = op_host(out)
+        finite = all(bool(torch.isfinite(v).all()) for k, v in out.items()
+                     if k != "theta_deg")
+        ref_out = {k: np.asarray(v) for k, v in r["outputs"].items()
+                   if k in keys_op + ("n_g",)}
+        shape_ok = all(k in got and got[k].shape == (n,) + v.shape[1:]
+                       for k, v in ref_out.items())
+        shapes = {k: tuple(v.shape) for k, v in out.items()
+                  if k in keys_op + ("vector",)}
+        del out
+        pipe64, args64 = opt_pipe(name, f64, meas)
+        with plain_path():
+            plain = op_host(pipe64(*args64))
+        kern = op_host(pipe64(*args64))
+
+        def sub(d, rows):
+            return {k: v[rows] for k, v in d.items()}
+
+        err = {"vs_plain": op_err(sub(got, chk), sub(plain, pos_chk)),
+               "vs_jax": op_err(sub(got, idx_r), ref_out),
+               "k64": op_err(kern, plain),
+               "plain_vs_jax": op_err(sub(plain, pos_ref), ref_out)}
+        with torch.no_grad():
+            wall = median_wall(lambda: pipe_(*args), 3)
+        q = dict(pipe=pipe_, pipe64=pipe64, args=args, args64=args64,
+                 chk=chk, pos_chk=pos_chk, launches=fw, peak=peak,
+                 wall=wall, err=err, finite=finite, shape_ok=shape_ok,
+                 shapes=shapes, build_s=build_s, plain=plain, n=n)
+        if fwd_bwd:
+            n_out = sum(int(np.prod(v[1:])) for k, v in shapes.items()
+                        if k in keys_op)
+            weights = seeded((n, n_out), 50, f32)
+            nu0 = args[1] if len(args) > 1 else None
+
+            def grad_run():
+                om = torch.tensor(np.linspace(0.24, 0.32, n), dtype=f32,
+                                  device=dev, requires_grad=True)
+                s8 = torch.tensor(np.linspace(0.75, 0.88, n), dtype=f32,
+                                  device=dev, requires_grad=True)
+                cos = broadcast_cosmo(default_cosmo(device=dev, dtype=f32),
+                                      omega_m0=om, omega_l0=1.0 - om,
+                                      sigma_8=s8)
+                leaves = ({k: getattr(nu0, k).clone().requires_grad_(True)
+                           for k in ("dz_src", "m", "a_ia")}
+                          if nu0 is not None else {})
+                o = (pipe_(cos, dataclasses.replace(nu0, **leaves))
+                     if nu0 is not None else pipe_(cos))
+                vec = torch.cat([o[k].flatten(1) for k in keys_op if k in o],
+                                dim=-1)
+                return torch.autograd.grad((vec * weights).sum(),
+                                           (om, s8, *leaves.values()))
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts_zero()
+            g = grad_run()
+            torch.cuda.synchronize()
+            q["grad_launches"] = counts()
+            q["peak_fb"] = torch.cuda.max_memory_allocated() / 1e9
+            q["finite_grad"] = all(bool(torch.isfinite(x).all()) for x in g)
+            del g
+            q["wall_fb"] = median_wall(grad_run, 3)
+        return q
+
+    def report_cell(label, q, want):
+        e = q["err"]
+        print(f"[{label}] B={q['n']}, float32, DEFAULT_GRID | build "
+              f"{q['build_s']:.1f} s | forward launches {q['launches']} | "
+              f"finite={q['finite']} shape_ok={q['shape_ok']} {q['shapes']} "
+              f"| vs card f64 plain path ({len(q['chk'])} cosmologies): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e["vs_plain"].items())
+              + " (gate 1e-4; worst bin, row peak for xi- and rows that "
+              "change sign) | vs JAX f64 (3 cosmologies): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e["vs_jax"].items())
+              + f" (gate 1e-4) | f64 kernels vs plain "
+              f"{max(e['k64'].values()):.3e} (gate 1e-12) | f64 plain vs JAX "
+              f"{max(e['plain_vs_jax'].values()):.3e} (gate 1e-10) | forward "
+              f"wall median of 3 = {q['wall'] * 1e3:.1f} ms "
+              f"({q['wall'] / q['n'] * 1e3:.3f} ms/cosmology), peak "
+              f"{q['peak']:.2f} GB"
+              + (f" | forward+backward launches {q['grad_launches'][0]} / "
+                 f"{q['grad_launches'][1]}, finite={q['finite_grad']}, wall "
+                 f"median of 3 = {q['wall_fb'] * 1e3:.1f} ms, peak "
+                 f"{q['peak_fb']:.2f} GB" if "wall_fb" in q else ""),
+              flush=True)
+        if q["launches"] != want:
+            fail(f"{label} forward launches {q['launches']}; want {want}")
+        if "grad_launches" in q and q["grad_launches"] != (want, want):
+            fail(f"{label} forward+backward launches {q['grad_launches']}; "
+                 f"want {want} each")
+        if not (q["finite"] and q["shape_ok"] and q.get("finite_grad", True)):
+            fail(f"{label}: outputs (or gradient) not finite, or of the "
+                 f"wrong shape")
+        for what, val, gate in (
+                ("float32 vs float64 plain path", e["vs_plain"], 1e-4),
+                ("float32 vs JAX float64", e["vs_jax"], 1e-4),
+                ("float64 kernels vs plain path", e["k64"], 1e-12),
+                ("float64 plain path vs JAX", e["plain_vs_jax"], 1e-10)):
+            if not max(val.values()) <= gate:
+                fail(f"{label} {what}: {val} (gate {gate})")
+
+    def nl_check(q, label):
+        """The non-Limber corrections of the float32 pipeline against the
+        float64 one on the checked cosmologies, relative to the peak of
+        the corrected row (float64 plain path)."""
+        pipe_, pipe64 = q["pipe"], q["pipe64"]
+        b32 = setup(f32, q["chk"], n=q["n"])[0]
+        nu_args = q["args"][1:]
+        with torch.no_grad():
+            t32 = pipe_.nonlimber_terms(b32, *nu_args)
+            t64 = pipe64.nonlimber_terms(*q["args64"])
+        worst = 0.0
+        for key in t32:
+            a = t32[key].cpu().numpy()
+            b = t64[key].cpu().numpy()[q["pos_chk"]]
+            peak = np.abs(q["plain"][key][q["pos_chk"]]).max(-1)
+            worst = max(worst, float((np.abs(a - b).max(-1) / peak).max()))
+        size = float(max((np.abs(t64[k].cpu().numpy()[q["pos_chk"]]).max(-1)
+                          / np.abs(q["plain"][k][q["pos_chk"]]).max(-1)
+                          ).max() for k in t64))
+        print(f"[{label} non-Limber] float32 corrections vs float64 "
+              f"({len(q['chk'])} cosmologies): {worst:.3e} of the corrected "
+              f"row's peak (gate 1e-6); the corrections reach {size:.3e} of "
+              f"it (the einsums and the correction matmul run in float64 in "
+              f"both; the float32 pipeline's transfers are complex64 FFTs)",
+              flush=True)
+        if not worst <= 1e-6:
+            fail(f"{label} non-Limber float32 corrections: {worst}")
+        return worst, size
+
+    def a_on(q, label, rows=None):
+        """Kernel A at the cell's node arrays (phase 2's gates), its time
+        (20 calls) and bound; ``rows``: (float32 rows, float64 rows) of the
+        folded tomographic set, checked on those rows only."""
+        pipe_, pipe64 = q["pipe"], q["pipe64"]
+        if rows is None:
+            cos_a, model_a = pipe_.halo_model(q["args"][0])
+            m32, g32_ = halo.contraction_nodes(cos_a, pipe_.halo_params,
+                                               model_a)
+            cos_a, model_a = pipe64.halo_model(q["args64"][0])
+            m64, g64_ = (t[q["pos_chk"]].contiguous() for t in
+                         halo.contraction_nodes(cos_a, pipe64.halo_params,
+                                                model_a))
+            mc32, gc32 = m32, g32_
+        else:
+            (m32, g32_), = pipe_.contraction_rows(q["args"][0])
+            (m64, g64_), = pipe64.contraction_rows(q["args64"][0])
+            m64, g64_ = (t[rows[1]].contiguous() for t in (m64, g64_))
+            mc32, gc32 = (t[rows[0]].contiguous() for t in (m32, g32_))
+        m32, g32_ = m32.contiguous(), g32_.contiguous()
+        res = check_a(k32, mc32, gc32, k64, m64, g64_, cheb32, cheb64)
+        res["ms"] = events_ms(lambda: hc.halo_contract(k32, m32, g32_,
+                                                       cheb32), 20)
+        res["bound"] = bound_a_of(k32, m32, g32_)
+        res["rows"] = m32.shape[0]
+        profiled[f"halo_contract {label}"] = (
+            lambda: hc.halo_contract(k32, m32, g32_, cheb32), None, 5)
+        if not (res["f64"] <= 1e-12 and res["f32"] <= 2e-6
+                and res["f32"] <= 1.5 * res["plain32"] and res["same"]):
+            fail(f"halo_contract at the {label} nodes: {res}")
+        if rows is not None:
+            res["bwd"] = check_a_bwd(k32, mc32, gc32, k64, m64, g64_, 51)
+            ga = seeded((m32.shape[0], hc.N_OUT, k32.numel()), 52, f32)
+            res["bwd_ms"] = events_ms(lambda: hc.halo_contract_bwd(
+                k32, m32, g32_, cheb32, ga), 10)
+            res["bwd_bound"] = bound_abwd_of(k32, m32, g32_, ga)
+            b = res["bwd"]
+            if not (b["f64"] <= 1e-12 and b["f32"] <= 2e-5
+                    and b["f32"] <= 1.5 * b["plain32"] and b["same"]):
+                fail(f"halo_contract_bwd at the {label} rows: {b}")
+        print(f"[{label} A] {res['rows']} rows | f64 rel_to_peak="
+              f"{res['f64']:.3e} (gate 1e-12) | f32 vs plain in f64 "
+              f"{res['f32']:.3e} (gate 2e-6, <= 1.5x the plain f32's "
+              f"{res['plain32']:.3e}) | deterministic={res['same']} | kernel "
+              f"{res['ms']:.3f} ms (CUDA events, 20 calls) | bound "
+              f"{res['bound'][0]:.4f} ms by {res['bound'][1]}"
+              + (f" | A' on the {len(rows[0])} checked rows: f64 "
+                 f"{res['bwd']['f64']:.3e} (gate 1e-12), f32 "
+                 f"{res['bwd']['f32']:.3e} (gate 2e-5, plain f32 "
+                 f"{res['bwd']['plain32']:.3e}), all rows "
+                 f"{res['bwd_ms']:.3f} ms (10 calls), bound "
+                 f"{res['bwd_bound'][0]:.4f} ms" if rows is not None else ""),
+              flush=True)
+        return res
+
+    def c_on(q, label, conv64, jl, row_ops, with_bwd):
+        """Kernel C (and C') on the forward's own convolution rows of each
+        operator of the cell (phase 3's and 8's gates), with times, the
+        float64 torch.matmul's and bounds."""
+        pipe_ = q["pipe"]
+        res = []
+        for i, (mu, stat) in enumerate(pipe_.specs):
+            rl = [r for r, ops in enumerate(row_ops) if i in ops]
+            lo, hi = pipe_.windows[i]
+            c64_i = conv64[:, rl, lo - jl:hi - jl].reshape(
+                -1, hi - lo).contiguous()
+            a_np_i = (curved.curved_lattice_operator(
+                pipe_.theta_key, DEFAULT_GRID, mu, stat=stat)[2]
+                if pipe_.geometry == "curved" else
+                limber_fft.wtheta_lattice_operator(pipe_.theta_key,
+                                                   DEFAULT_GRID, mu)[2])
+            c = check_c(c64_i, a_np_i)
+            c32_i = c64_i.to(f32)
+            c32_i64 = c32_i.double()
+            a64_i = torch.tensor(a_np_i, device=dev)
+            hi_i, lo_i = (torch.tensor(x, device=dev)
+                          for x in df32.split_operator(a_np_i))
+            c["ms"], c["lib_ms"] = in_turns_ms(
+                lambda c_=c32_i, h=hi_i, l_=lo_i: df32.df_contract(c_, h, l_),
+                lambda c_=c32_i64, a=a64_i: c_ @ a.T, 20, 20)
+            m_i, n_i, t_i = c32_i.shape[0], c32_i.shape[1], hi_i.shape[0]
+            c["rows"], c["n"], c["spec"] = m_i, n_i, (mu, stat)
+            c["bound"] = bound(2.0 * m_i * n_i * t_i,
+                               4 * (m_i * n_i + 2 * t_i * n_i + m_i * t_i))
+            c["geometry"] = geometry(m_i, n_i, t_i)
+            profiled[f"df_contract {label} {mu:g} {stat}"] = (
+                lambda c_=c32_i, h=hi_i, l_=lo_i: df32.df_contract(c_, h, l_),
+                lambda c_=c32_i64, a=a64_i: c_ @ a.T, 20)
+            if not (c["f64"] <= 1e-12 and c["plain"] <= 1e-6
+                    and c["exact"] <= 1e-7 and c["same"]):
+                fail(f"df_contract at the {label} ({mu:g}, {stat}) rows: {c}")
+            print(f"[{label} C] ({mu:g}, {stat}): ({m_i}, {n_i}) x ({t_i}, "
+                  f"{n_i}) | f64 rel_to_peak={c['f64']:.3e} (gate 1e-12) | "
+                  f"f32 vs plain {c['plain']:.3e} (gate 1e-6) | f32 vs exact "
+                  f"{c['exact']:.3e} (gate 1e-7) | deterministic={c['same']} "
+                  f"| kernel {c['ms']:.4f} ms, f64 torch.matmul "
+                  f"{c['lib_ms']:.4f} ms (CUDA events, 20 calls, in turns) | "
+                  f"bound {c['bound'][0]:.5f} ms by {c['bound'][1]} | "
+                  f"{c['geometry']}", flush=True)
+            if with_bwd:
+                g_i = seeded((m_i, t_i), 60 + i)
+                b = check_bc_bwd(df32.df_contract_bwd, g_i, (a64_i,),
+                                 (hi_i, lo_i), prod_c)
+                g32_i = g_i.to(f32)
+                g32_i64 = g32_i.double()
+                b["ms"], b["lib_ms"] = in_turns_ms(
+                    lambda g=g32_i, h=hi_i, l_=lo_i:
+                    df32.df_contract_bwd(g, h, l_),
+                    lambda g=g32_i64, a=a64_i: g @ a, 20, 20)
+                b["bound"] = bound(2.0 * m_i * n_i * t_i,
+                                   4 * (m_i * t_i + 2 * t_i * n_i
+                                        + m_i * n_i))
+                c["bwd"] = b
+                if not (b["f64"] <= 1e-12
+                        and b["exact"] <= 2.0 * b["lib_exact"] and b["same"]):
+                    fail(f"df_contract_bwd at the {label} ({mu:g}, {stat}) "
+                         f"rows: {b}")
+                print(f"[{label} C'] ({mu:g}, {stat}): ({m_i}, {t_i}) -> "
+                      f"({m_i}, {n_i}) | f64 rel_to_row_peak={b['f64']:.3e} "
+                      f"(gate 1e-12) | f32 vs exact {b['exact']:.3e}, "
+                      f"torch.matmul f32 {b['lib_exact']:.3e} (gate 2x) | "
+                      f"deterministic={b['same']} | kernel {b['ms']:.4f} ms, "
+                      f"f64 torch.matmul {b['lib_ms']:.4f} ms | bound "
+                      f"{b['bound'][0]:.5f} ms by {b['bound'][1]}",
+                      flush=True)
+            res.append(c)
+        return res
+
+    def conv_of(q):
+        """The float64 convolution sums of the separable lattice cell's probe
+        rows over its operators' windows: (conv, j_lo, row operators)."""
+        pipe_ = q["pipe"]
+        with torch.no_grad():
+            cos_c, model_c = pipe_.halo_model(q["args"][0])
+            p_all = pipe_._separable_spectra(cos_c, model_c)[0]
+            lat = limber_fft.LatticeState(cos_c, pipe_.st,
+                                          model_c.mass.growth)
+            g_r = lat.g_rows([(wa, wb) for wa, wb, _k, _s in pipe_.probes])
+            p_r = torch.stack([p_all[kind] for _a, _b, kind, _s
+                               in pipe_.probes], dim=1)
+            jl = min(w[0] for w in pipe_.windows)
+            jh = max(w[1] for w in pipe_.windows)
+            conv = limber_fft._conv_direct_rows64(p_r, g_r, jl, jh)
+        ops = [[pipe_.specs.index(spec) for spec, _key in s]
+               for *_p, s in pipe_.probes]
+        return conv, jl, ops
+
+    want_c3 = {"halo_contract": 1, "df_contract": 3, "hankel_matmul": 0}
+    want_c4 = {"halo_contract": 1, "df_contract": 4, "hankel_matmul": 0}
+
+    # -- 15. flat 3x2pt + kappa_CMB with the options on ------------------
+    q15 = run_cell("flat_options", fwd_bwd=True)
+    report_cell("options flat", q15, want_c3)
+    nl15 = nl_check(q15, "options flat")
+    a15 = a_on(q15, "options flat (BAO)")
+    r15 = rop["flat_options"]
+    n_th15 = DEFAULT_GRID.n_theta
+    out_keys15 = [k for k in keys_op if k in q15["shapes"]]
+    th32, _ = inference.make_theory_fn(
+        q15["pipe"], default_cosmo(device=dev, dtype=f32), output=out_keys15)
+    th64, _ = inference.make_theory_fn(
+        q15["pipe64"], default_cosmo(device=dev, dtype=f64),
+        output=out_keys15)
+    p15 = np.stack([r15["omega_m0"], r15["sigma_8"]], axis=1)
+    t0 = time.perf_counter()
+    j15_32 = inference.jacobian(th32, torch.tensor(p15, dtype=f32, device=dev),
+                                chunk=480).cpu().numpy()
+    j15_64 = inference.jacobian(th64, torch.tensor(p15, dtype=f64, device=dev),
+                                chunk=240).cpu().numpy()
+    jac_wall15 = time.perf_counter() - t0
+
+    def jac_err_k(got, ref, n_k):
+        got = np.asarray(got, dtype=np.float64)
+        ref = np.asarray(ref, dtype=np.float64)
+        m, n, p = ref.shape
+        d = np.abs(got - ref).reshape(m, n_k, n // n_k, p).max(axis=2)
+        return float(np.max(d / np.abs(ref).reshape(m, n_k, n // n_k,
+                                                    p).max(axis=2)))
+
+    jax_j15 = np.asarray(r15["jacobian"])
+    je15 = {"f32_vs_f64": jac_err_k(j15_32, j15_64, len(out_keys15)),
+            "f64_vs_jax": jac_err_k(j15_64, jax_j15, len(out_keys15)),
+            "f32_vs_jax": jac_err_k(j15_32, jax_j15, len(out_keys15))}
+    print(f"[options flat] Jacobian of ({', '.join(out_keys15)}) over "
+          f"(omega_m0, sigma_8) at the 3 reference cosmologies "
+          f"(inference.jacobian, {jac_wall15:.1f} s): f32 vs card f64 "
+          f"{je15['f32_vs_f64']:.3e} (gate 1e-3 of each column's peak over "
+          f"theta), f64 vs JAX jacfwd {je15['f64_vs_jax']:.3e} (gate 1e-9), "
+          f"f32 vs JAX {je15['f32_vs_jax']:.3e} (gate 1e-3)", flush=True)
+    if not (je15["f32_vs_f64"] <= 1e-3 and je15["f64_vs_jax"] <= 1e-9
+            and je15["f32_vs_jax"] <= 1e-3):
+        fail(f"options flat Jacobian: {je15}")
+    del th32, th64
+    lap("15")
+
+    # -- 16. curved sky, Tinker, linear mm legs --------------------------
+    q16 = run_cell("curved", fwd_bwd=True)
+    report_cell("options curved", q16, want_c4)
+    a16 = a_on(q16, "options curved (Tinker)")
+    conv16, jl16, ops16 = conv_of(q16)
+    c16 = c_on(q16, "options curved", conv16, jl16, ops16, with_bwd=False)
+    del conv16
+    lap("16")
+
+    # -- 17. exact-z with the options -------------------------------------
+    q17 = run_cell("exact_z")
+    report_cell("options exact-z", q17, want_c4)
+    lap("17")
+
+    # -- 18. the table route with BAO and Tinker -------------------------
+    q18 = run_cell("table")
+    report_cell("options table", q18, {"halo_contract": 1,
+                                       "df_contract": 0, "hankel_matmul": 4})
+    pipe18 = q18["pipe"]
+    with torch.no_grad():
+        cos18, model18 = pipe18.halo_model(q18["args"][0])
+        tabs18 = projection.power_tables_halo(cos18, pipe18.halo_params,
+                                              model18, pipe18.kinds,
+                                              pipe18.st)
+        cl18 = projection.limber_cl(cos18, pipe18.win_g, pipe18.win_g,
+                                    pipe18.ells, tabs18["power_gg"],
+                                    pipe18.st).contiguous()
+    b18 = check_b(cl18, pipe18.op0_t)
+    b18["ms"], b18["lib_ms"] = in_turns_ms(
+        lambda: hm.hankel_matmul(cl18, pipe18.op0_t),
+        lambda: prod_b(cl18, pipe18.op0_t.T))
+    r_b, n_b, t_b = cl18.shape[0], cl18.shape[1], pipe18.op0_t.shape[1]
+    b18["bound"] = bound(2.0 * r_b * n_b * t_b,
+                         4 * (r_b * n_b + n_b * t_b + r_b * t_b))
+    print(f"[options table B] C_ell gg rows ({r_b}, {n_b}) @ ({n_b}, {t_b}) "
+          f"| f64 rel_to_row_peak={b18['f64']:.3e} (gate 1e-12) | f32 vs "
+          f"plain max rel={b18['plain']:.3e} (gate 2e-5) | f32 vs exact "
+          f"{b18['exact']:.3e}, torch.matmul f32 {b18['lib_exact']:.3e} "
+          f"(gate 2x) | deterministic={b18['same']} | kernel "
+          f"{b18['ms']:.4f} ms, f32 torch.matmul {b18['lib_ms']:.4f} ms "
+          f"(CUDA events, 100 calls, in turns) | bound "
+          f"{b18['bound'][0]:.5f} ms by {b18['bound'][1]}", flush=True)
+    if not (b18["f64"] <= 1e-12 and b18["plain"] <= 2e-5
+            and b18["exact"] <= 2.0 * b18["lib_exact"] and b18["same"]):
+        fail(f"hankel_matmul on the options table rows: {b18}")
+    del cos18, model18, tabs18
+    lap("18")
+
+    # -- 19. the tomographic cell with the options -------------------------
+    q19 = run_cell("tomographic", fwd_bwd=True)
+    report_cell("options tomographic", q19, want_c4)
+    nl19 = nl_check(q19, "options tomographic")
+    rows19 = ([int(c) * 5 + j % 5 for j, c in enumerate(q19["chk"])],
+              [p * 5 + j % 5 for j, p in enumerate(q19["pos_chk"])])
+    a19 = a_on(q19, "options tomographic", rows=rows19)
+    pipe19 = q19["pipe"]
+    with torch.no_grad():
+        cos19, _nu19, models19, rows_c19, _sp = pipe19.probe_rows(
+            *q19["args"])
+        lat19 = pipe19.lattice(cos19, models19)
+        jl19 = min(w[0] for w in pipe19.windows)
+        jh19 = max(w[1] for w in pipe19.windows)
+        conv19 = limber_fft._conv_direct_rows64(
+            torch.stack([p for _a, _b, p, _s in rows_c19], dim=1),
+            lat19.g_rows([(wa, wb) for wa, wb, _p, _s in rows_c19]),
+            jl19, jh19)
+        del cos19, _nu19, models19, lat19, _sp
+    c19 = c_on(q19, "options tomographic", conv19, jl19,
+               [r[3] for r in rows_c19], with_bwd=True)
+    del conv19, rows_c19
+    lap("19")
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -2470,27 +3029,48 @@ def main():
         with torch.no_grad():
             pipe_tm(batch, nu_tm)
 
-    for route, (run, wall_fb) in [*runs.items(),
-                                  ("tomographic forward",
-                                   (fwd_tm, wall_tm * 1e3))]:
+    def fwd_of(q):
+        def run():
+            with torch.no_grad():
+                q["pipe"](*q["args"])
+        return run
+
+    runs_op = [(f"{k} forward", (fwd_of(q), q["wall"] * 1e3, q["n"]))
+               for k, q in (("options flat", q15), ("options curved", q16),
+                            ("options exact-z", q17), ("options table", q18),
+                            ("options tomographic", q19))]
+    for route, (run, wall_fb, *n_r) in [*runs.items(),
+                                        ("tomographic forward",
+                                         (fwd_tm, wall_tm * 1e3)),
+                                        *runs_op]:
         busy = device_ms(run, reps=1)
         what = "" if route.endswith("forward") else " forward+backward"
-        print(f"[device time] {route}{what}, B="
-              f"{n_x if route == 'exact-z' else N_COSMO}: "
+        n_r = n_r[0] if n_r else (n_x if route == "exact-z" else N_COSMO)
+        print(f"[device time] {route}{what}, B={n_r}: "
               f"device busy {fmt_ms(busy)} of a {wall_fb:.1f} ms wall"
               + (f" ({busy / wall_fb:.1%} busy)" if busy else ""),
               flush=True)
 
+    lap("device times")
+    q_op = {"options_flat": q15, "options_curved": q16,
+            "options_exact_z": q17, "options_table": q18,
+            "options_tomographic": q19}
     paths = {"lattice": launches, "table": launches_t,
              "exact_z": launches_x, "shear_lattice": shear["lattice"][
                  "launches"], "shear_table": shear["table"]["launches"],
-             "tomographic": launches_tm}
+             "tomographic": launches_tm,
+             **{k: q["launches"] for k, q in q_op.items()}}
     bwd_of = dict(grad_launches, exact_z=grad_launches_x,
                   shear_lattice=shear["lattice"]["grad_launches"],
                   shear_table=shear["table"]["grad_launches"],
-                  tomographic=grad_launches_tm)
+                  tomographic=grad_launches_tm,
+                  **{k: q["grad_launches"] for k, q in q_op.items()
+                     if "grad_launches" in q})
     bwd_paths = {route: {f"{n}_bwd": c for n, c in bw.items()}
                  for route, (_fw, bw) in bwd_of.items()}
+
+    def c_key(label, c):
+        return f"df_contract {label} {c['spec'][0]:g} {c['spec'][1]}"
 
     def record(name, source, replaces, err, ms, plain_ms, bnd, library_ms,
                dev, library_dev, paths=paths):
@@ -2520,7 +3100,15 @@ def main():
            "tomographic_plain_ms": a_tm["plain_ms"],
            "tomographic_device_ms": dtimes["halo_contract tomographic"][0],
            "tomographic_bound_ms": bound_a_tm[0],
-           "tomographic_repeated_mat_share": 0.8 * flops_tm_mat / flops_tm},
+           "tomographic_repeated_mat_share": 0.8 * flops_tm_mat / flops_tm,
+           "options": {
+               label: {"rows": a["rows"], "ms": a["ms"],
+                       "plain_ms": a["plain_ms"],
+                       "device_ms": dtimes[f"halo_contract {label}"][0],
+                       "bound_ms": a["bound"][0], "bound_by": a["bound"][1]}
+               for label, a in (("options flat (BAO)", a15),
+                                ("options curved (Tinker)", a16),
+                                ("options tomographic", a19))}},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
                bound_c, lib_ms_c, *dtimes["df_contract"])
@@ -2532,10 +3120,30 @@ def main():
              "library_device_ms": dtimes[
                  f"df_contract tomographic mu={mu:g}"][1],
              "bound_ms": q["bound"][0], "bound_by": q["bound"][1]}
-            for mu, q in c_tm.items()]},
+            for mu, q in c_tm.items()],
+           "options_curved": [
+            {"spec": list(c["spec"]), "rows": c["rows"], "width": c["n"],
+             "max_abs_err": c["abs"], "ms": c["ms"],
+             "plain_ms": c["plain_ms"], "library_ms": c["lib_ms"],
+             "device_ms": dtimes[c_key("options curved", c)][0],
+             "library_device_ms": dtimes[c_key("options curved", c)][1],
+             "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+            for c in c16],
+           "options_tomographic": [
+            {"spec": list(c["spec"]), "rows": c["rows"], "width": c["n"],
+             "max_abs_err": c["abs"], "ms": c["ms"],
+             "plain_ms": c["plain_ms"], "library_ms": c["lib_ms"],
+             "device_ms": dtimes[c_key("options tomographic", c)][0],
+             "library_device_ms": dtimes[c_key("options tomographic", c)][1],
+             "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+            for c in c19]},
         record("hankel_matmul", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47", main_b["abs"], ms_b,
-               plain_ms_b, bound_b, lib_ms_b, *dtimes["hankel_matmul"]),
+               plain_ms_b, bound_b, lib_ms_b, *dtimes["hankel_matmul"])
+        | {"options_table": {"rows": cl18.shape[0], "max_abs_err": b18["abs"],
+                             "ms": b18["ms"], "library_ms": b18["lib_ms"],
+                             "bound_ms": b18["bound"][0],
+                             "bound_by": b18["bound"][1]}},
         record("halo_contract_bwd", "chomp_tpu_torch/csrc/halo_contract.cu",
                "chomp_tpu/ops/halo_pallas.py:77 (the forward's site); "
                "autodiff; no backward kernel in the JAX package",
@@ -2554,7 +3162,10 @@ def main():
            "tomographic_plain_ms": bwd_tm["plain_ms"],
            "tomographic_device_ms": dtimes[
                "halo_contract_bwd tomographic"][0],
-           "tomographic_bound_ms": bound_abwd_tm[0]},
+           "tomographic_bound_ms": bound_abwd_tm[0],
+           "options_tomographic_rows": a19["rows"],
+           "options_tomographic_ms": a19["bwd_ms"],
+           "options_tomographic_bound_ms": a19["bwd_bound"][0]},
         record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
                "no backward kernel in the JAX package",
@@ -2569,7 +3180,13 @@ def main():
              "library_device_ms": dtimes[
                  f"df_contract_bwd tomographic mu={mu:g}"][1],
              "bound_ms": q["bound"][0], "bound_by": q["bound"][1]}
-            for mu, q in cb_tm.items()]},
+            for mu, q in cb_tm.items()],
+           "options_tomographic": [
+            {"spec": list(c["spec"]), "rows": c["rows"], "width": c["n"],
+             "max_abs_err": c["bwd"]["abs"], "ms": c["bwd"]["ms"],
+             "library_ms": c["bwd"]["lib_ms"],
+             "bound_ms": c["bwd"]["bound"][0],
+             "bound_by": c["bwd"]["bound"][1]} for c in c19]},
         record("hankel_matmul_bwd", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47 (the forward's site); "
                "autodiff; no backward kernel in the JAX package",

@@ -1,11 +1,16 @@
 """chomp_tpu_torch: the PyTorch + CUDA port of the JAX package.
 
-The port so far is the flat-sky w(theta) + gamma_t (+ xi_+-) pipeline
-(``parallel.sweep.make_pipeline``) on both of its routes: the lattice
-route (``method="fft"``, separable or exact-z) and the GL + cubic-table
-route (``method="table"``, with ``correlation``'s public surface); and
-the separable tomographic 3x2pt pipeline with its nuisances
-(``parallel.sweep.make_tomographic_pipeline``).  Three
+The port so far is the w(theta) + gamma_t (+ xi_+-, + the kappa_CMB
+cross) pipeline (``parallel.sweep.make_pipeline``) on both of its
+routes: the lattice route (``method="fft"``, separable or exact-z, flat
+or curved sky) and the GL + cubic-table route (``method="table"``, with
+``correlation``'s public surface); and the separable tomographic 3x2pt
+pipeline with its nuisances (``parallel.sweep.make_tomographic_pipeline``).
+Their options are ported: the EH98 BAO transfer (``linear``), the
+Tinker mass function (``mass``), halofit and linear mm legs
+(``nlpower``), the CMB-lensing window (``cmblens``), the curved-sky
+operators (``curved``) and the non-Limber repair with its RSD term
+(``nonlimber``).  Three
 hand-written CUDA kernels carry them: the halo-model mass contraction
 (``ops.halo_contract``), the compensated operator contraction
 (``ops.df32``) and the Hankel-operator product (``ops.hankel_matmul``),

@@ -18,13 +18,17 @@ from chomp_tpu_torch.params import C_OVER_H0, CosmoParams
 DELTA_C_EDS = 0.15 * (12.0 * math.pi) ** (2.0 / 3.0)
 
 
+def _dark_energy(c, zp1):
+    """Omega_de(z) E^2(z) of the CPL dark energy; ``c`` already shaped."""
+    return c.omega_l0 * zp1 ** (3.0 * (1.0 + c.w0 + c.wa)) * torch.exp(
+        -3.0 * c.wa * (1.0 - 1.0 / zp1))
+
+
 def e2z(cosmo: CosmoParams, z):
     """E^2(z) = H^2(z)/H0^2."""
     c = cosmo.shaped(z.dim() - 1)
     zp1 = 1.0 + z
-    de = c.omega_l0 * zp1 ** (3.0 * (1.0 + c.w0 + c.wa)) * torch.exp(
-        -3.0 * c.wa * (1.0 - 1.0 / zp1))
-    return c.omega_m0 * zp1**3 + c.omega_k0 * zp1**2 + de
+    return c.omega_m0 * zp1**3 + c.omega_k0 * zp1**2 + _dark_energy(c, zp1)
 
 
 def ez(cosmo: CosmoParams, z):
@@ -36,6 +40,12 @@ def omega_m_z(cosmo: CosmoParams, z):
     c = cosmo.shaped(z.dim() - 1)
     zp1 = 1.0 + z
     return c.omega_m0 * zp1**3 / e2z(cosmo, z)
+
+
+def omega_l_z(cosmo: CosmoParams, z):
+    """Omega_de(z) of the CPL dark energy."""
+    c = cosmo.shaped(z.dim() - 1)
+    return _dark_energy(c, 1.0 + z) / e2z(cosmo, z)
 
 
 def comoving_distance(cosmo: CosmoParams, z, st, n: int = 64):
@@ -90,6 +100,29 @@ def growth_factor(cosmo: CosmoParams, z, st, n: int = 64):
     a = 1.0 / (1.0 + z)
     one = torch.ones((1,) * max(z.dim(), 1), dtype=z.dtype, device=z.device)
     return _growth_unnorm(cosmo, a, st, n) / _growth_unnorm(cosmo, one, st, n)
+
+
+def _dln_e2_dlna(cosmo: CosmoParams, a):
+    """d ln E^2 / d ln a, analytic (CPL dark energy and curvature)."""
+    c = cosmo.shaped(a.dim() - 1)
+    zp1 = 1.0 / a
+    de = c.omega_l0 * zp1 ** (3.0 * (1.0 + c.w0 + c.wa)) * torch.exp(
+        -3.0 * c.wa * (1.0 - a))
+    e2 = c.omega_m0 * zp1**3 + c.omega_k0 * zp1**2 + de
+    d_e2 = (-3.0 * c.omega_m0 * zp1**3 - 2.0 * c.omega_k0 * zp1**2
+            + de * (-3.0 * (1.0 + c.w0 + c.wa) + 3.0 * c.wa * a))
+    return d_e2 / e2
+
+
+def growth_rate(cosmo: CosmoParams, z, st, n: int = 64):
+    """Linear growth rate f(z) = dlnD/dlna of the integral-form growth of
+    :func:`growth_factor`, analytically:
+    f = (1/2) dlnE^2/dlna + 2.5 Om / (a^2 E^2 D_un(a))."""
+    a = 1.0 / (1.0 + z)
+    c = cosmo.shaped(z.dim() - 1)
+    d_un = _growth_unnorm(cosmo, a, st, n)
+    return (0.5 * _dln_e2_dlna(cosmo, a)
+            + 2.5 * c.omega_m0 / (a * a * e2z(cosmo, z) * d_un))
 
 
 def delta_c(cosmo: CosmoParams, z):

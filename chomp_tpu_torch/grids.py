@@ -135,14 +135,19 @@ class Statics(nn.Module):
     unless ``device`` names another (the CPU tests pass ``device="cpu"``).
 
     ``gl(n)`` and ``gl_unit(n)`` add a GL rule the first time an order is
-    asked for."""
+    asked for.  ``with_bao`` selects the linear transfer of everything
+    built on these statics (the JAX package's ``with_bao`` argument, fixed
+    here at construction): the EH98 form with BAO wiggles, or the
+    no-wiggle shape fit (the default)."""
 
-    def __init__(self, grid, device="cuda", dtype=torch.float64):
+    def __init__(self, grid, device="cuda", dtype=torch.float64,
+                 with_bao: bool = False):
         super().__init__()
         from chomp_tpu_torch import limber_fft
         from chomp_tpu_torch.ops.halo_contract import cheb_table
 
         self.grid = grid
+        self.with_bao = bool(with_bao)
         t = self._t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                                 device=device)
         self.register_buffer("ref", t(0.0), persistent=False)

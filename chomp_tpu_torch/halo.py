@@ -219,12 +219,21 @@ def _spectra(cosmo: CosmoParams, p_lin, r, ints):
     }
 
 
+def powers_and_two_halo(cosmo: CosmoParams, halo: HaloParams,
+                        model: HaloModel, k, st):
+    """(:func:`powers`, (h_m, h_g)): the spectra and the two-halo
+    integrals of the same kernel A launch, (B, nk) each (the non-Limber
+    RSD term reads h_m and h_g)."""
+    mat, gal = contraction_nodes(cosmo, halo, model)
+    ints = halo_contract(k.contiguous(), mat, gal, st.cheb)
+    return (_spectra(cosmo, *_linear(cosmo, model.mass.z, k, st), ints),
+            (ints[:, 0], ints[:, 1]))
+
+
 def powers(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k, st):
     """All halo-model spectra at the static ``k`` (nk,): dict with keys
     ``linear_power, power_mm, power_gm, power_mg, power_gg``, (B, nk)."""
-    mat, gal = contraction_nodes(cosmo, halo, model)
-    ints = halo_contract(k.contiguous(), mat, gal, st.cheb)
-    return _spectra(cosmo, *_linear(cosmo, model.mass.z, k, st), ints)
+    return powers_and_two_halo(cosmo, halo, model, k, st)[0]
 
 
 def _cross_gal_pack(cosmo: CosmoParams, halo: HaloParams,
@@ -323,6 +332,14 @@ def tomographic_powers(cosmo: CosmoParams, halo: HaloParams, models, k, st,
     batch as rows b L + i over the one mass pack (:func:`fold_rows`), so
     the whole set takes one kernel A launch (one per distinct galaxy node
     count: Zheng HODs all have the same)."""
+    return tomographic_powers_and_two_halo(cosmo, halo, models, k, st,
+                                           with_cross)[0]
+
+
+def tomographic_powers_and_two_halo(cosmo: CosmoParams, halo: HaloParams,
+                                    models, k, st, with_cross: bool = True):
+    """(:func:`tomographic_powers`, (h_m, [h_g of each sample])): the
+    spectra and the two-halo integrals of the same kernel A launch."""
     mat, gals, pairs = tomographic_nodes(cosmo, halo, models, st,
                                          with_cross)
     b = mat.shape[0]
@@ -344,7 +361,7 @@ def tomographic_powers(cosmo: CosmoParams, halo: HaloParams, models, k, st,
     for (i, j), cross in zip(pairs, ints[n:]):
         out[("power_gg", i, j)] = (cross[:, 3]
                                    + p_lin * ints[i][:, 1] * ints[j][:, 1])
-    return out
+    return out, (ints[0][:, 0], [ints[i][:, 1] for i in range(n)])
 
 
 def power_gg_cross(cosmo: CosmoParams, halo: HaloParams, model_a: HaloModel,

@@ -1,8 +1,8 @@
 """Lattice Limber projection — the w(theta) pipeline's lattice route.
 
 PyTorch counterpart of the JAX package's ``limber_fft.py`` (the direct
-convolution and the tomographic spectra; the whitened-FFT convolution
-is not ported).  With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du
+convolution and the tomographic spectra; the whitened-FFT convolution,
+``limber_cl_fft(conv_method="fft")``, is not ported).  With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du
 G(u) P(e^{s-u}) is a 1-D convolution of the P lattice (static ln k) with
 the window weights G on the matching static ln chi lattice; z(chi) on
 that lattice comes from Newton iteration off a static fiducial seed.
@@ -192,14 +192,41 @@ def _window_rows(cosmo, pairs, st, z, chi, z_mid):
                         * st.grid.lattice_dln for wa, wb in pairs], dim=1)
 
 
+class LatticeState:
+    """One forward's evaluations on the ln chi lattice, shared by every
+    consumer: chi (1, n_chi), the Newton z and z_mid (B, n_chi), the
+    separable growth d = D(z) / D_pivot and each distinct window (by
+    identity), evaluated the first time it is asked for."""
+
+    def __init__(self, cosmo: CosmoParams, st, growth_pivot):
+        self.cosmo, self.st = cosmo, st
+        self.chi, self.z, self.z_mid = _lattice_z(cosmo, st)
+        self.d = (background.growth_factor(cosmo, self.z, st,
+                                           st.grid.n_growth)
+                  / col(growth_pivot, 1))
+        self._wins = {}
+
+    def window(self, win):
+        """``win`` at the lattice nodes, (B, n_chi)."""
+        if id(win) not in self._wins:
+            self._wins[id(win)] = (win, _window_on_lattice(
+                self.cosmo, win, self.z, self.chi, self.st, self.z_mid))
+        return self._wins[id(win)][1]
+
+    def g_rows(self, pairs):
+        """G(u) = W_a W_b D~^2 / chi * dln of each window pair: (B, R,
+        n_chi)."""
+        dln = self.st.grid.lattice_dln
+        return torch.stack([self.window(wa) * self.window(wb) / self.chi
+                            * dln for wa, wb in pairs], dim=1) * (
+            self.d * self.d)[:, None]
+
+
 def _lattice_g_rows(cosmo: CosmoParams, pairs, st, growth_pivot):
     """Limber lattice weights G(u) = W_a W_b D^2 / chi * dln for each
     window pair in ``pairs``: (B, R, n_chi).  The lattice redshifts, the
     growth and each distinct window are evaluated once."""
-    chi, z, z_mid = _lattice_z(cosmo, st)
-    d = (background.growth_factor(cosmo, z, st, st.grid.n_growth)
-         / col(growth_pivot, 1))
-    return _window_rows(cosmo, pairs, st, z, chi, z_mid) * (d * d)[:, None]
+    return LatticeState(cosmo, st, growth_pivot).g_rows(pairs)
 
 
 def _ells_window(ells, ell_offset, st):
@@ -223,7 +250,7 @@ def limber_cl_fft(cosmo: CosmoParams, win_a, win_b, ells, p_lattice, st,
         raise NotImplementedError(
             "limber_cl_fft(conv_method='fft') (the whitened FFT "
             "convolution) is not ported to chomp_tpu_torch yet: ROADMAP "
-            "queue 1, item 7 (make_pipeline options)")
+            "queue 1, item 7b (the whitened FFT convolution)")
     if conv_method != "direct":
         raise ValueError(f"conv_method must be 'direct' or 'fft', got "
                          f"{conv_method!r}")
@@ -283,15 +310,17 @@ def exact_z_anchor_spectra(cosmo, halo_params, hod, kinds, n_z_anchor: int,
     cosmology b at anchor j, so ``halo.powers`` launches kernel A once
     (the JAX code runs the anchors one after another under ``lax.map``).
 
+    ``matter_power`` "halofit" or "linear" swaps the power_mm anchors
+    (halofit or the linear power at each anchor row, B x J rows); gg and
+    gm stay the halo model's.
+
     Returns dict(p_j={kind: (B, J, n_k)}, d_j (B, J) the growth at the
     anchors, z_nodes and w_bary (numpy), z_lo and z_hi)."""
     from chomp_tpu_torch import halo as halo_mod
 
-    if matter_power != "halo":
-        raise NotImplementedError(
-            f"exact_z_anchor_spectra(matter_power={matter_power!r}) is not "
-            "ported to chomp_tpu_torch yet: ROADMAP queue 1, item 7 "
-            "(make_pipeline options)")
+    if matter_power not in ("halo", "halofit", "linear"):
+        raise ValueError(f"matter_power must be halo|halofit|linear, got "
+                         f"{matter_power!r}")
     cosmo = cosmo.batched()
     b, j = cosmo.batch, int(n_z_anchor)
     z_nodes, w_bary = _cheb_nodes(z_anchor_lo, z_anchor_hi, j)
@@ -300,6 +329,8 @@ def exact_z_anchor_spectra(cosmo, halo_params, hod, kinds, n_z_anchor: int,
     z = torch.as_tensor(z_nodes, dtype=st.dtype, device=st.device).repeat(b)
     model = halo_mod.build_halo_model(rows, hp, hod, z, st)
     p_all = halo_mod.powers(rows, hp, model, st.lattice_k, st)
+    if "power_mm" in kinds and matter_power != "halo":
+        p_all["power_mm"] = mm_override(rows, z, matter_power, st)
     return dict(p_j={k: p_all[k].reshape(b, j, -1) for k in kinds},
                 d_j=model.mass.growth.reshape(b, j), z_nodes=z_nodes,
                 w_bary=w_bary, z_lo=float(z_anchor_lo),
@@ -427,10 +458,24 @@ def p_lattice_halo(cosmo, halo_params, model, kind: str, st):
 
 
 def p_lattice_linear(cosmo, st):
-    """Linear P(k, z = 0) on the k lattice, (B, n_k) (no BAO wiggles:
-    ``with_bao=True`` is ROADMAP queue 1, item 7)."""
+    """Linear P(k, z = 0) on the k lattice, (B, n_k), with the statics'
+    transfer (``st.with_bao``)."""
     from chomp_tpu_torch import linear
 
     z = torch.zeros(1, dtype=st.dtype, device=st.device)
     return linear.linear_power(cosmo, st.lattice_k[None, :], z, st)
+
+
+def mm_override(cosmo, z, matter_power: str, st):
+    """The power_mm lattice row of ``matter_power`` "halofit" or "linear"
+    at redshift ``z`` ((B|1,)), (B, n_k): the mm leg that the pipelines'
+    ``matter_power`` option puts in place of the halo model's."""
+    from chomp_tpu_torch import linear, nlpower
+
+    if matter_power == "halofit":
+        return nlpower.p_lattice_halofit(cosmo, z, st)
+    if matter_power == "linear":
+        return linear.linear_power(cosmo, st.lattice_k[None, :], z, st)
+    raise ValueError(f"matter_power must be halofit|linear, got "
+                     f"{matter_power!r}")
 

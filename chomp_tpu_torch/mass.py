@@ -4,8 +4,9 @@ PyTorch counterpart of the JAX package's ``mass.py`` on the slice's path:
 ``build_mass_tables`` (one set of ln M GL nodes serving as evaluation
 grid and quadrature rule, finite-range renormalized f(nu) and b(nu)),
 ``node_pack`` (the same quantities at per-cosmology panel nodes) and
-``m_star``.  Tinker (``mass_fn != 0``) is not ported yet (ROADMAP queue
-1, item 7).
+``m_star``, with the Tinker 2008 multiplicity and Tinker 2010 bias
+selected per element by ``HaloParams.mass_fn`` (0 Sheth-Tormen, 1
+Tinker; the Tinker norms are pinned to 1).
 """
 
 from __future__ import annotations
@@ -80,26 +81,67 @@ def halo_delta_c(cosmo: CosmoParams, halo: HaloParams, z):
     return torch.where(dc > 0.0, dc, fit)
 
 
-def _st_only(halo: HaloParams):
-    if bool(torch.any(halo.mass_fn != 0.0)):
-        raise NotImplementedError(
-            "mass_fn != 0 (Tinker 2008/2010) is not ported yet: ROADMAP "
-            "queue 1, item 7 (make_pipeline options)")
+#: Tinker et al. 2008 redshift-evolution exponent of b(z) at Delta = 200
+#: x mean: log10 alpha = -(0.75 / log10(Delta / 75))^1.2.
+_T08_ALPHA = float(10.0 ** (-(0.75 / np.log10(200.0 / 75.0)) ** 1.2))
+#: Tinker et al. 2010 bias coefficients at y = log10(Delta = 200).
+_T10_Y = float(np.log10(200.0))
+_T10_EXP = float(np.exp(-(4.0 / _T10_Y) ** 4))
+_T10_BIG_A = 1.0 + 0.24 * _T10_Y * _T10_EXP
+_T10_LIT_A = 0.44 * _T10_Y - 0.88
+_T10_BIG_C = 0.019 + 0.107 * _T10_Y + 0.19 * _T10_EXP
+#: Tinker 2010's bias is calibrated with the fixed EdS threshold.
+_T10_DC = 1.686
 
 
-def f_nu_raw(halo: HaloParams, nu):
-    """Un-normalized Sheth-Tormen multiplicity (nu-squared convention)."""
+def _f_tinker08_raw(nu, z, delta_c):
+    """Tinker et al. 2008 multiplicity (Delta = 200 x mean, z-evolving
+    coefficients clamped at z = 3) in the nu-squared convention:
+    f_nu = f(sigma) / (2 nu).  ``z`` and ``delta_c`` broadcast against
+    ``nu``."""
+    sig = delta_c / torch.sqrt(nu)
+    zc = torch.clamp(z, 0.0, 3.0)
+    big_a = 0.186 * (1.0 + zc) ** -0.14
+    a = 1.47 * (1.0 + zc) ** -0.06
+    b = 2.57 * (1.0 + zc) ** -_T08_ALPHA
+    f_sig = big_a * ((sig / b) ** -a + 1.0) * torch.exp(-1.19 / sig**2)
+    return f_sig / (2.0 * nu)
+
+
+def _bias_tinker10_raw(nu):
+    """Tinker et al. 2010 halo bias (Delta = 200 x mean) in the peak
+    height sqrt(nu); calibrated amplitude, not renormalized."""
+    nut = torch.sqrt(nu)
+    na = nut**_T10_LIT_A
+    return (1.0 - _T10_BIG_A * na / (na + _T10_DC**_T10_LIT_A)
+            + 0.183 * nut**1.5 + _T10_BIG_C * nut**2.4)
+
+
+def _tinker(halo: HaloParams, nd: int):
+    """Per-element selector of the Tinker forms, shaped as ``col``."""
+    return col(halo.mass_fn, nd) >= 0.5
+
+
+def f_nu_raw(halo: HaloParams, nu, z, delta_c):
+    """Un-normalized multiplicity (nu-squared convention) of
+    ``halo.mass_fn``: 0 Sheth-Tormen, 1 Tinker 2008, selected per element
+    (the fields may carry a batch axis).  ``nu`` (B, N); ``z`` and
+    ``delta_c`` (B|1,) feed the Tinker form only."""
     a, q = col(halo.st_little_a, 1), col(halo.stq, 1)
     anu = a * nu
-    return (1.0 + anu**-q) * torch.sqrt(anu) * torch.exp(-0.5 * anu) / nu
+    st = (1.0 + anu**-q) * torch.sqrt(anu) * torch.exp(-0.5 * anu) / nu
+    return torch.where(_tinker(halo, 1), _f_tinker08_raw(
+        nu, col(z, 1), col(delta_c, 1)), st)
 
 
 def bias_raw(halo: HaloParams, nu, delta_c):
-    """Un-normalized Sheth-Tormen bias; ``delta_c`` (B,)."""
+    """Un-normalized halo bias of ``halo.mass_fn``: 0 Sheth-Tormen, 1
+    Tinker 2010, per element; ``delta_c`` (B,)."""
     a, q = col(halo.st_little_a, 1), col(halo.stq, 1)
     dc = col(delta_c, 1)
     anu = a * nu
-    return (1.0 + (anu - 1.0) / dc + 2.0 * q / (dc * (1.0 + anu**q)))
+    st = (1.0 + (anu - 1.0) / dc + 2.0 * q / (dc * (1.0 + anu**q)))
+    return torch.where(_tinker(halo, 1), _bias_tinker10_raw(nu), st)
 
 
 def _sigma_nu(cosmo, m, st, z, growth, dc):
@@ -116,8 +158,9 @@ def _sigma_nu(cosmo, m, st, z, growth, dc):
 
 def build_mass_tables(cosmo: CosmoParams, halo: HaloParams, z, st
                       ) -> MassTables:
-    """All mass-function state at redshift ``z`` ((B|1,) tensor)."""
-    _st_only(halo)
+    """All mass-function state at redshift ``z`` ((B|1,) tensor).  The
+    Sheth-Tormen f and b are renormalized over the finite mass range;
+    the Tinker forms keep their calibrated amplitudes (norms 1)."""
     ln_m = st.mass_ln_m[None, :]
     w_lnm = st.mass_w[None, :]
     m = torch.exp(ln_m)
@@ -125,11 +168,14 @@ def build_mass_tables(cosmo: CosmoParams, halo: HaloParams, z, st
     dc = halo_delta_c(cosmo, halo, z)
     sigma, nu, dnu_dlnm = _sigma_nu(cosmo, m, st, z, d, dc)
 
-    f_raw = f_nu_raw(halo, nu)
-    f_norm = 1.0 / torch.sum(w_lnm * f_raw * dnu_dlnm, dim=-1)
+    tinker = _tinker(halo, 0)
+    f_raw = f_nu_raw(halo, nu, z, dc)
+    f_norm = torch.where(
+        tinker, 1.0, 1.0 / torch.sum(w_lnm * f_raw * dnu_dlnm, dim=-1))
     f_n = col(f_norm, 1) * f_raw
     b_raw = bias_raw(halo, nu, dc)
-    bias_norm = 1.0 / torch.sum(w_lnm * f_n * b_raw * dnu_dlnm, dim=-1)
+    bias_norm = torch.where(
+        tinker, 1.0, 1.0 / torch.sum(w_lnm * f_n * b_raw * dnu_dlnm, dim=-1))
     b_n = col(bias_norm, 1) * b_raw
     dndlnm = f_n * (col(cosmo.rho_bar, 1) / m) * dnu_dlnm
 
@@ -172,7 +218,8 @@ def node_pack(cosmo: CosmoParams, halo: HaloParams, tables: MassTables,
     m = torch.exp(ln_m)
     _, nu, dnu_dlnm = _sigma_nu(cosmo, m, st, tables.z, tables.growth,
                                 tables.delta_c)
-    f_n = col(tables.f_norm, 1) * f_nu_raw(halo, nu)
+    f_n = col(tables.f_norm, 1) * f_nu_raw(halo, nu, tables.z,
+                                           tables.delta_c)
     b_n = col(tables.bias_norm, 1) * bias_raw(halo, nu, tables.delta_c)
     dndlnm = f_n * (col(cosmo.rho_bar, 1) / m) * dnu_dlnm
     return NodePack(ln_m=ln_m, w_lnm=w_lnm, m=m, nu=nu, dnu_dlnm=dnu_dlnm,

@@ -1,14 +1,17 @@
-"""Batched w(theta) + gamma_t (+ xi_+-) pipelines: the flat lattice and
-table routes, and the tomographic 3x2pt pipeline.
+"""Batched w(theta) + gamma_t (+ xi_+-, + w_gk_cmb) pipelines: the lattice
+and table routes, and the tomographic 3x2pt pipeline.
 
 PyTorch counterpart of the JAX package's ``parallel/sweep.py``'s
 ``broadcast_cosmo`` and ``make_pipeline``: the fused lattice branch
-(``method="fft"``, flat geometry, sweep.py:343-406, with
+(``method="fft"``, flat or curved, sweep.py:343-406, with
 ``_fused_probe_rows`` sweep.py:452-501), its exact-z mode
 (``exact_z_anchors``, sweep.py:268-292 and 343-431) and the GL +
 cubic-table branch (``method="table"``, sweep.py:303-306 and 407-411);
-and of ``Nuisance3x2pt``, ``default_nuisance`` and the separable flat
-route of ``make_tomographic_pipeline`` (sweep.py:35-63, 504-882).
+and of ``Nuisance3x2pt``, ``default_nuisance`` and the separable route
+of ``make_tomographic_pipeline`` (sweep.py:35-63, 504-882).  Every
+physics option of the JAX functions is carried: ``with_bao``,
+``HaloParams.mass_fn``, ``matter_power``, ``include_cmb_lensing``,
+``geometry="curved"``, ``nonlimber_ell_switch`` and ``nonlimber_rsd``.
 Each pipeline is an ``nn.Module`` whose forward takes a batch of
 cosmologies (:class:`~chomp_tpu_torch.params.CosmoParams` with ``(B,)``
 fields) in place of ``jit(vmap(fn))``:
@@ -17,20 +20,22 @@ fields) in place of ``jit(vmap(fn))``:
            mode at the Chebyshev anchors, one launch over B x J rows) ->
            lattice window weights -> one grouped direct convolution for
            every probe row -> one compensated contraction per distinct
-           operator (kernel C) -> w, gamma_t, xi_+-;
+           operator (kernel C; flat Hankel or curved multipole sums) ->
+           w, gamma_t, xi_+-, w_gk_cmb; then the additive non-Limber
+           repair of w and gamma_t (FFTLog transfers, float64 sums);
     table: halo model -> ln P tables on the ln k table (kernel A) -> GL
            Limber C_ell per probe -> one Hankel + theta-binning product
-           per output (kernel B) -> w, gamma_t, xi_+-;
+           per output (kernel B) -> w, gamma_t, xi_+-, w_gk_cmb;
     tomographic: the fft route over every lens / source bin pair (per-bin
            HODs: one kernel A launch over B x n_lens rows), with the
-           nuisance windows, the magnification rows and the shear
-           calibration.
+           nuisance windows, the magnification and kappa_CMB rows and the
+           shear calibration.
 
 The static numpy operators live in module buffers, on the device and in
 the dtype chosen at construction (float32 is the serving precision;
-float64 is the reference mode).  Options of the JAX pipelines outside
-these routes raise ``NotImplementedError`` naming their ROADMAP item;
-none is silently ignored.
+float64 is the reference mode).  What the port does not carry yet raises
+``NotImplementedError`` naming its ROADMAP item (exact-z tomography);
+nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from chomp_tpu_torch import correlation, halo, limber_fft, projection
+from chomp_tpu_torch import (cmblens, correlation, curved, halo,
+                             limber_fft, nonlimber, projection)
 from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.ops.df32 import df_contract, split_operator
 from chomp_tpu_torch.ops.hankel_matmul import hankel_matmul
@@ -104,10 +110,13 @@ def _checked_batch(cosmo: CosmoParams, st) -> CosmoParams:
     return cosmo
 
 
-def _unported(option: str, item: str, where: str = "make_pipeline"):
-    raise NotImplementedError(
-        f"{where}({option}) is not ported to chomp_tpu_torch yet: "
-        f"ROADMAP {item}")
+def _cmb_window(include_cmb_lensing, device, dtype):
+    """The kappa_CMB window of ``include_cmb_lensing`` (True or a
+    ``cmblens.CMBLensingSpec``), or None when it is False / None."""
+    if include_cmb_lensing is False or include_cmb_lensing is None:
+        return None
+    return cmblens.as_cmb_spec(include_cmb_lensing).window(device=device,
+                                                           dtype=dtype)
 
 
 def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
@@ -123,20 +132,32 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
     """The flagship program as an ``nn.Module``: ``pipe(cosmo)`` ->
     dict with ``theta_deg``, ``n_g`` (B,), ``w_theta`` and (with
     ``include_lensing``) ``gamma_t``, (with ``include_shear``)
-    ``xi_plus`` and ``xi_minus``, each (B, n_theta).  Same arguments as
-    the JAX ``make_pipeline``, plus the explicit ``device`` and ``dtype``
-    every buffer and output lives in.  ``method="fft"`` builds
-    :class:`Pipeline` (the lattice route), ``method="table"``
-    :class:`TablePipeline` (the GL + cubic-table route).
+    ``xi_plus`` and ``xi_minus``, (with ``include_cmb_lensing``)
+    ``w_gk_cmb``, each (B, n_theta).  Same arguments as the JAX
+    ``make_pipeline``, plus the explicit ``device`` and ``dtype`` every
+    buffer and output lives in.  ``method="fft"`` builds :class:`Pipeline`
+    (the lattice route), ``method="table"`` :class:`TablePipeline` (the
+    GL + cubic-table route).
 
     ``exact_z_anchors`` (e.g. 6-8; the lattice route only, as in the JAX
     package) drops the separable-growth approximation: every probe's
     halo model is expanded over that many Chebyshev redshift anchors on
     [1e-3, max(dist.z_max, 1)], a window fixed here, at construction
     (``dist.z_max`` must then be one value).  ``n_g`` still comes from
-    the halo model at ``z_pivot``.  ``include_shear`` adds the
-    shear-shear correlations of the source sample ``dist`` (power_mm
-    through the convergence window on both sides; flat J0 / J4)."""
+    the halo model at ``z_pivot``.
+
+    The options, as in the JAX package: ``with_bao`` (the EH98 transfer
+    with wiggles), ``halo_params.mass_fn = 1`` (Tinker), ``include_shear``
+    (xi_+- of the source sample ``dist``), ``include_cmb_lensing`` (the
+    kappa_CMB cross w_gk_cmb, one more convolution row),
+    ``matter_power`` "halofit" / "linear" (the mm legs only),
+    ``geometry="curved"`` (exact sphere multipole operators, lattice
+    route), ``nonlimber_ell_switch`` (the additive exact low-ell repair
+    of w and gamma_t; with ``exact_z_anchors`` it runs separably off one
+    more pivot halo evaluation, a second kernel A launch) and
+    ``nonlimber_rsd`` (the linear RSD term of the galaxy leg with it).
+    The table route takes ``with_bao``, ``mass_fn`` and the kappa_CMB
+    row, and refuses the lattice-only options as the JAX package does."""
     if geometry not in ("flat", "curved"):
         raise ValueError(f"geometry must be 'flat' or 'curved', got "
                          f"{geometry!r}")
@@ -159,28 +180,24 @@ def make_pipeline(halo_params, hod, dist, power_spec: str = "power_gg",
             raise ValueError("nonlimber_ell_switch requires method='fft'")
         if matter_power != "halo":
             raise ValueError("matter_power overrides need method='fft'")
-    options = (("include_cmb_lensing", include_cmb_lensing not in (False,
-                                                                   None)),
-               ("geometry='curved'", geometry == "curved"),
-               ("nonlimber_ell_switch", bool(nonlimber_ell_switch)),
-               ("nonlimber_rsd", nonlimber_rsd),
-               (f"matter_power={matter_power!r}", matter_power != "halo"),
-               ("with_bao=True", with_bao),
-               ("halo_params.mass_fn != 0",
-                bool(torch.any(halo_params.mass_fn != 0.0))))
-    for name, on in options:
-        if on:
-            _unported(name, "queue 1, item 7 (make_pipeline options)")
     # As in the JAX make_pipeline, the anchors act on the lattice route
     # only: the table route ignores them (and skips the warning below).
     if not exact_z_anchors:
         _warn_if_separable_bias(dist, z_pivot)
     args = (halo_params, hod, dist, power_spec, theta_deg, z_pivot, grid,
             include_lensing, include_shear)
+    kw = dict(with_bao=with_bao, include_cmb_lensing=include_cmb_lensing,
+              device=device, dtype=dtype)
     if method == "table":
-        return TablePipeline(*args, device=device, dtype=dtype)
-    return Pipeline(*args, exact_z_anchors=exact_z_anchors, device=device,
-                    dtype=dtype)
+        return TablePipeline(*args, **kw)
+    return Pipeline(*args, exact_z_anchors=exact_z_anchors,
+                    geometry=geometry, matter_power=matter_power,
+                    nonlimber_ell_switch=nonlimber_ell_switch,
+                    nonlimber_rsd=nonlimber_rsd, **kw)
+
+
+def _distinct(items):
+    return tuple(dict.fromkeys(items))
 
 
 class _PipelineBase(nn.Module):
@@ -189,106 +206,173 @@ class _PipelineBase(nn.Module):
     construction (build a second pipeline for another precision), and
     the halo model at the pivot redshift.
 
-    ``probes``: (win_a, win_b, spectrum kind, ((mu, output key), ...)),
-    w(theta) first; the shear row asks for two transforms of one C_ell.
-    ``mus``: the distinct Hankel orders, in order of first request."""
+    ``probes``: (win_a, win_b, spectrum kind, (((mu, stat), output key),
+    ...)), w(theta) first; the shear row asks for two transforms of one
+    C_ell.  ``specs``: the distinct operators (mu, stat) in order of
+    first request (stat "xip" / "xim" on the curved route's shear row,
+    else None); ``mus`` their Hankel orders."""
 
     def __init__(self, halo_params, hod, dist, power_spec, theta_deg,
-                 z_pivot, grid, include_lensing, include_shear, *, device,
-                 dtype):
+                 z_pivot, grid, include_lensing, include_shear, *,
+                 with_bao=False, include_cmb_lensing=False,
+                 geometry="flat", device, dtype):
         super().__init__()
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-        self.st = Statics(grid, device=device, dtype=dtype)
+        self.st = Statics(grid, device=device, dtype=dtype,
+                          with_bao=with_bao)
         self.halo_params = halo_params.to(device, dtype)
         self.hod = hod.to(device, dtype)
         self.dist = dist.to(device, dtype)
         self.power_spec = power_spec
         self.z_pivot = float(z_pivot)
+        self.geometry = geometry
+        self.include_lensing = bool(include_lensing)
         self.win_g = projection.WindowGalaxy(dist=self.dist)
         self.win_k = projection.WindowConvergence(dist=self.dist)
+        self.win_kcmb = _cmb_window(include_cmb_lensing, device, dtype)
         if theta_deg is None:
             theta_deg = correlation.theta_bins_deg(grid)
         theta_np = np.asarray(theta_deg, dtype=np.float64)
         self.register_buffer("theta_deg", torch.as_tensor(
             theta_np, dtype=dtype, device=device), persistent=False)
         self.theta_key = tuple(theta_np.tolist())
+        curved = geometry == "curved"
         self.probes = [(self.win_g, self.win_g, power_spec,
-                        ((0.0, "w_theta"),))]
+                        (((0.0, None), "w_theta"),))]
         if include_lensing:
             self.probes.append((self.win_k, self.win_g, "power_gm",
-                                ((2.0, "gamma_t"),)))
+                                (((2.0, None), "gamma_t"),)))
         if include_shear:
-            self.probes.append((self.win_k, self.win_k, "power_mm",
-                                ((0.0, "xi_plus"), (4.0, "xi_minus"))))
-        self.mus = tuple(dict.fromkeys(
-            mu for *_p, specs in self.probes for mu, _key in specs))
-        self.kinds = tuple(dict.fromkeys(p[2] for p in self.probes))
+            self.probes.append((self.win_k, self.win_k, "power_mm", (
+                ((0.0, "xip" if curved else None), "xi_plus"),
+                ((4.0, "xim" if curved else None), "xi_minus"))))
+        if self.win_kcmb is not None:
+            self.probes.append((self.win_g, self.win_kcmb, "power_gm",
+                                (((0.0, None), "w_gk_cmb"),)))
+        self.specs = _distinct(spec for *_p, specs in self.probes
+                               for spec, _key in specs)
+        self.mus = tuple(mu for mu, _stat in self.specs)
+        self.kinds = _distinct(p[2] for p in self.probes)
 
     def halo_model(self, cosmo: CosmoParams):
         """(the batch with (B,) fields, the halo model at z_pivot); a batch
         of another dtype or device raises."""
         st = self.st
         cosmo = _checked_batch(cosmo, st)
-        z = torch.full((1,), self.z_pivot, dtype=st.dtype, device=st.device)
         return cosmo, halo.build_halo_model(cosmo, self.halo_params,
-                                            self.hod, z, st)
+                                            self.hod, self.z_pivot_t(), st)
+
+    def z_pivot_t(self):
+        st = self.st
+        return torch.full((1,), self.z_pivot, dtype=st.dtype,
+                          device=st.device)
 
 
 class Pipeline(_PipelineBase):
-    """The lattice route (``method="fft"``): flat-sky w(theta) (+ gamma_t,
-    + xi_+-) for a cosmology batch, separable-growth or, with
-    ``exact_z_anchors``, with the halo model's exact redshift evolution
-    (see :func:`make_pipeline`)."""
+    """The lattice route (``method="fft"``): w(theta) (+ gamma_t, + xi_+-,
+    + w_gk_cmb) for a cosmology batch, flat or curved, separable-growth
+    or, with ``exact_z_anchors``, with the halo model's exact redshift
+    evolution, and the non-Limber repair (see :func:`make_pipeline`)."""
 
-    def __init__(self, *args, exact_z_anchors=None, device, dtype):
-        super().__init__(*args, device=device, dtype=dtype)
+    def __init__(self, *args, exact_z_anchors=None, geometry="flat",
+                 matter_power="halo", nonlimber_ell_switch=None,
+                 nonlimber_rsd=False, device, dtype, **kw):
+        super().__init__(*args, geometry=geometry, device=device,
+                         dtype=dtype, **kw)
         grid = self.st.grid
         self.exact_z_anchors = int(exact_z_anchors or 0)
+        self.matter_power = matter_power
         # The anchor window's top, read once here (the JAX make_pipeline
         # fixes it at build time too): forward never reads back to the
         # host.
         self.z_hi_anchor = (max(float(self.dist.z_max), 1.0)
                             if self.exact_z_anchors else None)
         _register_operators(self, grid, device, dtype)
+        self.nonlimber = (_NonLimber(
+            self, nonlimber_ell_switch, nonlimber_rsd,
+            (0.0, 2.0) if self.include_lensing else (0.0,))
+            if nonlimber_ell_switch else None)
 
     def operator(self, i: int):
-        """(j_lo, j_hi, a_hi, a_lo) of the i-th operator (mu of
-        ``self.mus``); ``a_lo`` is None in float64."""
+        """(j_lo, j_hi, a_hi, a_lo) of the i-th operator (of
+        ``self.specs``); ``a_lo`` is None in float64."""
         return _operator(self, i)
 
     def forward(self, cosmo: CosmoParams) -> dict:
         st = self.st
         cosmo, model = self.halo_model(cosmo)
+        piv = model.mass.growth
         pairs = [(wa, wb) for wa, wb, _k, _s in self.probes]
+        p_all = lat = None
         if self.exact_z_anchors:
             anchors = limber_fft.exact_z_anchor_spectra(
                 cosmo, self.halo_params, self.hod, self.kinds,
-                self.exact_z_anchors, 1e-3, self.z_hi_anchor, st)
+                self.exact_z_anchors, 1e-3, self.z_hi_anchor, st,
+                matter_power=self.matter_power)
             rows = [(wa, wb, kind) for wa, wb, kind, _s in self.probes]
 
             def conv(j_lo, j_hi):
                 return limber_fft.exact_z_conv_rows(cosmo, anchors, rows, st,
                                                     j_lo, j_hi)
         else:
-            p_all = limber_fft.p_lattice_halo_all(cosmo, self.halo_params,
-                                                  model, st)
+            p_all, h = self._separable_spectra(cosmo, model)
+            lat = limber_fft.LatticeState(cosmo, st, piv)
 
             def conv(j_lo, j_hi):
-                g_rows = limber_fft._lattice_g_rows(cosmo, pairs, st,
-                                                    model.mass.growth)
                 p_rows = torch.stack([p_all[kind] for _a, _b, kind, _s
                                       in self.probes], dim=1)
-                return limber_fft._conv_direct_rows(p_rows, g_rows, j_lo,
-                                                    j_hi)
+                return limber_fft._conv_direct_rows(p_rows, lat.g_rows(pairs),
+                                                    j_lo, j_hi)
 
-        specs = [[self.mus.index(mu) for mu, _key in s]
+        specs = [[self.specs.index(spec) for spec, _key in s]
                  for *_p, s in self.probes]
         outs = _fused_probe_rows(conv, specs, self.operator)
         out = {"theta_deg": self.theta_deg, "n_g": model.n_g}
         for (*_p, s), vals in zip(self.probes, outs):
-            out.update({key: v for (_mu, key), v in zip(s, vals)})
+            out.update({key: v for (_spec, key), v in zip(s, vals)})
+        if self.nonlimber is not None:
+            if self.exact_z_anchors:
+                # The correction runs separably, off one more pivot halo
+                # evaluation (a second kernel A launch), as in the JAX
+                # package.
+                p_all, h = self._separable_spectra(cosmo, model)
+                lat = limber_fft.LatticeState(cosmo, st, piv)
+            for key, term in self._nonlimber_terms(model, p_all, h,
+                                                   lat).items():
+                out[key] = out[key] + term.to(st.dtype)
         return out
+
+    def _separable_spectra(self, cosmo, model):
+        """(spectra, (h_m, h_g)) on the k lattice at the pivot from one
+        kernel A launch, with the mm row of ``matter_power`` where a
+        probe reads it."""
+        p_all, h = halo.powers_and_two_halo(cosmo, self.halo_params, model,
+                                            self.st.lattice_k, self.st)
+        if "power_mm" in self.kinds and self.matter_power != "halo":
+            p_all = dict(p_all, power_mm=limber_fft.mm_override(
+                cosmo, self.z_pivot_t(), self.matter_power, self.st))
+        return p_all, h
+
+    def _nonlimber_terms(self, model, p_all, h, lat):
+        kk = self.nonlimber.lensing_kind
+        rows = [(self.win_g, self.win_g, p_all[self.power_spec], ("d", "d"))]
+        if self.include_lensing:
+            rows.append((self.win_g, self.win_k, p_all["power_gm"],
+                         ("d", kk)))
+        d = self.nonlimber.delta(lat, model.mass.growth, rows,
+                                 [h] * len(rows))
+        return {key: self.nonlimber.term(d_r, key == "gamma_t")
+                for key, d_r in zip(("w_theta", "gamma_t"), d)}
+
+    def nonlimber_terms(self, cosmo: CosmoParams) -> dict:
+        """The non-Limber corrections that forward adds to w_theta (and
+        gamma_t), (B, n_theta) each in float64, before the rounding to
+        the pipeline's dtype."""
+        cosmo, model = self.halo_model(cosmo)
+        return self._nonlimber_terms(
+            model, *self._separable_spectra(cosmo, model),
+            limber_fft.LatticeState(cosmo, self.st, model.mass.growth))
 
 
 class TablePipeline(_PipelineBase):
@@ -300,8 +384,8 @@ class TablePipeline(_PipelineBase):
     operators held as buffers).  ``halo.powers`` runs once per forward
     for every probe."""
 
-    def __init__(self, *args, device, dtype):
-        super().__init__(*args, device=device, dtype=dtype)
+    def __init__(self, *args, device, dtype, **kw):
+        super().__init__(*args, device=device, dtype=dtype, **kw)
         grid = self.st.grid
         self.register_buffer("ells", torch.as_tensor(
             correlation.ell_grid(grid)[0], dtype=dtype, device=device),
@@ -321,10 +405,64 @@ class TablePipeline(_PipelineBase):
         for wa, wb, kind, specs in self.probes:
             cl = projection.limber_cl(cosmo, wa, wb, self.ells, tables[kind],
                                       st)
-            for mu, key in specs:
+            for spec, key in specs:
                 out[key] = hankel_matmul(
-                    cl, getattr(self, f"op{self.mus.index(mu)}_t"))
+                    cl, getattr(self, f"op{self.specs.index(spec)}_t"))
         return out
+
+
+class _NonLimber(nn.Module):
+    """The non-Limber repair of a lattice pipeline: the node multipoles,
+    the correction operators of w (mu 0) and gamma_t (mu 2) as float64
+    buffers, and the RSD switch.  :meth:`delta` gives each row's dC (with
+    the RSD term) at the nodes, :meth:`term` its correction of a row."""
+
+    N_NODES = 20
+
+    def __init__(self, mod, ell_switch: int, rsd: bool, mus):
+        super().__init__()
+        st = mod.st
+        self.ell_switch = int(ell_switch)
+        self.rsd = bool(rsd)
+        self.ells = nonlimber.ell_nodes(self.ell_switch, self.N_NODES)
+        self.lensing_kind = "k_E" if mod.geometry == "curved" else "k_flat"
+        for mu in mus:
+            op = nonlimber.correction_operator(
+                mod.theta_key, float(mu), self.ell_switch, self.N_NODES,
+                mod.geometry)
+            self.register_buffer(f"op_mu{int(mu)}", torch.as_tensor(
+                op, dtype=torch.float64, device=st.device), persistent=False)
+        if self.rsd:
+            # The RSD term takes h_m and h_g from the forward's own kernel
+            # A launch on the k lattice: its k subset must be those
+            # lattice nodes bit for bit.
+            _kern, i_lo, n_use, _npad = nonlimber._nl_static(
+                limber_fft._lattice_key(st.grid),
+                tuple(self.ells.tolist()), "d", nonlimber.K_LO_CUT,
+                nonlimber.K_HI_CUT)
+            ln_k, _ = limber_fft._lattices(st.grid)
+            if not np.array_equal(np.exp(ln_k)[i_lo:i_lo + n_use],
+                                  np.exp(ln_k[i_lo:i_lo + n_use])):
+                raise RuntimeError("non-Limber k subset is not the lattice's "
+                                   "k bit for bit")
+
+    def delta(self, lat, piv, rows, h):
+        """dC (+ the RSD term) at the nodes, (B, L) float64, for each row
+        (win_g, win_b, p_lattice, (kind_g, kind_b)) of ``rows``; ``h``:
+        per row, the (h_m, h_g) on the k lattice of the row's galaxy
+        sample."""
+        nl = nonlimber.Corrections(lat, self.ells)
+        d = nl.delta(rows)
+        if self.rsd:
+            p_lin = nl.p_lin(piv)
+            d = [dr + nl.rsd(wg, wb, kinds[1], h_m, h_g, p_lin)
+                 for dr, (wg, wb, _p, kinds), (h_m, h_g) in zip(d, rows, h)]
+        return d
+
+    def term(self, d, lensing: bool):
+        """The correction operator of w (mu 0) or gamma_t (mu 2) on ``d``
+        (B, L): (B, n_theta) float64."""
+        return d @ (self.op_mu2 if lensing else self.op_mu0).T
 
 
 #: Rank of each Nuisance3x2pt field without a batch axis.
@@ -402,10 +540,12 @@ def make_tomographic_pipeline(halo_params, hod, lens_dists, src_dists,
     nuisance)`` with ``with_nuisance``) -> dict with ``theta_deg``,
     ``w_theta`` (B, n_lens, n_theta), ``gamma_t`` (B, n_lens n_src,
     n_theta), ``xi_plus`` / ``xi_minus`` (B, n_src (n_src+1)/2, n_theta),
-    ``n_g`` ((B,), or (B, n_lens) with per-bin HODs) and ``vector`` (B,
-    n_data): w, gamma_t, xi_+, xi_- rows concatenated in that order.
+    with ``include_cmb_lensing`` ``w_gk_cmb`` (B, n_lens, n_theta), ``n_g``
+    ((B,), or (B, n_lens) with per-bin HODs) and ``vector`` (B, n_data):
+    the w, gamma_t, xi_+, xi_- (and w_gk_cmb) rows concatenated in that
+    order, the JAX package's ``covariance.tomographic_probes`` order.
     Same arguments as the JAX ``make_tomographic_pipeline``, plus the
-    explicit ``device`` and ``dtype``; the separable flat route.
+    explicit ``device`` and ``dtype``; its separable route.
 
     ``hod`` is one HOD shared by every lens bin or a list of one HOD per
     lens bin (one mass-table build, and every bin's galaxy pack in one
@@ -413,8 +553,14 @@ def make_tomographic_pipeline(halo_params, hod, lens_dists, src_dists,
     calibration and NLA intrinsic alignments from a
     :class:`Nuisance3x2pt`; ``include_magnification`` (needs it) adds the
     lens magnification rows with slopes alpha.  Every probe row, the
-    magnification rows included, rides one grouped convolution and one
-    kernel C launch per distinct operator (mu = 0, 2, 4)."""
+    magnification and kappa_CMB rows included, rides one grouped
+    convolution and one kernel C launch per distinct operator (flat: mu
+    = 0, 2, 4; curved: P_l, d^l_20, d^l_22, d^l_2-2).  ``with_bao``,
+    ``halo_params.mass_fn``, ``matter_power`` (the mm legs: xi_+-, the
+    magnification mm rows and their kappa_CMB crosses),
+    ``nonlimber_ell_switch`` / ``nonlimber_rsd`` (every w and gamma_t row,
+    before the shear calibration) and ``geometry`` act as in
+    :func:`make_pipeline`."""
     # The JAX function's own refusals (sweep.py:595-613).
     if geometry not in ("flat", "curved"):
         raise ValueError(f"geometry must be 'flat' or 'curved', got "
@@ -435,43 +581,38 @@ def make_tomographic_pipeline(halo_params, hod, lens_dists, src_dists,
     if isinstance(hod, (list, tuple)) and len(hod) != len(lens_dists):
         raise ValueError(f"per-bin HODs: got {len(hod)} HODs for "
                          f"{len(lens_dists)} lens bins")
-    where = "make_tomographic_pipeline"
     if exact_z_anchors:
-        _unported("exact_z_anchors", "queue 1, item 8 (exact-z "
-                  "tomography)", where)
-    options = (("include_cmb_lensing", include_cmb_lensing not in (False,
-                                                                   None)),
-               ("geometry='curved'", geometry == "curved"),
-               ("nonlimber_ell_switch", bool(nonlimber_ell_switch)),
-               ("nonlimber_rsd", nonlimber_rsd),
-               (f"matter_power={matter_power!r}", matter_power != "halo"),
-               ("with_bao=True", with_bao),
-               ("halo_params.mass_fn != 0",
-                bool(torch.any(halo_params.mass_fn != 0.0))))
-    for name, on in options:
-        if on:
-            _unported(name, "queue 1, item 7 (make_pipeline options)", where)
+        raise NotImplementedError(
+            "make_tomographic_pipeline(exact_z_anchors) is not ported to "
+            "chomp_tpu_torch yet: ROADMAP queue 1, item 8.1 (exact-z "
+            "tomography)")
     for d in (*lens_dists, *src_dists):
         _warn_if_separable_bias(d, z_pivot)
-    return TomographicPipeline(halo_params, hod, lens_dists, src_dists,
-                               theta_deg, z_pivot, grid, with_nuisance,
-                               include_magnification, device=device,
-                               dtype=dtype)
+    return TomographicPipeline(
+        halo_params, hod, lens_dists, src_dists, theta_deg, z_pivot, grid,
+        with_nuisance, include_magnification, with_bao=with_bao,
+        geometry=geometry, include_cmb_lensing=include_cmb_lensing,
+        nonlimber_ell_switch=nonlimber_ell_switch,
+        nonlimber_rsd=nonlimber_rsd, matter_power=matter_power,
+        device=device, dtype=dtype)
 
 
 class TomographicPipeline(nn.Module):
-    """The separable flat route of the JAX ``make_tomographic_pipeline``
-    (sweep.py:723-783 and 855-879; see :func:`make_tomographic_pipeline`).
-    Parameters, dN/dz, windows, theta bins and the three operators live
-    on one device and dtype, fixed at construction."""
+    """The separable route of the JAX ``make_tomographic_pipeline``
+    (sweep.py:723-880; see :func:`make_tomographic_pipeline`).
+    Parameters, dN/dz, windows, theta bins and the operators live on one
+    device and dtype, fixed at construction."""
 
     def __init__(self, halo_params, hod, lens_dists, src_dists, theta_deg,
                  z_pivot, grid, with_nuisance, include_magnification, *,
-                 device, dtype):
+                 with_bao=False, geometry="flat", include_cmb_lensing=False,
+                 nonlimber_ell_switch=None, nonlimber_rsd=False,
+                 matter_power="halo", device, dtype):
         super().__init__()
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-        self.st = Statics(grid, device=device, dtype=dtype)
+        self.st = Statics(grid, device=device, dtype=dtype,
+                          with_bao=with_bao)
         self.halo_params = halo_params.to(device, dtype)
         self.per_bin = isinstance(hod, (list, tuple))
         self.hods = [h.to(device, dtype)
@@ -481,8 +622,11 @@ class TomographicPipeline(nn.Module):
         self.z_pivot = float(z_pivot)
         self.with_nuisance = bool(with_nuisance)
         self.include_magnification = bool(include_magnification)
+        self.geometry = geometry
+        self.matter_power = matter_power
         self.wins_g = [projection.WindowGalaxy(dist=d) for d in self.lens]
         self.wins_k = [projection.WindowConvergence(dist=d) for d in self.src]
+        self.win_kcmb = _cmb_window(include_cmb_lensing, device, dtype)
         n_src = len(self.src)
         self.pairs_xi = [(j, k) for j in range(n_src)
                          for k in range(j, n_src)]
@@ -492,12 +636,21 @@ class TomographicPipeline(nn.Module):
         self.register_buffer("theta_deg", torch.as_tensor(
             theta_np, dtype=dtype, device=device), persistent=False)
         self.theta_key = tuple(theta_np.tolist())
-        self.mus = (0.0, 2.0, 4.0)
+        # Operator i of each probe kind: w (and every mu = 0 row), gamma_t,
+        # then xi_+ and xi_-.
+        self.specs = (((0.0, None), (2.0, None), (0.0, "xip"), (4.0, "xim"))
+                      if geometry == "curved" else
+                      ((0.0, None), (2.0, None), (4.0, None)))
+        self.mus = tuple(mu for mu, _stat in self.specs)
+        self.ops_xi = [2, 3] if geometry == "curved" else [0, 2]
         _register_operators(self, grid, device, dtype)
+        self.nonlimber = (_NonLimber(self, nonlimber_ell_switch,
+                                     nonlimber_rsd, (0.0, 2.0))
+                          if nonlimber_ell_switch else None)
 
     def operator(self, i: int):
-        """(j_lo, j_hi, a_hi, a_lo) of the i-th operator (mu of
-        ``self.mus``); ``a_lo`` is None in float64."""
+        """(j_lo, j_hi, a_hi, a_lo) of the i-th operator (of
+        ``self.specs``); ``a_lo`` is None in float64."""
         return _operator(self, i)
 
     def windows_at(self, nu):
@@ -517,13 +670,16 @@ class TomographicPipeline(nn.Module):
         return ([projection.WindowGalaxy(dist=d) for d in lens], wins_k,
                 wk_lens)
 
+    def z_pivot_t(self):
+        st = self.st
+        return torch.full((1,), self.z_pivot, dtype=st.dtype,
+                          device=st.device)
+
     def halo_models(self, cosmo: CosmoParams):
         """The halo model of every HOD (one, or one per lens bin) at
         z_pivot, on one mass-table build."""
-        st = self.st
-        z = torch.full((1,), self.z_pivot, dtype=st.dtype, device=st.device)
-        return halo.build_halo_models(cosmo, self.halo_params, self.hods, z,
-                                      st)
+        return halo.build_halo_models(cosmo, self.halo_params, self.hods,
+                                      self.z_pivot_t(), self.st)
 
     def contraction_rows(self, cosmo: CosmoParams):
         """Kernel A's inputs as :meth:`spectra` launches it: [(mat rows,
@@ -540,27 +696,36 @@ class TomographicPipeline(nn.Module):
         return [(m, g) for _i, m, g in halo.fold_rows(mat, gals)]
 
     def spectra(self, cosmo: CosmoParams):
-        """(models, p_gg per lens bin, p_gm per lens bin, p_mm) on the k
-        lattice: one kernel A launch for every lens bin's HOD."""
+        """(models, p_gg per lens bin, p_gm per lens bin, p_mm, h) on the k
+        lattice: one kernel A launch for every lens bin's HOD.  ``p_mm`` is
+        ``matter_power``'s; ``h`` is (h_m, [h_g per lens bin]), the
+        two-halo integrals of that launch."""
         st = self.st
         n_l = len(self.lens)
         models = self.halo_models(cosmo)
         if self.per_bin:
-            p = limber_fft.p_lattice_tomographic(cosmo, self.halo_params,
-                                                 models, st, with_cross=False)
-            return (models, [p[("power_gg", i, i)] for i in range(n_l)],
-                    [p[("power_gm", i)] for i in range(n_l)], p["power_mm"])
-        p = limber_fft.p_lattice_halo_all(cosmo, self.halo_params, models[0],
-                                          st)
-        return (models, [p["power_gg"]] * n_l, [p["power_gm"]] * n_l,
-                p["power_mm"])
+            p, h = halo.tomographic_powers_and_two_halo(
+                cosmo, self.halo_params, models, st.lattice_k, st,
+                with_cross=False)
+            p_gg = [p[("power_gg", i, i)] for i in range(n_l)]
+            p_gm = [p[("power_gm", i)] for i in range(n_l)]
+        else:
+            p, (h_m, h_g) = halo.powers_and_two_halo(
+                cosmo, self.halo_params, models[0], st.lattice_k, st)
+            p_gg, p_gm = [p["power_gg"]] * n_l, [p["power_gm"]] * n_l
+            h = (h_m, [h_g] * n_l)
+        p_mm = (p["power_mm"] if self.matter_power == "halo" else
+                limber_fft.mm_override(cosmo, self.z_pivot_t(),
+                                       self.matter_power, st))
+        return models, p_gg, p_gm, p_mm, h
 
     def probe_rows(self, cosmo: CosmoParams,
                    nuisance: Nuisance3x2pt | None = None):
-        """(batch, batched nuisance point or None, halo models, rows): the
-        probe rows (win_a, win_b, spectrum on the k lattice, operator
-        indices) in the JAX order: w, gamma_t, xi (mu 0 and 4 of one
-        convolution), then the magnification rows."""
+        """(batch, batched nuisance point or None, halo models, rows, the
+        windows and spectra): the probe rows (win_a, win_b, spectrum on
+        the k lattice, operator indices) in the JAX order: w, gamma_t, xi
+        (xi_+ and xi_- of one convolution), the magnification rows, then
+        the kappa_CMB rows (and their magnification rows)."""
         st = self.st
         cosmo = _checked_batch(cosmo, st)
         nu = None
@@ -574,42 +739,86 @@ class TomographicPipeline(nn.Module):
                                  f"{st.device}, as this pipeline")
             nu = nuisance.batched(cosmo.batch)
         wins_g, wins_k, wk_lens = self.windows_at(nu)
-        models, p_gg, p_gm, p_mm = self.spectra(cosmo)
+        models, p_gg, p_gm, p_mm, h = self.spectra(cosmo)
+        n_l = len(wins_g)
         rows = ([(w, w, p_gg[i], [0]) for i, w in enumerate(wins_g)]
                 + [(wk, wg, p_gm[i], [1]) for i, wg in enumerate(wins_g)
                    for wk in wins_k]
-                + [(wins_k[j], wins_k[k], p_mm, [0, 2])
+                + [(wins_k[j], wins_k[k], p_mm, self.ops_xi)
                    for j, k in self.pairs_xi])
         if wk_lens is not None:
-            rows += [r for i in range(len(wins_g)) for r in
+            rows += [r for i in range(n_l) for r in
                      ((wins_g[i], wk_lens[i], p_gm[i], [0]),
                       (wk_lens[i], wk_lens[i], p_mm, [0]))]
-            rows += [(wk, wk_lens[i], p_mm, [1]) for i in range(len(wins_g))
+            rows += [(wk, wk_lens[i], p_mm, [1]) for i in range(n_l)
                      for wk in wins_k]
-        return cosmo, nu, models, rows
+        if self.win_kcmb is not None:
+            rows += [(wins_g[i], self.win_kcmb, p_gm[i], [0])
+                     for i in range(n_l)]
+            if wk_lens is not None:
+                rows += [(wk_lens[i], self.win_kcmb, p_mm, [0])
+                         for i in range(n_l)]
+        return cosmo, nu, models, rows, (wins_g, wins_k, p_gg, p_gm, h)
 
-    def conv_rows(self, cosmo, models, rows, j_lo: int, j_hi: int):
+    def _nonlimber_terms(self, lat, models, wins_g, wins_k, p_gg, p_gm, h):
+        """The corrections of the w rows, then the gamma_t rows (lens-major),
+        (B, n_theta) float64 each."""
+        kk = self.nonlimber.lensing_kind
+        h_m, h_g = h
+        n_l, n_s = len(wins_g), len(wins_k)
+        rows = ([(wins_g[i], wins_g[i], p_gg[i], ("d", "d"))
+                 for i in range(n_l)]
+                + [(wins_g[i], wins_k[j], p_gm[i], ("d", kk))
+                   for i in range(n_l) for j in range(n_s)])
+        hs = ([(h_m, h_g[i]) for i in range(n_l)]
+              + [(h_m, h_g[i]) for i in range(n_l) for _j in range(n_s)])
+        d = self.nonlimber.delta(lat, models[0].mass.growth, rows, hs)
+        return [self.nonlimber.term(d_r, r >= n_l) for r, d_r in enumerate(d)]
+
+    def nonlimber_terms(self, cosmo: CosmoParams,
+                        nuisance: Nuisance3x2pt | None = None) -> dict:
+        """The non-Limber corrections that forward adds (before the shear
+        calibration): {"w_theta": (B, n_lens, n_theta), "gamma_t": (B,
+        n_lens n_src, n_theta)}, float64."""
+        cosmo, _nu, models, _rows, (wins_g, wins_k, p_gg, p_gm, h) = \
+            self.probe_rows(cosmo, nuisance)
+        terms = self._nonlimber_terms(self.lattice(cosmo, models), models,
+                                      wins_g, wins_k, p_gg, p_gm, h)
+        n_l = len(wins_g)
+        return {"w_theta": torch.stack(terms[:n_l], dim=1),
+                "gamma_t": torch.stack(terms[n_l:], dim=1)}
+
+    def lattice(self, cosmo: CosmoParams, models):
+        """The forward's :class:`~chomp_tpu_torch.limber_fft.LatticeState`
+        (separable growth at the pivot)."""
+        return limber_fft.LatticeState(cosmo, self.st,
+                                       models[0].mass.growth)
+
+    def conv_rows(self, cosmo, models, rows, j_lo: int, j_hi: int,
+                  lat=None):
         """The grouped lattice convolution of ``rows`` over conv-output
         positions [j_lo, j_hi): (B, R, j_hi - j_lo), float64 sums."""
-        g_rows = limber_fft._lattice_g_rows(
-            cosmo, [(wa, wb) for wa, wb, _p, _s in rows], self.st,
-            models[0].mass.growth)
+        lat = lat or self.lattice(cosmo, models)
+        g_rows = lat.g_rows([(wa, wb) for wa, wb, _p, _s in rows])
         p_rows = torch.stack([p for _a, _b, p, _s in rows], dim=1)
         return limber_fft._conv_direct_rows(p_rows, g_rows, j_lo, j_hi)
 
     def forward(self, cosmo: CosmoParams, nuisance: Nuisance3x2pt | None = None
                 ) -> dict:
-        cosmo, nu, models, rows = self.probe_rows(cosmo, nuisance)
+        cosmo, nu, models, rows, (wins_g, wins_k, p_gg, p_gm, h) = \
+            self.probe_rows(cosmo, nuisance)
         n_l, n_s, n_xi = len(self.lens), len(self.src), len(self.pairs_xi)
         n_gt = n_l * n_s
+        lat = self.lattice(cosmo, models)
         outs = _fused_probe_rows(
             lambda j_lo, j_hi: self.conv_rows(cosmo, models, rows, j_lo,
-                                              j_hi),
+                                              j_hi, lat),
             [r[3] for r in rows], self.operator)
         w_rows = [o[0] for o in outs[:n_l]]
         gt_rows = [o[0] for o in outs[n_l:n_l + n_gt]]
         xi = outs[n_l + n_gt:n_l + n_gt + n_xi]
         xip_rows, xim_rows = [o[0] for o in xi], [o[1] for o in xi]
+        i_cmb = n_l + n_gt + n_xi
         if self.include_magnification:
             # delta_obs = delta_g + c kappa, c = 2 (alpha - 1): each term
             # with its own spectrum.
@@ -622,6 +831,22 @@ class TomographicPipeline(nn.Module):
             gt_rows = [gt_rows[i * n_s + j]
                        + c[:, i, None] * outs[b1 + i * n_s + j][0]
                        for i in range(n_l) for j in range(n_s)]
+            i_cmb = b1 + n_gt
+        tail = []
+        if self.win_kcmb is not None:
+            tail = [outs[i_cmb + i][0] for i in range(n_l)]
+            if self.include_magnification:
+                tail = [tail[i] + c[:, i, None] * outs[i_cmb + n_l + i][0]
+                        for i in range(n_l)]
+        if self.nonlimber is not None:
+            # The exact low-ell repair of every w and gamma_t row, before
+            # the (1+m) calibration; the xi, magnification and kappa_CMB
+            # rows keep plain Limber, as in the JAX package.
+            terms = self._nonlimber_terms(lat, models, wins_g, wins_k, p_gg,
+                                          p_gm, h)
+            dtype = self.st.dtype
+            w_rows = [w + t.to(dtype) for w, t in zip(w_rows, terms[:n_l])]
+            gt_rows = [g + t.to(dtype) for g, t in zip(gt_rows, terms[n_l:])]
         if nu is not None:
             cal = 1.0 + nu.m
             gt_rows = [gt_rows[i * n_s + j] * cal[:, j, None]
@@ -630,7 +855,7 @@ class TomographicPipeline(nn.Module):
                         for (j, k), row in zip(self.pairs_xi, xip_rows)]
             xim_rows = [row * (cal[:, j] * cal[:, k])[:, None]
                         for (j, k), row in zip(self.pairs_xi, xim_rows)]
-        return {
+        out = {
             "theta_deg": self.theta_deg,
             "w_theta": torch.stack(w_rows, dim=1),
             "gamma_t": torch.stack(gt_rows, dim=1),
@@ -638,20 +863,28 @@ class TomographicPipeline(nn.Module):
             "xi_minus": torch.stack(xim_rows, dim=1),
             "n_g": (torch.stack([m.n_g for m in models], dim=1)
                     if self.per_bin else models[0].n_g),
-            "vector": torch.cat(w_rows + gt_rows + xip_rows + xim_rows,
-                                dim=-1),
         }
+        if tail:
+            out["w_gk_cmb"] = torch.stack(tail, dim=1)
+        out["vector"] = torch.cat(w_rows + gt_rows + xip_rows + xim_rows
+                                  + tail, dim=-1)
+        return out
 
 
 def _register_operators(mod: nn.Module, grid, device, dtype):
-    """The composed lattice -> Hankel -> theta-bins operator of each mu in
-    ``mod.mus`` as buffers ``op{i}_hi`` / ``op{i}_lo`` (float32: the hi/lo
-    split of the float64 operator; float64: the operator, lo None), and
-    their conv-output windows in ``mod.windows``."""
+    """The composed lattice -> Hankel (flat) or multipole-sum (curved) ->
+    theta operator of each (mu, stat) in ``mod.specs`` as buffers
+    ``op{i}_hi`` / ``op{i}_lo`` (float32: the hi/lo split of the float64
+    operator; float64: the operator, lo None), and their conv-output
+    windows in ``mod.windows``.  The operators are built once here."""
     mod.windows = []
-    for i, mu in enumerate(mod.mus):
-        j_lo, j_hi, a = limber_fft.wtheta_lattice_operator(mod.theta_key,
-                                                           grid, mu)
+    for i, (mu, stat) in enumerate(mod.specs):
+        if mod.geometry == "curved":
+            j_lo, j_hi, a = curved.curved_lattice_operator(
+                mod.theta_key, grid, mu, stat=stat)
+        else:
+            j_lo, j_hi, a = limber_fft.wtheta_lattice_operator(
+                mod.theta_key, grid, mu)
         mod.windows.append((j_lo, j_hi))
         hi, lo = split_operator(a) if dtype == torch.float32 else (a, None)
         mod.register_buffer(f"op{i}_hi", torch.as_tensor(hi, device=device),

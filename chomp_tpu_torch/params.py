@@ -122,8 +122,8 @@ def default_cosmo(*, device, dtype, **overrides) -> CosmoParams:
 @dataclasses.dataclass(frozen=True)
 class HaloParams(_Params):
     """Halo-model parameters; ``delta_v``/``delta_c`` use the sentinels of
-    the JAX package (> 0 literal, -1/-2/-3 fit conventions).  ``mass_fn``
-    must be 0 (Sheth-Tormen) in the port so far."""
+    the JAX package (> 0 literal, -1/-2/-3 fit conventions); ``mass_fn``
+    0 selects Sheth-Tormen, 1 Tinker (per element)."""
 
     stq: torch.Tensor
     st_little_a: torch.Tensor

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from chomp_tpu_torch.cmblens import CMBLensingSpec
 from chomp_tpu_torch.hod import HODZheng
 from chomp_tpu_torch.parallel.sweep import Nuisance3x2pt
 from chomp_tpu_torch.params import CosmoParams, HaloParams
@@ -43,6 +44,8 @@ def cosmo_batch(src, *, device, dtype) -> CosmoParams:
 
 
 def halo_params(src, *, device, dtype) -> HaloParams:
+    """HaloParams from a JAX-package HaloParams, ``mass_fn`` (0
+    Sheth-Tormen, 1 Tinker) included."""
     return _convert(HaloParams, src, device, dtype)
 
 
@@ -102,6 +105,16 @@ def power_table(src, *, device, dtype) -> PowerTable:
     return dataclasses.replace(table, ln_k0=table.ln_k0.reshape(-1)[0],
                                dln=table.dln.reshape(-1)[0],
                                ln_p=torch.atleast_2d(table.ln_p))
+
+
+def cmb_spec(src) -> CMBLensingSpec:
+    """CMBLensingSpec (the pipelines' ``include_cmb_lensing``) from a JAX
+    CMBLensingSpec: z_star, z_support and the noise table, if any."""
+    if src._ln_l is None:
+        return CMBLensingSpec(src.z_star, src.z_support)
+    return CMBLensingSpec(src.z_star, src.z_support,
+                          nl_ell=np.exp(np.asarray(src._ln_l)),
+                          nl=np.exp(np.asarray(src._ln_n)))
 
 
 def to_numpy(params) -> dict:

@@ -324,11 +324,24 @@ def test_no_separable_bias_warning_with_anchors():
 
 
 def test_exact_z_anchor_spectra_refuses_matter_power():
+    """matter_power is ported now: "halofit" / "linear" swap the power_mm
+    anchors for halofit / the linear power at each anchor row (the same
+    functions at the anchors' redshifts, bit for bit) and leave power_gg
+    as the halo model's; an unknown value raises ValueError."""
     st = Statics(tp.GRID, **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        limber_fft.exact_z_anchor_spectra(
-            default_cosmo(**KW), port_halo(**KW), port_hod(**KW),
-            ("power_mm",), 4, 1e-3, 2.0, st, matter_power="halofit")
+    args = (_batch(), port_halo(**KW), port_hod(**KW),
+            ("power_mm", "power_gg"), 4, 1e-3, 2.0, st)
+    halo_mm = limber_fft.exact_z_anchor_spectra(*args)
+    for mp in ("halofit", "linear"):
+        got = limber_fft.exact_z_anchor_spectra(*args, matter_power=mp)
+        assert torch.equal(got["p_j"]["power_gg"], halo_mm["p_j"]["power_gg"])
+        z = torch.as_tensor(got["z_nodes"], **KW).repeat(3)
+        rows = limber_fft._repeat_rows(_batch(), 3, 4)
+        want = limber_fft.mm_override(rows, z, mp, st).reshape(3, 4, -1)
+        assert torch.equal(got["p_j"]["power_mm"], want)
+        assert not torch.equal(want, halo_mm["p_j"]["power_mm"])
+    with pytest.raises(ValueError, match="matter_power"):
+        limber_fft.exact_z_anchor_spectra(*args, matter_power="emulated")
 
 
 def test_wtheta_fft_exact_z_is_the_pipelines_w(outs):

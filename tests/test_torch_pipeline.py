@@ -115,25 +115,72 @@ def test_pipeline_rejects_mismatched_batch():
         pipe(batch)
 
 
+#: Theta of the option cases (>= 0.5 deg: the curved operators' lmax
+#: stays small there).
+THETA_OPTIONS = np.geomspace(0.5, 4.0, 5)
+#: Per option: the outputs it must change against the same pipeline
+#: without it (the others must stay bit for bit).
+_OPTION_MOVES = {"include_cmb_lensing": (), "geometry": "all",
+                 "nonlimber_ell_switch": ("w_theta", "gamma_t"),
+                 "matter_power": ("xi_plus", "xi_minus"), "with_bao": "all"}
+
+
+@pytest.fixture(scope="module")
+def option_bases():
+    """The plain pipelines (with shear, at THETA_OPTIONS) of both routes."""
+    batch = convert.cosmo_batch(tp.jax_batch(), **KW)
+    return {m: _pipeline(method=m, include_shear=True,
+                         theta_deg=THETA_OPTIONS)(batch)
+            for m in ("fft", "table")}
+
+
 @pytest.mark.parametrize("option", [
     dict(include_cmb_lensing=True),
     dict(geometry="curved"), dict(nonlimber_ell_switch=40),
     dict(nonlimber_ell_switch=40, nonlimber_rsd=True),
     dict(matter_power="halofit"), dict(matter_power="linear"),
     dict(with_bao=True), dict(method="table", with_bao=True)])
-def test_unported_options_raise(option):
-    """Options outside the slice raise and name their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _pipeline(**option)
+def test_unported_options_raise(option, option_bases):
+    """Each option, ported now, builds and runs with include_shear at
+    THETA_OPTIONS: finite outputs of the plain pipeline's shapes (and
+    w_gk_cmb of w's), changed where the option acts (by more than 1e-6 of
+    the row's peak somewhere) and bit for bit the same elsewhere.  Their
+    values against the JAX package are held in tests/test_torch_options.py
+    (the option cells on the tomographic tests' grid)."""
+    batch = convert.cosmo_batch(tp.jax_batch(), **KW)
+    out = _pipeline(include_shear=True, theta_deg=THETA_OPTIONS,
+                    **option)(batch)
+    base = option_bases[option.get("method", "fft")]
+    name = next(k for k in option if k != "method")
+    moves = _OPTION_MOVES[name]
+    keys = ("w_theta", "gamma_t", "xi_plus", "xi_minus")
+    for key in keys:
+        got, ref = out[key], base[key]
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        gap = float(((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+        if moves == "all" or key in moves:
+            assert gap > 1e-6, key
+        else:
+            assert gap == 0.0, key
+    if name == "include_cmb_lensing":
+        assert out["w_gk_cmb"].shape == out["w_theta"].shape
+        assert bool(torch.isfinite(out["w_gk_cmb"]).all())
 
 
 def test_unported_mass_function_raises():
+    """mass_fn = 1 (Tinker), ported now, builds and runs: finite outputs
+    whose n_g and w(theta) differ from the Sheth-Tormen pipeline's."""
     halo = dataclasses.replace(convert.halo_params(default_halo(), **KW),
                                mass_fn=torch.tensor(1.0, **KW))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweep.make_pipeline(halo, port_hod(**KW),
-                            convert.dndz_gaussian(tp.jax_dist(), **KW),
-                            grid=tp.GRID, z_pivot=1.0, **KW)
+    batch = convert.cosmo_batch(tp.jax_batch(), **KW)
+    pipe = sweep.make_pipeline(halo, port_hod(**KW),
+                               convert.dndz_gaussian(tp.jax_dist(), **KW),
+                               grid=tp.GRID, z_pivot=1.0, **KW)
+    out, base = pipe(batch), _pipeline(z_pivot=1.0)(batch)
+    for key in ("n_g", "w_theta", "gamma_t"):
+        assert bool(torch.isfinite(out[key]).all())
+        assert out[key].shape == base[key].shape
+        assert float((out[key] / base[key] - 1.0).abs().max()) > 1e-3, key
 
 
 @pytest.mark.parametrize("option", [

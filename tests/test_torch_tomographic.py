@@ -25,7 +25,8 @@ package (float64 CPU), on the JAX tests' tiny grid
 - The float64 autograd Jacobian over cosmology and nuisances through
   ``inference.make_theory_fn`` against the JAX ``jacfwd`` (10 entries of
   the data vector, every probe kind and bin).
-- Every option outside the separable flat route raises.
+- Exact-z tomography raises; each option ported since builds and runs
+  (its values against JAX: tests/test_torch_options.py).
 """
 
 import dataclasses
@@ -517,25 +518,63 @@ UNPORTED = [dict(exact_z_anchors=4), dict(geometry="curved"),
             dict(with_bao=True)]
 
 
+#: Per option of UNPORTED that is ported now: the outputs it must change
+#: against the plain per-bin pipeline (the others stay bit for bit).
+_OPTION_MOVES = {"geometry": "all", "include_cmb_lensing": (),
+                 "nonlimber_ell_switch": ("w_theta", "gamma_t"),
+                 "matter_power": ("xi_plus", "xi_minus"), "with_bao": "all"}
+THETA_OPTIONS = np.geomspace(0.5, 4.0, 5)
+
+
 @pytest.mark.parametrize("options", UNPORTED,
                          ids=[",".join(o) for o in UNPORTED])
 def test_unported_options_raise(options):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        port_pipeline(True, **options)
+    """Exact-z tomography still raises, naming ROADMAP item 8.1.  Every
+    other option is ported now: with per-bin HODs at THETA_OPTIONS it
+    builds and runs, finite and of the plain pipeline's shapes (w_gk_cmb
+    of w's, appended to the vector), changed where the option acts and
+    bit for bit the same elsewhere.  Its values against the JAX package
+    are held in tests/test_torch_options.py (the tomographic option
+    cell)."""
+    if "exact_z_anchors" in options:
+        with pytest.raises(NotImplementedError, match="item 8.1"):
+            port_pipeline(True, **options)
+        return
+    out = port_pipeline(True, theta_deg=THETA_OPTIONS, **options)(
+        port_batch())
+    base = port_pipeline(True, theta_deg=THETA_OPTIONS)(port_batch())
+    name = next(iter(options))
+    moves = _OPTION_MOVES[name]
+    for key in ("w_theta", "gamma_t", "xi_plus", "xi_minus"):
+        got, ref = out[key], base[key]
+        assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+        gap = float(((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+        if moves == "all" or key in moves:
+            assert gap > 1e-6, key
+        else:
+            assert gap == 0.0, key
+    if name == "include_cmb_lensing":
+        assert out["w_gk_cmb"].shape == out["w_theta"].shape
+        assert torch.equal(out["vector"][:, -out["w_gk_cmb"][0].numel():],
+                           out["w_gk_cmb"].flatten(1))
 
 
 def test_mass_fn_and_jax_refusals():
-    """mass_fn != 0 raises NotImplementedError; the JAX function's own
+    """mass_fn = 1 (Tinker) is ported now: the pipeline builds and runs,
+    finite, with n_g unlike the Sheth-Tormen one's; the JAX function's own
     refusals stay ValueErrors (and its nuisance + exact-z refusal a
     NotImplementedError)."""
     kw = dict(grid=GRID, device="cpu", dtype=torch.float64)
     hp = convert.halo_params(default_halo(), **KW)
     hod = convert.hod_zheng(default_hod(), **KW)
     lens = [convert.dndz(d, **KW) for d in LENS]
-    with pytest.raises(NotImplementedError, match="mass_fn"):
-        sweep.make_tomographic_pipeline(
-            dataclasses.replace(hp, mass_fn=torch.tensor(1.0, **KW)), hod,
-            lens, lens, **kw)
+    tinker = sweep.make_tomographic_pipeline(
+        dataclasses.replace(hp, mass_fn=torch.tensor(1.0, **KW)), hod,
+        lens, lens, **kw)(port_batch())
+    plain = sweep.make_tomographic_pipeline(hp, hod, lens, lens,
+                                            **kw)(port_batch())
+    assert bool(torch.isfinite(tinker["vector"]).all())
+    assert float((tinker["n_g"] / plain["n_g"] - 1.0).abs().min()) > 1e-3
     for bad in (dict(geometry="sphere"), dict(include_magnification=True),
                 dict(nonlimber_rsd=True), dict(matter_power="emu")):
         with pytest.raises(ValueError):

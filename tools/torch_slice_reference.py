@@ -49,11 +49,21 @@ writes
   fiducial; and, for tests/test_torch_tomographic.py, the ``jax.jacfwd``
   of that file's magnification case on the parity grid (float64).
 
+- ``tests/data/torch_options_reference.json``: the option cells of
+  ``chip_smoke.py`` phases 15-19 (``OPTION_CELLS``: config A with BAO,
+  halofit, the kappa_CMB row and the non-Limber repair with RSD, and its
+  jacfwd; the curved sky at DES Y3 theta with Tinker and linear mm legs;
+  config B curved with halofit; the table route with BAO and Tinker; the
+  tomographic cell above with every option) at DEFAULT_GRID and the 3
+  reference cosmologies, each in a process of its own; and, for
+  tests/test_torch_options.py, the same cells on the tomographic tests'
+  tiny grid at TINY_THETA_DEG with the flat cell's jacfwd.
+
 ``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
     python tools/torch_slice_reference.py [--seed N] [FILE ...]
 
-writes the named files (all five by default).
+writes the named files (all six by default).
 """
 
 import dataclasses
@@ -538,9 +548,255 @@ def write_tomo_reference(seed: int):
     print(f"wrote {path}")
 
 
+#: DES Y3's 20 log-spaced angular bins from 2.5' to 250' (Abbott et al.
+#: 2022, arXiv:2105.13549), at their geometric centres, in degrees.
+DES_THETA_DEG = (2.5 * 10.0 ** ((np.arange(20) + 0.5) / 10.0) / 60.0).tolist()
+#: Theta of the CPU tests' option cases (>= 0.5 deg, so that the curved
+#: operators' lmax stays small), in degrees.
+TINY_THETA_DEG = np.geomspace(0.5, 4.0, 5).tolist()
+#: The option cells of chip_smoke.py phases 15-19: the configuration
+#: ("A": bench.py configuration A, "B": configuration B, "tomo": the
+#: tomographic cell of torch_tomo_reference.json), the pipeline options,
+#: the theta points ("default": the grid's bins, "des": DES_THETA_DEG) and
+#: HaloParams.mass_fn.
+OPTION_CELLS = {
+    "flat_options": dict(
+        config="A", theta="default", mass_fn=0.0, options=dict(
+            include_shear=True, with_bao=True, matter_power="halofit",
+            include_cmb_lensing=True, nonlimber_ell_switch=60,
+            nonlimber_rsd=True)),
+    "curved": dict(config="A", theta="des", mass_fn=1.0, options=dict(
+        geometry="curved", matter_power="linear", include_shear=True,
+        include_cmb_lensing=True, nonlimber_ell_switch=60)),
+    "exact_z": dict(config="B", theta="des", mass_fn=0.0, options=dict(
+        exact_z_anchors=EXACT_J, geometry="curved", matter_power="halofit",
+        with_bao=True, include_shear=True, include_cmb_lensing=True)),
+    "table": dict(config="A", theta="default", mass_fn=1.0, options=dict(
+        method="table", with_bao=True, include_shear=True)),
+    "tomographic": dict(config="tomo", theta="des", mass_fn=0.0,
+                        options=dict(geometry="curved",
+                                     matter_power="halofit", with_bao=True,
+                                     include_cmb_lensing=True,
+                                     nonlimber_ell_switch=60,
+                                     nonlimber_rsd=True)),
+}
+
+
+def option_pipeline(name, grid, theta_deg, tomo=None, **overrides):
+    """The JAX pipeline of option cell ``name`` on ``grid`` at
+    ``theta_deg`` (``tomo``: (lens, src, hods, z_pivot) of the
+    tomographic layout), ``overrides`` replacing its options."""
+    import dataclasses as dc
+
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_halo
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.parallel.sweep import (make_pipeline,
+                                          make_tomographic_pipeline)
+    from tests import torch_parity as tp
+
+    cell = OPTION_CELLS[name]
+    options = dict(cell["options"], **overrides)
+    hp = dc.replace(default_halo(), mass_fn=jnp.asarray(cell["mass_fn"]))
+    if cell["config"] == "tomo":
+        lens, src, hods, z_pivot = tomo
+        return make_tomographic_pipeline(
+            hp, hods, lens, src, grid=grid, z_pivot=z_pivot,
+            theta_deg=theta_deg, with_nuisance=True,
+            include_magnification=True, **options)
+    return make_pipeline(hp, default_hod(), tp.jax_dist(),
+                         power_spec="power_gg", grid=grid,
+                         include_lensing=True, theta_deg=theta_deg,
+                         z_pivot=1.0 if cell["config"] == "A" else 0.0,
+                         **options)
+
+
+def _vector(out):
+    import jax.numpy as jnp
+
+    keys = [k for k in ("w_theta", "gamma_t", "xi_plus", "xi_minus",
+                        "w_gk_cmb") if k in out]
+    return jnp.concatenate([out[k] for k in keys])
+
+
+def option_cell_reference(name):
+    """One option cell at DEFAULT_GRID (JAX float64, one cosmology after
+    another under lax.map): its outputs at the reference cosmologies and,
+    for "flat_options", the jacfwd of its data vector (w, gamma_t, xi_+,
+    xi_-, w_gk_cmb) with respect to (omega_m0, sigma_8)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu.params import DEFAULT_GRID
+    from chomp_tpu.parallel.sweep import Nuisance3x2pt
+
+    t0 = time.perf_counter()
+    cell = OPTION_CELLS[name]
+    theta = (DES_THETA_DEG if cell["theta"] == "des"
+             else correlation_theta(DEFAULT_GRID))
+    if cell["config"] == "B":
+        idx, n = EXACT_INDICES, N_COSMO_EXACT
+    else:
+        idx, n = INDICES, N_COSMO
+    oms, s8s = cosmologies(idx, n)
+    batch = jax_batch(oms, s8s)
+    block = {"indices": list(idx), "n_cosmo": n, "omega_m0": oms.tolist(),
+             "sigma_8": s8s.tolist(), "theta_deg": list(theta)}
+    if cell["config"] == "tomo":
+        ref = json.loads((DATA / "torch_tomo_reference.json").read_text())
+        tomo = tomo_layout(DEFAULT_GRID)
+        fn = option_pipeline(name, DEFAULT_GRID, theta, tomo)
+        nu = Nuisance3x2pt(**{k: jnp.asarray(v)
+                              for k, v in ref["nuisance"].items()})
+        out = jax.jit(lambda b: jax.lax.map(lambda c: fn(c, nu), b))(batch)
+        block["nuisance_seed"] = ref["seed"]
+    else:
+        fn = option_pipeline(name, DEFAULT_GRID, theta)
+        out = jax.jit(lambda b: jax.lax.map(fn, b))(batch)
+    block["outputs"] = {k: np.asarray(v).tolist() for k, v in out.items()
+                        if k != "theta_deg"}
+    print(f"[{time.perf_counter() - t0:7.1f} s] {name} outputs", flush=True)
+    if name == "flat_options":
+        def one(c):
+            def vec(p):
+                return _vector(fn(dataclasses.replace(
+                    c, omega_m0=p[0], omega_l0=1.0 - p[0], sigma_8=p[1])))
+
+            p = jnp.stack([c.omega_m0, c.sigma_8])
+            return vec(p), jax.jacfwd(vec)(p)
+
+        val, jac = jax.jit(lambda b: jax.lax.map(one, b))(batch)
+        block["vector"] = np.asarray(val).tolist()
+        block["jacobian"] = np.asarray(jac).tolist()
+        print(f"[{time.perf_counter() - t0:7.1f} s] {name} jacfwd",
+              flush=True)
+    return block
+
+
+def correlation_theta(grid):
+    from chomp_tpu import correlation
+
+    return np.asarray(correlation.theta_bins_deg(grid)).tolist()
+
+
+def tomo_layout(grid):
+    """(lens, src, hods, z_pivot) of the DES Y3-like tomographic cell."""
+    import jax.numpy as jnp
+
+    from chomp_tpu import projection
+    from chomp_tpu.hod import default_hod
+
+    c = TOMO_CELL
+
+    def gauss(z0, sz, z_max):
+        return projection.DNdzGaussian(
+            z_min=jnp.asarray(0.0), z_max=jnp.asarray(z_max),
+            z0=jnp.asarray(z0), sigma_z=jnp.asarray(sz))
+
+    lens = [gauss(z0, c["lens_sigma_z"], c["lens_z_max"])
+            for z0 in c["lens_z0"]]
+    src = [gauss(z0, sz, c["src_z_max"])
+           for z0, sz in zip(c["src_z0"], c["src_sigma_z"])]
+    hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                        log10_m_1p=m + c["log10_m_1p_offset"])
+            for m in c["log10_m_min"]]
+    return lens, src, hods, c["z_pivot"]
+
+
+def option_tiny_reference():
+    """The option cells on tests/test_torch_tomographic.py's tiny grid at
+    TINY_THETA_DEG (the CPU tests' block): the make_pipeline cells at
+    tests/torch_parity's 3 cosmologies (config B's cell with J = 4), the
+    tomographic cell on that file's 2 lens x 2 source layout at its 3
+    cosmologies and magnification nuisance points, and the jacfwd of the
+    flat cell's data vector."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.parallel.sweep import Nuisance3x2pt
+    from tests import test_torch_tomographic as tt
+    from tests import torch_parity as tp
+
+    t0 = time.perf_counter()
+    cells = {}
+    for name, cell in OPTION_CELLS.items():
+        if cell["config"] == "tomo":
+            tomo = (tt.LENS, tt.SRC, [default_hod(), default_hod(**tt.HOD_B)],
+                    tt.Z_PIVOT)
+            fn = option_pipeline(name, tt.GRID, TINY_THETA_DEG, tomo)
+            pts = tt.nuisance_points(True)
+            nus = Nuisance3x2pt(**{k: jnp.asarray(v) for k, v in pts.items()})
+            out = jax.jit(jax.vmap(fn))(tt.jax_batch(), nus)
+        else:
+            j = {"exact_z_anchors": TINY_J} if cell["config"] == "B" else {}
+            fn = option_pipeline(name, tt.GRID, TINY_THETA_DEG, **j)
+            out = jax.jit(jax.vmap(fn))(tp.jax_batch())
+        cells[name] = {k: np.asarray(v).tolist() for k, v in out.items()
+                       if k != "theta_deg"}
+        print(f"[{time.perf_counter() - t0:7.1f} s] tiny {name}", flush=True)
+    fn = option_pipeline("flat_options", tt.GRID, TINY_THETA_DEG)
+
+    def one(c):
+        def vec(p):
+            return _vector(fn(dataclasses.replace(
+                c, omega_m0=p[0], omega_l0=1.0 - p[0], sigma_8=p[1])))
+
+        p = jnp.stack([c.omega_m0, c.sigma_8])
+        return vec(p), jax.jacfwd(vec)(p)
+
+    val, jac = jax.jit(jax.vmap(one))(tp.jax_batch())
+    print(f"[{time.perf_counter() - t0:7.1f} s] tiny jacfwd", flush=True)
+    return {"grid": dataclasses.asdict(tt.GRID),
+            "theta_deg": TINY_THETA_DEG, "cosmo": tp.COSMO,
+            "exact_z_anchors": TINY_J, "cells": cells,
+            "flat_options_jacobian": {"vector": np.asarray(val).tolist(),
+                                      "jacobian": np.asarray(jac).tolist()}}
+
+
+def write_options_reference():
+    """tests/data/torch_options_reference.json: each DEFAULT_GRID cell and
+    the tiny-grid block in a process of its own, one after another (the
+    non-Limber programs need ~25 GB each).  A block whose part file
+    (``tests/data/.options_<name>.json``, written by ``--options-cell
+    <name> <file>``, ``tiny`` for the tiny-grid block) exists already is
+    taken as it is, so the parts may be made in parallel first."""
+    import subprocess
+
+    from chomp_tpu.params import DEFAULT_GRID
+
+    blocks = {}
+    for name in (*OPTION_CELLS, "tiny"):
+        part = DATA / f".options_{name}.json"
+        if not part.exists():
+            subprocess.run([sys.executable, __file__, "--options-cell", name,
+                            str(part)], check=True)
+        blocks[name] = json.loads(part.read_text())
+    tiny = blocks.pop("tiny")
+    data = {"config": "the option cells of chip_smoke.py phases 15-19 "
+                      "(OPTION_CELLS of tools/torch_slice_reference.py), "
+                      "JAX float64 CPU; 'vector' and 'jacobian': w, gamma_t, "
+                      "xi_+, xi_-, w_gk_cmb concatenated, jacfwd columns "
+                      "(omega_m0, sigma_8) with omega_l0 = 1 - omega_m0",
+            "cells": OPTION_CELLS, "des_theta_deg": DES_THETA_DEG,
+            "default_grid": {"grid": dataclasses.asdict(DEFAULT_GRID),
+                             "cells": blocks},
+            "tiny_grid": tiny}
+    path = DATA / "torch_options_reference.json"
+    path.write_text(json.dumps(data, indent=1) + "\n")
+    for name in (*OPTION_CELLS, "tiny"):
+        (DATA / f".options_{name}.json").unlink()
+    print(f"wrote {path}")
+
+
 FILES = ("torch_slice_reference.json", "torch_table_reference.json",
          "torch_grad_reference.json", "torch_exactz_reference.json",
-         "torch_tomo_reference.json")
+         "torch_tomo_reference.json", "torch_options_reference.json")
 
 
 def main():
@@ -549,6 +805,13 @@ def main():
     import jax
 
     args = sys.argv[1:]
+    if args[:1] == ["--options-cell"]:
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+        Path(args[2]).write_text(json.dumps(
+            option_tiny_reference() if args[1] == "tiny"
+            else option_cell_reference(args[1])))
+        return
     seed = 0
     if "--seed" in args:
         i = args.index("--seed")
@@ -570,6 +833,8 @@ def main():
         write_exactz_reference()
     if FILES[4] in names:
         write_tomo_reference(seed)
+    if FILES[5] in names:
+        write_options_reference()
 
 
 def write_slice_and_table():
