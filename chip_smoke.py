@@ -165,7 +165,42 @@ order (any failure exits nonzero; nothing falls back):
        rows, C 4; A' 1, C' 4), its non-Limber corrections in float32
        against float64, A and A' on the 8 checked rows (phase 2's and
        8's gates) with their times over all rows, and C and C' at each
-       curved operator's row count.
+       curved operator's row count;
+20. exact-z tomography: the cell of phases 13-14 without its nuisances
+   (exact-z refuses them), per-bin HODs, ``exact_z_anchors=6``, flat, at
+   configuration B's 64 cosmologies (tests/data/
+   torch_exactz_tomo_reference.json, ``chip_tomo``), float32: launch
+   counts (A 1 over the B x J x 5 = 1920 folded anchor rows, C 3; A' 1,
+   C' 3 in the backward); the gates of phase 13 against the card's
+   float64 plain path (8 cosmologies) and the committed JAX values (3);
+   kernels A and A' on 8 of the 1920 rows (phase 2's and 8's gates) with
+   their times over all rows and bounds; C and C' on the forward's own
+   J-channel convolution rows of each operator (phase 3's and 8's gates,
+   the float64 torch.matmul beside them); forward and forward+backward
+   walls (medians of 3) and peak memory; the Jacobian over (omega_m0,
+   sigma_8) at 180 of the 2880 data entries, float32 against float64
+   (1e-3 of each probe row's column peak);
+21. the same cell curved at the 20 DES theta with halofit at the anchor
+   rows, BAO, kappa_CMB and the non-Limber repair at ell 60 with RSD (A
+   2: the anchors and the pivot; C 4): forward only, float32 against the
+   card's float64 plain path (1e-4), float64 kernels against plain
+   (1e-12), wall and peak;
+22. the Gauss-Legendre exact-z C_ell (``projection.limber_cl_exact_z``,
+   power_gg, configuration A's window, 64 cosmologies x 32 GL nodes =
+   2048 halo-model rows, 20 ells over 10-3000; ``chip_gl`` of the same
+   file): A 1 with a k row per row (A' 1 with grad_k in the backward);
+   float32 against float64 (1e-4), float64 kernels against plain
+   (1e-12), float64 against JAX (1e-10), the anchored lattice (J = 8)
+   against JAX's (1e-10) and within 1e-4 of the GL route on all 64
+   cosmologies at the ells <= 1000 of the JAX package's slow test (over
+   all 20 within 2x the JAX package's own gap, which opens at ell > ~1500:
+   2.2e-4); kernel A with a k row per
+   row at phase 2's gates (and each row's launch with its k shared equal
+   to its row, bit for bit), A' with grad_k at phase 8's (grad_k a
+   field), their times, bounds and A''s launch geometry against
+   ops/tiles.py; walls and peaks; ``limber_cl_fft(conv_method="fft")``
+   against the direct route (float64 1e-10; the float32 result's error
+   and both times reported).
 
 Each phase prints its seconds (``[time] phase N``).  Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
 over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
@@ -285,6 +320,13 @@ def one_profile(gal):
     return (gal[..., 0] == gal[..., 2]) & (gal[..., 1] == gal[..., 3])
 
 
+def k_block(k, i, n):
+    """Columns [i, i + n) of kernel A's k as (B|1, n, 1): the shared k
+    (NK,) or each row's of (B, NK)."""
+    return (k[i:i + n][None, :, None] if k.dim() == 1
+            else k[:, i:i + n, None])
+
+
 def halo_contract_flops(k, mat, gal, lens, moments):
     """Floating-point operations kernel A does on these inputs, counted
     from csrc/halo_contract.cu per route (moment series b <= 4; beyond it
@@ -310,16 +352,16 @@ def halo_contract_flops(k, mat, gal, lens, moments):
 
     same = one_profile(gal)
     total = 0.0
-    for i in range(0, k.numel(), 64):
-        kk = k[i:i + 64][None, :, None]
+    for i in range(0, k.shape[-1], 64):
+        kk = k_block(k, i, 64)
         total += float(profile(kk * mat[:, None, :, 0],
                                mat[:, None, :, 1]).double().sum()
-                       + 5 * mat.shape[0] * kk.numel() * mat.shape[1])
+                       + 5 * mat.shape[0] * kk.shape[1] * mat.shape[1])
         n_g = profile(kk * gal[:, None, :, 2], gal[:, None, :, 3])
         total += float((profile(kk * gal[:, None, :, 0], gal[:, None, :, 1])
                         + torch.where(same[:, None, :], 0, n_g)
                         ).double().sum()
-                       + 10 * gal.shape[0] * kk.numel() * gal.shape[1])
+                       + 10 * gal.shape[0] * kk.shape[1] * gal.shape[1])
     return total
 
 
@@ -340,8 +382,8 @@ def branch_mix(k, mat, gal):
              "|cx|>105615", "|cx|>=2^27")
     cnt = torch.zeros(len(names), dtype=torch.float64, device=k.device)
     tot, cx_max = 0.0, 0.0
-    for i in range(0, k.numel(), 64):
-        kk = k[i:i + 64][None, :, None]
+    for i in range(0, k.shape[-1], 64):
+        kk = k_block(k, i, 64)
         for rs, c, w in profs:
             x = kk * rs[:, None, :]
             c = c[:, None, :]
@@ -402,9 +444,10 @@ def plain_path():
 
         @staticmethod
         def backward(ctx, grad):
-            g_mat, g_gal = hc.halo_contract_bwd_ref(*ctx.saved_tensors,
-                                                    grad.contiguous())
-            return None, g_mat, g_gal, None
+            need_k = ctx.needs_input_grad[0]
+            g = hc.halo_contract_bwd_ref(*ctx.saved_tensors,
+                                         grad.contiguous(), grad_k=need_k)
+            return (g[2] if need_k else None), g[0], g[1], None
 
     saved = halo.halo_contract, sweep.df_contract, sweep.hankel_matmul
     halo.halo_contract = PlainA.apply
@@ -416,7 +459,7 @@ def plain_path():
         halo.halo_contract, sweep.df_contract, sweep.hankel_matmul = saved
 
 
-def halo_contract_bwd_flops(k, mat, gal, lens, moments):
+def halo_contract_bwd_flops(k, mat, gal, lens, moments, grad_k=False):
     """Floating-point operations of kernel A's backward on these inputs,
     counted from csrc/halo_contract.cu (profile_nd and the accumulation
     of halo_contract_bwd_kernel) per route, as halo_contract_flops counts
@@ -424,8 +467,8 @@ def halo_contract_bwd_flops(k, mat, gal, lens, moments):
     beyond it f - 1/x and g at b and at x (series for x <= 4, Chebyshev
     for x <= 64, else asymptotic) and the three derivative formulas; one
     profile where a galaxy node's two coincide; the double accumulations
-    (12 a mat node, 26 a gal node, per k) at the FP32 rate, so the bound
-    stays a lower one."""
+    (12 a mat node, 26 a gal node, per k; with ``grad_k`` 3 and 6 more)
+    at the FP32 rate, so the bound stays a lower one."""
     import torch
 
     afm, ag, bfm, bg, series, g_asym = lens
@@ -440,17 +483,18 @@ def halo_contract_bwd_flops(k, mat, gal, lens, moments):
         return 4 + torch.where(b <= 4, 5 * moments - 3, 14 + fg(b) + fgx)
 
     same = one_profile(gal)
+    acc_m, acc_g = (15, 32) if grad_k else (12, 26)
     total = 0.0
-    for i in range(0, k.numel(), 64):
-        kk = k[i:i + 64][None, :, None]
+    for i in range(0, k.shape[-1], 64):
+        kk = k_block(k, i, 64)
         total += float(profile(kk * mat[:, None, :, 0],
                                mat[:, None, :, 1]).double().sum()
-                       + 12 * mat.shape[0] * kk.numel() * mat.shape[1])
+                       + acc_m * mat.shape[0] * kk.shape[1] * mat.shape[1])
         n_g = profile(kk * gal[:, None, :, 2], gal[:, None, :, 3])
         total += float((profile(kk * gal[:, None, :, 0], gal[:, None, :, 1])
                         + torch.where(same[:, None, :], 0, n_g)
                         ).double().sum()
-                       + 26 * gal.shape[0] * kk.numel() * gal.shape[1])
+                       + acc_g * gal.shape[0] * kk.shape[1] * gal.shape[1])
     return total
 
 
@@ -554,12 +598,15 @@ def jac_err(got, ref):
         axis=2)))
 
 
-def tomo_cell(ref, *, device, dtype, halo_params=None, **options):
+def tomo_cell(ref, *, device, dtype, halo_params=None, nuisance=True,
+              **options):
     """(pipeline, nuisance point without a batch axis) of the tomographic
     cell that ``ref`` (tests/data/torch_tomo_reference.json) defines:
     Gaussian lens and source dN/dz, per-bin Zheng HODs, DEFAULT_GRID,
-    ``with_nuisance`` and ``include_magnification``; ``options`` (and
-    ``halo_params``) as make_tomographic_pipeline's."""
+    ``with_nuisance`` and ``include_magnification`` (both off, and the
+    point None, with ``nuisance=False``: exact-z tomography refuses
+    them); ``options`` (and ``halo_params``) as
+    make_tomographic_pipeline's."""
     import torch
 
     from chomp_tpu_torch import (DNdzGaussian, default_halo, default_hod,
@@ -583,8 +630,10 @@ def tomo_cell(ref, *, device, dtype, halo_params=None, **options):
             for m in cell["log10_m_min"]]
     pipe = make_tomographic_pipeline(
         halo_params or default_halo(**kw), hods, lens, src,
-        grid=DEFAULT_GRID, z_pivot=cell["z_pivot"], with_nuisance=True,
-        include_magnification=True, **options, **kw)
+        grid=DEFAULT_GRID, z_pivot=cell["z_pivot"], with_nuisance=nuisance,
+        include_magnification=nuisance, **options, **kw)
+    if not nuisance:
+        return pipe, None
     return pipe, Nuisance3x2pt(**{k: torch.tensor(v, **kw)
                                   for k, v in ref["nuisance"].items()})
 
@@ -621,8 +670,9 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "a CUDA GPU")
     sys.path.insert(0, str(REPO))
-    from chomp_tpu_torch import (DNdzGaussian, default_cosmo, default_halo,
-                                 default_hod, halo, limber_fft, projection)
+    from chomp_tpu_torch import (DNdzGaussian, background, default_cosmo,
+                                 default_halo, default_hod, halo, limber_fft,
+                                 projection)
     from chomp_tpu_torch.grids import Statics
     from chomp_tpu_torch.ops import build, df32, halo_contract as hc, tiles
     from chomp_tpu_torch.ops import hankel_matmul as hm
@@ -758,7 +808,7 @@ def main():
                                          hc.n_moments(f32)),
                      4 * (k.numel() + mat.numel() + gal.numel()
                           + cheb32.numel() + hc.N_OUT * mat.shape[0]
-                          * k.numel()))
+                          * k.shape[-1]))
 
     bound_a = bound_a_of(k32, mat32, gal32)
     bound_a_fb = bound_a_of(k32, matf32, galf32)
@@ -1198,33 +1248,37 @@ def main():
         return torch.tensor(np.random.default_rng(seed).normal(size=shape),
                             dtype=dtype, device=dev)
 
-    def bwd_ref_rows(k, mat, gal, cheb, g, step=512):
+    def bwd_ref_rows(k, mat, gal, cheb, g, step=512, grad_k=False):
         """Kernel A's plain backward in blocks of ``step`` rows (each row
         is its own sum; whole, its float64 products at the tomographic
-        rows would take tens of GB)."""
-        parts = [hc.halo_contract_bwd_ref(k, mat[i:i + step],
-                                          gal[i:i + step], cheb,
-                                          g[i:i + step])
-                 for i in range(0, mat.shape[0], step)]
+        rows would take tens of GB); ``k`` shared or a row per row."""
+        parts = [hc.halo_contract_bwd_ref(
+            k if k.dim() == 1 else k[i:i + step], mat[i:i + step],
+            gal[i:i + step], cheb, g[i:i + step], grad_k=grad_k)
+            for i in range(0, mat.shape[0], step)]
         return tuple(torch.cat(p) for p in zip(*parts))
 
-    def check_a_bwd(k, mat32, gal32, k64, mat64, gal64, seed):
+    def check_a_bwd(k, mat32, gal32, k64, mat64, gal64, seed,
+                    grad_k=False):
         """Kernel A's backward under a seeded normal cotangent: float64
         against the plain backward (relative to each gradient field's
-        peak); float32 against the plain backward in float64 on the same
-        float32 inputs, beside the plain float32 backward's own error
-        (and the host ms of that one call); two launches bit for bit."""
-        g32 = seeded((mat32.shape[0], hc.N_OUT, k.numel()), seed, f32)
+        peak, grad_k one more field with ``grad_k``: k a row per row);
+        float32 against the plain backward in float64 on the same float32
+        inputs, beside the plain float32 backward's own error (and the
+        host ms of that one call); two launches bit for bit."""
+        kw_ = dict(grad_k=grad_k)
+        g32 = seeded((mat32.shape[0], hc.N_OUT, k.shape[-1]), seed, f32)
         g64 = g32[:mat64.shape[0]].double()
-        got64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64)
-        ref64 = bwd_ref_rows(k64, mat64, gal64, cheb64, g64)
-        got32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32)
+        got64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64, **kw_)
+        ref64 = bwd_ref_rows(k64, mat64, gal64, cheb64, g64, **kw_)
+        got32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32, **kw_)
         exact = bwd_ref_rows(k.double(), mat32.double(), gal32.double(),
-                             cheb64, g32.double())
-        plain32, plain_ms = once_ms(lambda: bwd_ref_rows(k, mat32, gal32,
-                                                         cheb32, g32))
-        again32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32)
-        again64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64)
+                             cheb64, g32.double(), **kw_)
+        plain32, plain_ms = once_ms(lambda: bwd_ref_rows(
+            k, mat32, gal32, cheb32, g32, **kw_))
+        again32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32, **kw_)
+        again64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64,
+                                       **kw_)
         return {"f64": max(field_peak_rel(a, r) for a, r in zip(got64,
                                                                   ref64)),
                 "f32": max(field_peak_rel(a.double(), r)
@@ -1256,11 +1310,12 @@ def main():
     ms_abwd_tab = events_ms(lambda: hc.halo_contract_bwd(
         st32.k_table, mat32, gal32, cheb32, ga32_tab))
 
-    def bound_abwd_of(k, mat, gal, g):
+    def bound_abwd_of(k, mat, gal, g, grad_k=False):
         return bound(
             halo_contract_bwd_flops(k, mat, gal, hc._lens(f32),
-                                    hc.n_moments(f32)),
-            4 * (k.numel() + 2 * (mat.numel() + gal.numel())
+                                    hc.n_moments(f32), grad_k),
+            4 * ((2 if grad_k else 1) * k.numel()
+                 + 2 * (mat.numel() + gal.numel())
                  + cheb32.numel() + g.numel()))
 
     bound_abwd = bound_abwd_of(k32, mat32, gal32, ga32)
@@ -2777,6 +2832,9 @@ def main():
             res["bwd_ms"] = events_ms(lambda: hc.halo_contract_bwd(
                 k32, m32, g32_, cheb32, ga), 10)
             res["bwd_bound"] = bound_abwd_of(k32, m32, g32_, ga)
+            profiled[f"halo_contract_bwd {label}"] = (
+                lambda: hc.halo_contract_bwd(k32, m32, g32_, cheb32, ga),
+                None, 5)
             b = res["bwd"]
             if not (b["f64"] <= 1e-12 and b["f32"] <= 2e-5
                     and b["f32"] <= 1.5 * b["plain32"] and b["same"]):
@@ -2853,6 +2911,10 @@ def main():
                 b["bound"] = bound(2.0 * m_i * n_i * t_i,
                                    4 * (m_i * t_i + 2 * t_i * n_i
                                         + m_i * n_i))
+                profiled[f"df_contract_bwd {label} {mu:g} {stat}"] = (
+                    lambda g=g32_i, h=hi_i, l_=lo_i:
+                    df32.df_contract_bwd(g, h, l_),
+                    lambda g=g32_i64, a=a64_i: g @ a, 20)
                 c["bwd"] = b
                 if not (b["f64"] <= 1e-12
                         and b["exact"] <= 2.0 * b["lib_exact"] and b["same"]):
@@ -2967,6 +3029,9 @@ def main():
     b18["ms"], b18["lib_ms"] = in_turns_ms(
         lambda: hm.hankel_matmul(cl18, pipe18.op0_t),
         lambda: prod_b(cl18, pipe18.op0_t.T))
+    profiled["hankel_matmul options table"] = (
+        lambda: hm.hankel_matmul(cl18, pipe18.op0_t),
+        lambda: prod_b(cl18, pipe18.op0_t.T), 20)
     r_b, n_b, t_b = cl18.shape[0], cl18.shape[1], pipe18.op0_t.shape[1]
     b18["bound"] = bound(2.0 * r_b * n_b * t_b,
                          4 * (r_b * n_b + n_b * t_b + r_b * t_b))
@@ -3008,6 +3073,527 @@ def main():
     del conv19, rows_c19
     lap("19")
 
+    # -- 20. exact-z tomography: the DES Y3-like cell ----------------------
+    # Phases 13-14's layout without the nuisances (exact-z refuses them),
+    # exact_z_anchors = 6, flat, at configuration B's batch: the 384
+    # anchor rows' mass tables and five galaxy packs, kernel A once over
+    # B x J x 5 = 1920 folded rows, one 35-row J-channel convolution, C x3.
+    ref_xt = json.loads((REPO / "tests" / "data"
+                         / "torch_exactz_tomo_reference.json").read_text())
+    rxt = ref_xt["chip_tomo"]
+    j_xt = rxt["exact_z_anchors"]
+    idx_xt = np.asarray(rxt["indices"])
+    if (rxt["n_cosmo"] != n_x or ref_xt["cell"] != cell
+            or not np.allclose(rxt["omega_m0"],
+                               np.linspace(0.24, 0.32, n_x)[idx_xt])):
+        fail("exact-z tomography reference file does not match this run's "
+             "cell or cosmologies")
+    meas_xt = sorted(set(check_x.tolist()) | set(idx_xt.tolist()))
+    pos_chk_xt = [meas_xt.index(i) for i in check_x]
+    pos_ref_xt = [meas_xt.index(i) for i in idx_xt]
+
+    def sub(d, rows):
+        return {k: v[rows] for k, v in d.items()}
+
+    def tomo_x_of(dtype, **options):
+        return tomo_cell(ref_tm, device=dev, dtype=dtype, nuisance=False,
+                         exact_z_anchors=j_xt, **options)[0]
+
+    def counted_forward(pipe_, *args_):
+        """(outputs, forward launches, peak GB) of one no-grad forward,
+        the counts zeroed just before and read just after."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero()
+        with torch.no_grad():
+            o = pipe_(*args_)
+        torch.cuda.synchronize()
+        return o, counts()[0], torch.cuda.max_memory_allocated() / 1e9
+
+    pipe_xt = tomo_x_of(f32)
+    batch_xt = setup(f32, n=n_x)[0]
+    out_xt, launches_xt, peak_xt = counted_forward(pipe_xt, batch_xt)
+    got_xt = tomo_host(out_xt)
+    finite_xt = (all(bool(np.all(np.isfinite(v))) for v in got_xt.values())
+                 and bool(torch.isfinite(out_xt["vector"]).all()))
+    shape_xt = (got_xt["w_theta"].shape == (n_x, 5, n_th)
+                and got_xt["gamma_t"].shape == (n_x, 20, n_th)
+                and got_xt["xi_plus"].shape == (n_x, 10, n_th)
+                and got_xt["n_g"].shape == (n_x, 5)
+                and tuple(out_xt["vector"].shape) == (n_x, 45 * n_th))
+    del out_xt
+    pipe_xt64 = tomo_x_of(f64)
+    batch_xt64 = setup(f64, meas_xt, n=n_x)[0]
+    with plain_path():
+        plain_xt = tomo_host(pipe_xt64(batch_xt64))
+    kern_xt = tomo_host(pipe_xt64(batch_xt64))
+    ref_xt_out = {k: np.asarray(rxt["outputs"][k]) for k in keys_tm + ("n_g",)}
+    err_xt = {
+        "vs_plain": tomo_err(sub(got_xt, check_x), sub(plain_xt, pos_chk_xt)),
+        "vs_jax": tomo_err(sub(got_xt, idx_xt), ref_xt_out),
+        "k64": tomo_err(kern_xt, plain_xt),
+        "plain_vs_jax": tomo_err(sub(plain_xt, pos_ref_xt), ref_xt_out)}
+
+    # Kernels A and A' over the 1920 folded anchor rows, row (b J + j) 5 +
+    # i = cosmology b at anchor j with lens bin i's galaxy pack, as the
+    # forward launches them; checked on 8 rows (cosmology c of the check
+    # set at anchor c mod J with lens bin c mod 5), timed over all.
+    (mat_xt32, gal_xt32), = pipe_xt.contraction_rows(batch_xt)
+    (mat_xt64, gal_xt64), = pipe_xt64.contraction_rows(batch_xt64)
+
+    def xt_row(b_, c):
+        return (b_ * j_xt + c % j_xt) * 5 + c % 5
+
+    sel32 = torch.tensor([xt_row(int(check_x[c]), c)
+                          for c in range(len(check_x))], device=dev)
+    sel64 = torch.tensor([xt_row(pos_chk_xt[c], c)
+                          for c in range(len(check_x))], device=dev)
+    mat_xtc32, gal_xtc32 = (t[sel32].contiguous() for t in (mat_xt32,
+                                                           gal_xt32))
+    mat_xt64, gal_xt64 = (t[sel64].contiguous() for t in (mat_xt64,
+                                                         gal_xt64))
+    mat_xt32, gal_xt32 = mat_xt32.contiguous(), gal_xt32.contiguous()
+    rows_xt = mat_xt32.shape[0]
+    a_xt = check_a(k32, mat_xtc32, gal_xtc32, k64, mat_xt64, gal_xt64,
+                   cheb32, cheb64)
+    ms_a_xt = events_ms(lambda: hc.halo_contract(k32, mat_xt32, gal_xt32,
+                                                 cheb32), 20)
+    bound_a_xt = bound_a_of(k32, mat_xt32, gal_xt32)
+    profiled["halo_contract exact-z tomographic"] = (
+        lambda: hc.halo_contract(k32, mat_xt32, gal_xt32, cheb32), None, 5)
+    bwd_xt = check_a_bwd(k32, mat_xtc32, gal_xtc32, k64, mat_xt64, gal_xt64,
+                         70)
+    ga_xt = seeded((rows_xt, hc.N_OUT, k32.numel()), 71, f32)
+    ms_abwd_xt = events_ms(lambda: hc.halo_contract_bwd(
+        k32, mat_xt32, gal_xt32, cheb32, ga_xt), 20)
+    bound_abwd_xt = bound_abwd_of(k32, mat_xt32, gal_xt32, ga_xt)
+    profiled["halo_contract_bwd exact-z tomographic"] = (
+        lambda: hc.halo_contract_bwd(k32, mat_xt32, gal_xt32, cheb32, ga_xt),
+        None, 5)
+    del mat_xt64, gal_xt64, mat_xtc32, gal_xtc32
+    if not (a_xt["f64"] <= 1e-12 and a_xt["f32"] <= 2e-6
+            and a_xt["f32"] <= 1.5 * a_xt["plain32"] and a_xt["same"]):
+        fail(f"halo_contract at the exact-z tomographic rows: {a_xt}")
+    if not (bwd_xt["f64"] <= 1e-12 and bwd_xt["f32"] <= 2e-5
+            and bwd_xt["f32"] <= 1.5 * bwd_xt["plain32"]
+            and bwd_xt["same"]):
+        fail(f"halo_contract_bwd at the exact-z tomographic rows: {bwd_xt}")
+
+    # Kernel C (and C') on the forward's own J-channel convolution rows of
+    # each operator (float32 anchors and weights, float64 sums).
+    with torch.no_grad():
+        cos_c, _nu_c, _m_c, rows_c, sp_c = pipe_xt.probe_rows(batch_xt)
+        jl_xt = min(w[0] for w in pipe_xt.windows)
+        jh_xt = max(w[1] for w in pipe_xt.windows)
+        g_j = limber_fft.exact_z_g_rows(
+            cos_c, sp_c[-1], [(wa, wb) for wa, wb, _p, _s in rows_c],
+            pipe_xt.st)
+        p_j = torch.stack([p for _a, _b, p, _s in rows_c], dim=1)
+        b_, r_, jj_, n_chi_ = g_j.shape
+        conv_xt = limber_fft._conv_direct_rows64(
+            p_j.reshape(b_, r_ * jj_, -1), g_j.reshape(b_, r_ * jj_, n_chi_),
+            jl_xt, jh_xt).reshape(b_, r_, jj_, -1).sum(2)
+        ops_xt = [r[3] for r in rows_c]
+        del cos_c, _nu_c, _m_c, rows_c, sp_c, g_j, p_j
+    c_xt = c_on({"pipe": pipe_xt}, "exact-z tomographic", conv_xt, jl_xt,
+                ops_xt, with_bwd=True)
+    del conv_xt
+
+    # Walls, forward+backward, peak memory (launch counts zeroed just
+    # before and read just after).
+    with torch.no_grad():
+        wall_xt = median_wall(lambda: pipe_xt(batch_xt), 3)
+    weights_xt = seeded((n_x, 45 * n_th), 72, f32)
+
+    def grad_run_xt():
+        om = torch.tensor(np.linspace(0.24, 0.32, n_x), dtype=f32,
+                          device=dev, requires_grad=True)
+        s8 = torch.tensor(np.linspace(0.75, 0.88, n_x), dtype=f32,
+                          device=dev, requires_grad=True)
+        out = pipe_xt(broadcast_cosmo(default_cosmo(device=dev, dtype=f32),
+                                      omega_m0=om, omega_l0=1.0 - om,
+                                      sigma_8=s8))
+        return torch.autograd.grad((out["vector"] * weights_xt).sum(),
+                                   (om, s8))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    g_xt = grad_run_xt()
+    torch.cuda.synchronize()
+    grad_launches_xt = counts()
+    peak_xt_fb = torch.cuda.max_memory_allocated() / 1e9
+    finite_gxt = all(bool(torch.isfinite(g).all()) for g in g_xt)
+    del g_xt
+    wall_xt_fb = median_wall(grad_run_xt, 3)
+
+    # The Jacobian over (omega_m0, sigma_8) at the middle reference
+    # cosmology, float32 against float64 on the card: the 180 entries at
+    # theta bins 0, 16, 32, 48 of each of the 45 probe rows (a replica a
+    # data entry: the whole vector's 2880 would take 16x as long).
+    sel_vec = torch.arange(0, 45 * n_th, 16, device=dev)
+    th32, _ = inference.make_theory_fn(
+        pipe_xt, default_cosmo(device=dev, dtype=f32), output="vector")
+    th64, _ = inference.make_theory_fn(
+        pipe_xt64, default_cosmo(device=dev, dtype=f64), output="vector")
+    p_xt = [[rxt["omega_m0"][1], rxt["sigma_8"][1]]]
+    t0 = time.perf_counter()
+    jxt32 = inference.jacobian(lambda p: th32(p)[:, sel_vec],
+                               torch.tensor(p_xt, dtype=f32, device=dev),
+                               chunk=60).cpu().numpy()
+    jxt64 = inference.jacobian(lambda p: th64(p)[:, sel_vec],
+                               torch.tensor(p_xt, dtype=f64, device=dev),
+                               chunk=60).cpu().numpy()
+    jac_wall_xt = time.perf_counter() - t0
+    je_xt = jac_err_k(jxt32, jxt64, 45)
+    del th32, th64
+
+    want_xt = {"halo_contract": 1, "df_contract": 3, "hankel_matmul": 0}
+    print(f"[exact-z tomo] DES Y3-like cell (5 lens x 4 source bins, per-bin "
+          f"HODs, no nuisances), exact_z_anchors={j_xt} on [1e-3, "
+          f"{pipe_xt.z_hi_anchor:g}], flat, DEFAULT_GRID, B={n_x}, float32 | "
+          f"forward launches {launches_xt} | finite={finite_xt} shape_ok="
+          f"{shape_xt} | vs card f64 plain path ({len(check_x)} "
+          f"cosmologies): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in err_xt["vs_plain"].items())
+          + " (gate 1e-4 on all but the row-peak figures) | vs JAX f64 (3 "
+          "cosmologies): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in err_xt["vs_jax"].items())
+          + f" (gate 1e-4) | f64 kernels vs plain "
+          f"{gated_tm(err_xt['k64']):.3e} (gate 1e-12) | f64 plain vs JAX "
+          f"{gated_tm(err_xt['plain_vs_jax']):.3e} (gate 1e-10) | forward "
+          f"wall median of 3 = {wall_xt * 1e3:.1f} ms "
+          f"({wall_xt / n_x * 1e3:.3f} ms/cosmology), peak {peak_xt:.2f} GB "
+          f"| forward+backward launches {grad_launches_xt[0]} / "
+          f"{grad_launches_xt[1]}, finite={finite_gxt}, wall median of 3 = "
+          f"{wall_xt_fb * 1e3:.1f} ms, peak {peak_xt_fb:.2f} GB | Jacobian "
+          f"(180 entries x 2, {jac_wall_xt:.1f} s): f32 vs card f64 "
+          f"{je_xt:.3e} (gate 1e-3 of each probe row's column peak)",
+          flush=True)
+    print(f"[exact-z tomo A] {rows_xt} folded anchor rows | f64 rel_to_peak="
+          f"{a_xt['f64']:.3e} (8 rows, gate 1e-12) | f32 vs plain in f64 "
+          f"{a_xt['f32']:.3e} (gate 2e-6, <= 1.5x the plain f32's "
+          f"{a_xt['plain32']:.3e}) | deterministic={a_xt['same']} | kernel "
+          f"{ms_a_xt:.3f} ms (CUDA events, 20 calls), plain "
+          f"{a_xt['plain_ms']:.1f} ms (8 rows, 1 call) | bound "
+          f"{bound_a_xt[0]:.4f} ms by {bound_a_xt[1]} | A': f64 "
+          f"{bwd_xt['f64']:.3e} (gate 1e-12), f32 {bwd_xt['f32']:.3e} (gate "
+          f"2e-5, plain f32 {bwd_xt['plain32']:.3e}), deterministic="
+          f"{bwd_xt['same']}, kernel {ms_abwd_xt:.3f} ms (20 calls), plain "
+          f"{bwd_xt['plain_ms']:.1f} ms (8 rows), bound "
+          f"{bound_abwd_xt[0]:.4f} ms by {bound_abwd_xt[1]}", flush=True)
+    if launches_xt != want_xt:
+        fail(f"exact-z tomographic forward launches {launches_xt}; want "
+             f"{want_xt}")
+    if grad_launches_xt != (want_xt, want_xt):
+        fail(f"exact-z tomographic forward+backward launches "
+             f"{grad_launches_xt}; want {want_xt} each")
+    if not (finite_xt and shape_xt and finite_gxt):
+        fail("exact-z tomographic outputs or gradient not finite, or of the "
+             "wrong shape")
+    for name, val, gate in (
+            ("float32 vs float64 plain path", gated_tm(err_xt["vs_plain"]),
+             1e-4),
+            ("float32 vs JAX float64", gated_tm(err_xt["vs_jax"]), 1e-4),
+            ("float64 kernels vs plain path", gated_tm(err_xt["k64"]), 1e-12),
+            ("float64 plain path vs JAX", gated_tm(err_xt["plain_vs_jax"]),
+             1e-10),
+            ("Jacobian float32 vs float64", je_xt, 1e-3)):
+        if not val <= gate:
+            fail(f"exact-z tomographic {name}: {val} (gate {gate})")
+    lap("20")
+
+    # -- 21. exact-z tomography curved, with the options -----------------
+    opts_xc = dict(theta_deg=ref_op["des_theta_deg"], geometry="curved",
+                   matter_power="halofit", with_bao=True,
+                   include_cmb_lensing=True, nonlimber_ell_switch=60,
+                   nonlimber_rsd=True)
+    pipe_xc = tomo_x_of(f32, **opts_xc)
+    out_xc, launches_xc, peak_xc = counted_forward(pipe_xc, batch_xt)
+    got_xc = op_host(out_xc)
+    finite_xc = all(bool(torch.isfinite(v).all()) for k, v in out_xc.items()
+                    if k != "theta_deg")
+    shapes_xc = {k: tuple(v.shape) for k, v in out_xc.items()
+                 if k in keys_op + ("vector",)}
+    del out_xc
+    pipe_xc64 = tomo_x_of(f64, **opts_xc)
+    batch_xc64 = setup(f64, check_x, n=n_x)[0]
+    with plain_path():
+        plain_xc = op_host(pipe_xc64(batch_xc64))
+    kern_xc = op_host(pipe_xc64(batch_xc64))
+    err_xc = {"vs_plain": op_err(sub(got_xc, check_x), plain_xc),
+              "k64": op_err(kern_xc, plain_xc)}
+    with torch.no_grad():
+        wall_xc = median_wall(lambda: pipe_xc(batch_xt), 3)
+    want_xc = {"halo_contract": 2, "df_contract": 4, "hankel_matmul": 0}
+    print(f"[exact-z tomo curved] the cell of phase 20 curved at the 20 DES "
+          f"theta, halofit at the {n_x * j_xt} anchor rows, BAO, kappa_CMB, "
+          f"non-Limber ell < 60 with RSD (its pivot launch), B={n_x}, "
+          f"float32 | forward launches {launches_xc} | finite={finite_xc} "
+          f"{shapes_xc} | vs card f64 plain path ({len(check_x)} "
+          f"cosmologies): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in err_xc["vs_plain"].items())
+          + f" (gate 1e-4) | f64 kernels vs plain "
+          f"{max(err_xc['k64'].values()):.3e} (gate 1e-12) | forward wall "
+          f"median of 3 = {wall_xc * 1e3:.1f} ms ({wall_xc / n_x * 1e3:.3f} "
+          f"ms/cosmology), peak {peak_xc:.2f} GB", flush=True)
+    if launches_xc != want_xc:
+        fail(f"exact-z tomographic curved forward launches {launches_xc}; "
+             f"want {want_xc}")
+    if not (finite_xc and shapes_xc.get("w_gk_cmb") == (n_x, 5, 20)):
+        fail("exact-z tomographic curved outputs not finite, or of the "
+             "wrong shape")
+    for name, val, gate in (("float32 vs float64 plain path",
+                             err_xc["vs_plain"], 1e-4),
+                            ("float64 kernels vs plain path", err_xc["k64"],
+                             1e-12)):
+        if not max(val.values()) <= gate:
+            fail(f"exact-z tomographic curved {name}: {val} (gate {gate})")
+    del plain_xc, kern_xc, pipe_xc64
+    lap("21")
+
+    # -- 22. the Gauss-Legendre exact-z C_ell and the FFT convolution -----
+    # Configuration A's window, 64 cosmologies x n_z = 32 GL nodes = 2048
+    # halo-model rows, each at its own k = (ell + 1/2) / chi_j: kernel A
+    # once, with a k row per row; its gradient through grad_k.
+    rgl = ref_xt["chip_gl"]
+    ells_gl, n_z_gl = np.asarray(rgl["ells"]), rgl["n_z"]
+    idx_gl = np.asarray(rgl["indices"])
+    if (rgl["n_cosmo"] != n_x
+            or not np.allclose(rgl["omega_m0"],
+                               np.linspace(0.24, 0.32, n_x)[idx_gl])):
+        fail("GL exact-z reference does not match this run's cosmologies")
+
+    def gl_of(dtype, idx=None):
+        batch_, hp_, hod_, dist_ = setup(dtype, idx, n=n_x)
+        st_ = Statics(DEFAULT_GRID, device=dev, dtype=dtype)
+        return st_, batch_, hp_, hod_, projection.WindowGalaxy(dist_)
+
+    def gl_cl(gl, batch_=None):
+        st_, b_, hp_, hod_, win_ = gl
+        return projection.limber_cl_exact_z(
+            b_ if batch_ is None else batch_, hp_, hod_, win_, win_, ells_gl,
+            st_, "power_gg", n_z=n_z_gl)
+
+    def gl_nodes(gl):
+        """(k rows, mat, gal) of the GL route's kernel A launch."""
+        st_, b_, hp_, hod_, win_ = gl
+        b_ = b_.batched()
+        lo, hi = projection._limits(win_, win_, torch.minimum)
+        x_, _w = st_.gl_unit(n_z_gl)
+        z_ = (lo + (hi - lo) * x_).expand(b_.batch, n_z_gl)
+        chi_ = background.comoving_distance(b_, z_, st_, DEFAULT_GRID.n_dist)
+        rows_ = limber_fft._repeat_rows(b_, b_.batch, n_z_gl)
+        model_ = halo.build_halo_model(rows_, hp_, hod_, z_.reshape(-1), st_)
+        mat_, gal_ = halo.contraction_nodes(rows_, hp_, model_)
+        k_ = ((torch.as_tensor(ells_gl, device=dev, dtype=st_.dtype)
+               + 0.5) / chi_[..., None]).reshape(b_.batch * n_z_gl, -1)
+        return k_.contiguous(), mat_, gal_
+
+    gl32 = gl_of(f32)
+    cl_gl32, launches_gl, peak_gl = counted_forward(gl_cl, gl32)
+    finite_gl = bool(torch.isfinite(cl_gl32).all())
+    shape_gl = tuple(cl_gl32.shape) == (n_x, len(ells_gl))
+    cl_gl32 = cl_gl32.double().cpu().numpy()
+    with torch.no_grad():
+        wall_gl = median_wall(lambda: gl_cl(gl32), 3)
+    weights_gl = seeded((n_x, len(ells_gl)), 80, f32)
+
+    def grad_run_gl():
+        om = torch.tensor(np.linspace(0.24, 0.32, n_x), dtype=f32,
+                          device=dev, requires_grad=True)
+        s8 = torch.tensor(np.linspace(0.75, 0.88, n_x), dtype=f32,
+                          device=dev, requires_grad=True)
+        cl = gl_cl(gl32, broadcast_cosmo(
+            default_cosmo(device=dev, dtype=f32), omega_m0=om,
+            omega_l0=1.0 - om, sigma_8=s8))
+        return torch.autograd.grad((cl * weights_gl).sum(), (om, s8))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    g_gl = grad_run_gl()
+    torch.cuda.synchronize()
+    grad_launches_gl = counts()
+    peak_gl_fb = torch.cuda.max_memory_allocated() / 1e9
+    finite_ggl = all(bool(torch.isfinite(g).all()) for g in g_gl)
+    del g_gl
+    wall_gl_fb = median_wall(grad_run_gl, 3)
+
+    gl64 = gl_of(f64)
+    cl_gl64 = gl_cl(gl64).cpu().numpy()
+    with plain_path():
+        cl_gl64p = gl_cl(gl64).cpu().numpy()
+    st64g, b64g, hp64g, hod64g, win64g = gl64
+    cl_lat64 = limber_fft.limber_cl_fft_exact_z(
+        b64g, hp64g, hod64g, win64g, win64g, ells_gl, st64g, "power_gg",
+        n_z_anchor=rgl["lattice_j"]).cpu().numpy()
+    # The anchored lattice against the GL route: within 1e-4 over the
+    # ells of the JAX package's slow test (<= 1000), and over all within
+    # 2x the JAX package's own gap between its two routes here (both
+    # routes' quadratures part at ell > ~1500: committed with the JAX
+    # values).
+    lo_ells = ells_gl <= 1000.0
+    err_gl = {"f32_vs_f64": worst_bin(cl_gl32, cl_gl64),
+              "k64_vs_plain": worst_bin(cl_gl64, cl_gl64p),
+              "f64_vs_jax": worst_bin(cl_gl64[idx_gl], rgl["cl"]),
+              "lattice_vs_jax": worst_bin(cl_lat64[idx_gl], rgl["lattice"]),
+              "lattice_vs_gl_lo": worst_bin(cl_lat64[:, lo_ells],
+                                            cl_gl64[:, lo_ells]),
+              "lattice_vs_gl": worst_bin(cl_lat64, cl_gl64)}
+    gap_gl = rgl["jax_lattice_vs_gl_worst"]
+    lat_gl_rows = np.abs(cl_lat64 / cl_gl64 - 1.0).max(-1)
+
+    # Kernel A with a k row per row, and A' with grad_k, at the route's
+    # 2048 rows: checked on 8 rows (checked cosmology c at GL node 4c).
+    k_gl32, mat_gl32, gal_gl32 = gl_nodes(gl32)
+    k_gl64, mat_gl64, gal_gl64 = gl_nodes(gl_of(f64, check_x))
+    sel64 = torch.tensor([c * n_z_gl + 4 * c for c in range(len(check_x))],
+                         device=dev)
+    sel32 = torch.tensor([int(check_x[c]) * n_z_gl + 4 * c
+                          for c in range(len(check_x))], device=dev)
+    k_gl64, mat_gl64, gal_gl64 = (t[sel64].contiguous() for t in
+                                  (k_gl64, mat_gl64, gal_gl64))
+    rows_gl = mat_gl32.shape[0]
+    a_gl = check_a(k_gl32, mat_gl32, gal_gl32, k_gl64, mat_gl64, gal_gl64,
+                   cheb32, cheb64)
+    a_gl["rows"] = [torch.equal(
+        hc.halo_contract(k_gl32, mat_gl32, gal_gl32, cheb32)[r],
+        hc.halo_contract(k_gl32[r].contiguous(), mat_gl32[r:r + 1],
+                         gal_gl32[r:r + 1], cheb32)[0])
+        for r in sel32.tolist()]
+    ms_a_gl, plain_ms_a_gl = in_turns_ms(
+        lambda: hc.halo_contract(k_gl32, mat_gl32, gal_gl32, cheb32),
+        lambda: hc.halo_contract_ref(k_gl32, mat_gl32, gal_gl32), 100, 5)
+    bound_a_gl = bound_a_of(k_gl32, mat_gl32, gal_gl32)
+    profiled["halo_contract per-row k"] = (
+        lambda: hc.halo_contract(k_gl32, mat_gl32, gal_gl32, cheb32), None,
+        20)
+    bwd_gl = check_a_bwd(k_gl32, mat_gl32, gal_gl32, k_gl64, mat_gl64,
+                         gal_gl64, 81, grad_k=True)
+    ga_gl = seeded((rows_gl, hc.N_OUT, len(ells_gl)), 82, f32)
+    ms_abwd_gl, plain_ms_abwd_gl = in_turns_ms(
+        lambda: hc.halo_contract_bwd(k_gl32, mat_gl32, gal_gl32, cheb32,
+                                     ga_gl, grad_k=True),
+        lambda: hc.halo_contract_bwd_ref(k_gl32, mat_gl32, gal_gl32, cheb32,
+                                         ga_gl, grad_k=True), 100, 5)
+    ms_abwd_gl_nok = events_ms(lambda: hc.halo_contract_bwd(
+        k_gl32, mat_gl32, gal_gl32, cheb32, ga_gl))
+    bound_abwd_gl = bound_abwd_of(k_gl32, mat_gl32, gal_gl32, ga_gl,
+                                  grad_k=True)
+    profiled["halo_contract_bwd per-row k grad_k"] = (
+        lambda: hc.halo_contract_bwd(k_gl32, mat_gl32, gal_gl32, cheb32,
+                                     ga_gl, grad_k=True), None, 20)
+    geo_gl = hc.bwd_launch_report(mat_gl32.shape[1], gal_gl32.shape[1],
+                                  len(ells_gl), f32, with_grad_k=True)
+    geo_gl_mirror = tiles.bwd_geometry(rows_gl, mat_gl32.shape[1],
+                                       gal_gl32.shape[1], len(ells_gl), 4,
+                                       with_grad_k=True)
+    geo_gl_ok = (geo_gl["kt"] == geo_gl_mirror.kt
+                 and geo_gl["units"] == geo_gl_mirror.grid[0]
+                 and geo_gl["dyn_smem"] == geo_gl_mirror.dyn_smem
+                 and geo_gl["static_smem"] == geo_gl_mirror.static_smem)
+    mix_gl, same_gl, cx_max_gl = branch_mix(k_gl32, mat_gl32, gal_gl32)
+
+    # The whitened FFT convolution against the direct route: the linear P
+    # on the k lattice of the 64 cosmologies, configuration A's window.
+    _st, b32g, _hp, _hod, win32g = gl32
+    p_lin64 = limber_fft.p_lattice_linear(b64g, st64g)
+    fft64 = limber_fft.limber_cl_fft(b64g, win64g, win64g, ells_gl, p_lin64,
+                                     st64g, conv_method="fft")
+    dir64 = limber_fft.limber_cl_fft(b64g, win64g, win64g, ells_gl, p_lin64,
+                                     st64g)
+    fft32 = limber_fft.limber_cl_fft(b32g, win32g, win32g, ells_gl,
+                                     p_lin64.float(), gl32[0],
+                                     conv_method="fft")
+    err_fft = {"f64_fft_vs_direct": max_rel(fft64, dir64),
+               "f32_fft_vs_f64": max_rel(fft32.double(), fft64)}
+    p_lin32 = p_lin64.float()
+    ms_fft, ms_direct = in_turns_ms(
+        lambda: limber_fft.limber_cl_fft(b32g, win32g, win32g, ells_gl,
+                                         p_lin32, gl32[0],
+                                         conv_method="fft"),
+        lambda: limber_fft.limber_cl_fft(b32g, win32g, win32g, ells_gl,
+                                         p_lin32, gl32[0]), 20, 20)
+    del cl_lat64, fft64, dir64, fft32, p_lin64, p_lin32
+
+    want_gl = {"halo_contract": 1, "df_contract": 0, "hankel_matmul": 0}
+    print(f"[GL exact-z] projection.limber_cl_exact_z, power_gg, "
+          f"configuration A's window, B={n_x} x n_z={n_z_gl} = {rows_gl} "
+          f"halo-model rows, {len(ells_gl)} ells 10..3000, float32 | forward "
+          f"launches {launches_gl} | finite={finite_gl} shape_ok={shape_gl} "
+          f"| f32 vs card f64 worst bin {err_gl['f32_vs_f64']:.3e} (gate "
+          f"1e-4) | f64 kernels vs plain {err_gl['k64_vs_plain']:.3e} (gate "
+          f"1e-12) | f64 vs JAX (3 cosmologies) {err_gl['f64_vs_jax']:.3e} "
+          f"(gate 1e-10) | lattice exact-z (J=8), f64, vs JAX's "
+          f"{err_gl['lattice_vs_jax']:.3e} (gate 1e-10), vs GL on all {n_x} "
+          f"cosmologies: ell <= 1000 {err_gl['lattice_vs_gl_lo']:.3e} (gate "
+          f"1e-4), all ells {err_gl['lattice_vs_gl']:.3e} (gate 2x the JAX "
+          f"package's own {gap_gl:.3e}; median over cosmologies "
+          f"{np.median(lat_gl_rows):.3e}) | forward "
+          f"wall median of 3 = {wall_gl * 1e3:.1f} ms, peak {peak_gl:.2f} GB "
+          f"| forward+backward launches {grad_launches_gl[0]} / "
+          f"{grad_launches_gl[1]}, finite={finite_ggl}, wall median of 3 = "
+          f"{wall_gl_fb * 1e3:.1f} ms, peak {peak_gl_fb:.2f} GB", flush=True)
+    print(f"[GL exact-z A] k row per row: ({rows_gl}, {len(ells_gl)}) k, "
+          f"NM={mat_gl32.shape[1]} NG={gal_gl32.shape[1]} | f64 rel_to_peak="
+          f"{a_gl['f64']:.3e} (8 rows, gate 1e-12) | f32 vs plain in f64 "
+          f"{a_gl['f32']:.3e} (gate 2e-6, <= 1.5x the plain f32's "
+          f"{a_gl['plain32']:.3e}) | deterministic={a_gl['same']} | a row's "
+          f"launch with its k shared equals its row, bit for bit: "
+          f"{all(a_gl['rows'])} | kernel {ms_a_gl:.4f} ms, plain "
+          f"{plain_ms_a_gl:.3f} ms (CUDA events, 100 / 5 calls, in turns) | "
+          f"bound {bound_a_gl[0]:.5f} ms by {bound_a_gl[1]} | branch mix: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in mix_gl.items())
+          + f" | galaxy nodes with one profile {same_gl:.3f}", flush=True)
+    print(f"[GL exact-z A'] with grad_k: f64 field_peak_rel="
+          f"{bwd_gl['f64']:.3e} (8 rows, gate 1e-12; grad_k one field) | f32 "
+          f"vs plain backward in f64 {bwd_gl['f32']:.3e} (gate 2e-5, <= 1.5x "
+          f"the plain f32's {bwd_gl['plain32']:.3e}) | deterministic="
+          f"{bwd_gl['same']} | kernel {ms_abwd_gl:.4f} ms ({ms_abwd_gl_nok:.4f}"
+          f" ms without grad_k), plain {plain_ms_abwd_gl:.3f} ms (CUDA "
+          f"events, in turns) | bound {bound_abwd_gl[0]:.5f} ms by "
+          f"{bound_abwd_gl[1]} | launch geometry {geo_gl} (ops/tiles.py "
+          f"mirror {'agrees' if geo_gl_ok else 'DIFFERS'})", flush=True)
+    print(f"[FFT convolution] limber_cl_fft(conv_method='fft') on the linear "
+          f"P lattice, B={n_x}, {len(ells_gl)} ells: f64 vs the direct route "
+          f"{err_fft['f64_fft_vs_direct']:.3e} (gate 1e-10) | f32 (float64 "
+          f"transforms, rounded once) vs f64 {err_fft['f32_fft_vs_f64']:.3e} "
+          f"| f32 fft {ms_fft:.3f} ms, direct {ms_direct:.3f} ms a call "
+          f"(CUDA events, 20 calls, in turns)", flush=True)
+    if launches_gl != want_gl:
+        fail(f"GL exact-z forward launches {launches_gl}; want {want_gl}")
+    if grad_launches_gl != (want_gl, want_gl):
+        fail(f"GL exact-z forward+backward launches {grad_launches_gl}; want "
+             f"{want_gl} each")
+    if not (finite_gl and shape_gl and finite_ggl):
+        fail("GL exact-z C_ell or its gradient not finite, or of the wrong "
+             "shape")
+    if not (a_gl["f64"] <= 1e-12 and a_gl["f32"] <= 2e-6
+            and a_gl["f32"] <= 1.5 * a_gl["plain32"] and a_gl["same"]
+            and all(a_gl["rows"])):
+        fail(f"halo_contract with a k row per row: {a_gl}")
+    if not (bwd_gl["f64"] <= 1e-12 and bwd_gl["f32"] <= 2e-5
+            and bwd_gl["f32"] <= 1.5 * bwd_gl["plain32"] and bwd_gl["same"]):
+        fail(f"halo_contract_bwd with grad_k: {bwd_gl}")
+    if not geo_gl_ok:
+        fail(f"halo_contract_bwd grad_k geometry {geo_gl} differs from "
+             f"ops/tiles.py's {geo_gl_mirror}")
+    for name, val, gate in (
+            ("float32 vs float64", err_gl["f32_vs_f64"], 1e-4),
+            ("float64 kernels vs plain path", err_gl["k64_vs_plain"], 1e-12),
+            ("float64 vs JAX", err_gl["f64_vs_jax"], 1e-10),
+            ("lattice exact-z vs JAX", err_gl["lattice_vs_jax"], 1e-10),
+            ("lattice exact-z vs GL, ell <= 1000", err_gl["lattice_vs_gl_lo"],
+             1e-4),
+            ("lattice exact-z vs GL", err_gl["lattice_vs_gl"],
+             2.0 * gap_gl),
+            ("FFT convolution float64 vs direct",
+             err_fft["f64_fft_vs_direct"], 1e-10)):
+        if not val <= gate:
+            fail(f"GL exact-z {name}: {val} (gate {gate})")
+    lap("22")
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -3024,6 +3610,8 @@ def main():
             for route, (pipe_r, _) in pipes.items()}
     runs["exact-z"] = (grad_run_x, wall_x_fb * 1e3)
     runs["tomographic"] = (grad_run_tm, wall_tm_fb * 1e3)
+    runs["exact-z tomographic"] = (grad_run_xt, wall_xt_fb * 1e3, n_x)
+    runs["GL exact-z"] = (grad_run_gl, wall_gl_fb * 1e3, n_x)
 
     def fwd_tm():
         with torch.no_grad():
@@ -3035,10 +3623,23 @@ def main():
                 q["pipe"](*q["args"])
         return run
 
+    def fwd_nograd(fn, *args_):
+        def run():
+            with torch.no_grad():
+                fn(*args_)
+        return run
+
     runs_op = [(f"{k} forward", (fwd_of(q), q["wall"] * 1e3, q["n"]))
                for k, q in (("options flat", q15), ("options curved", q16),
                             ("options exact-z", q17), ("options table", q18),
                             ("options tomographic", q19))]
+    runs_op += [
+        ("exact-z tomographic forward", (fwd_nograd(pipe_xt, batch_xt),
+                                         wall_xt * 1e3, n_x)),
+        ("exact-z tomographic curved forward",
+         (fwd_nograd(pipe_xc, batch_xt), wall_xc * 1e3, n_x)),
+        ("GL exact-z forward", (fwd_nograd(gl_cl, gl32), wall_gl * 1e3,
+                                n_x))]
     for route, (run, wall_fb, *n_r) in [*runs.items(),
                                         ("tomographic forward",
                                          (fwd_tm, wall_tm * 1e3)),
@@ -3059,11 +3660,16 @@ def main():
              "exact_z": launches_x, "shear_lattice": shear["lattice"][
                  "launches"], "shear_table": shear["table"]["launches"],
              "tomographic": launches_tm,
-             **{k: q["launches"] for k, q in q_op.items()}}
+             **{k: q["launches"] for k, q in q_op.items()},
+             "exact_z_tomographic": launches_xt,
+             "exact_z_tomographic_curved": launches_xc,
+             "gl_exact_z": launches_gl}
     bwd_of = dict(grad_launches, exact_z=grad_launches_x,
                   shear_lattice=shear["lattice"]["grad_launches"],
                   shear_table=shear["table"]["grad_launches"],
                   tomographic=grad_launches_tm,
+                  exact_z_tomographic=grad_launches_xt,
+                  gl_exact_z=grad_launches_gl,
                   **{k: q["grad_launches"] for k, q in q_op.items()
                      if "grad_launches" in q})
     bwd_paths = {route: {f"{n}_bwd": c for n, c in bw.items()}
@@ -3108,7 +3714,18 @@ def main():
                        "bound_ms": a["bound"][0], "bound_by": a["bound"][1]}
                for label, a in (("options flat (BAO)", a15),
                                 ("options curved (Tinker)", a16),
-                                ("options tomographic", a19))}},
+                                ("options tomographic", a19))},
+           "exact_z_tomographic": {
+               "rows": rows_xt, "ms": ms_a_xt, "plain_ms": a_xt["plain_ms"],
+               "plain_rows": len(check_x),
+               "device_ms": dtimes["halo_contract exact-z tomographic"][0],
+               "bound_ms": bound_a_xt[0], "bound_by": bound_a_xt[1]},
+           "per_row_k": {
+               "rows": rows_gl, "nk": len(ells_gl), "ms": ms_a_gl,
+               "plain_ms": plain_ms_a_gl,
+               "device_ms": dtimes["halo_contract per-row k"][0],
+               "bound_ms": bound_a_gl[0], "bound_by": bound_a_gl[1],
+               "max_abs_err": a_gl["abs"]}},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
                bound_c, lib_ms_c, *dtimes["df_contract"])
@@ -3136,12 +3753,24 @@ def main():
              "device_ms": dtimes[c_key("options tomographic", c)][0],
              "library_device_ms": dtimes[c_key("options tomographic", c)][1],
              "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
-            for c in c19]},
+            for c in c19],
+           "exact_z_tomographic": [
+            {"spec": list(c["spec"]), "rows": c["rows"], "width": c["n"],
+             "max_abs_err": c["abs"], "ms": c["ms"],
+             "plain_ms": c["plain_ms"], "library_ms": c["lib_ms"],
+             "device_ms": dtimes[c_key("exact-z tomographic", c)][0],
+             "library_device_ms": dtimes[c_key("exact-z tomographic", c)][1],
+             "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+            for c in c_xt]},
         record("hankel_matmul", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47", main_b["abs"], ms_b,
                plain_ms_b, bound_b, lib_ms_b, *dtimes["hankel_matmul"])
         | {"options_table": {"rows": cl18.shape[0], "max_abs_err": b18["abs"],
                              "ms": b18["ms"], "library_ms": b18["lib_ms"],
+                             "device_ms": dtimes[
+                                 "hankel_matmul options table"][0],
+                             "library_device_ms": dtimes[
+                                 "hankel_matmul options table"][1],
                              "bound_ms": b18["bound"][0],
                              "bound_by": b18["bound"][1]}},
         record("halo_contract_bwd", "chomp_tpu_torch/csrc/halo_contract.cu",
@@ -3165,7 +3794,21 @@ def main():
            "tomographic_bound_ms": bound_abwd_tm[0],
            "options_tomographic_rows": a19["rows"],
            "options_tomographic_ms": a19["bwd_ms"],
-           "options_tomographic_bound_ms": a19["bwd_bound"][0]},
+           "options_tomographic_device_ms": dtimes[
+               "halo_contract_bwd options tomographic"][0],
+           "options_tomographic_bound_ms": a19["bwd_bound"][0],
+           "exact_z_tomographic": {
+               "rows": rows_xt, "ms": ms_abwd_xt,
+               "plain_ms": bwd_xt["plain_ms"], "plain_rows": len(check_x),
+               "device_ms": dtimes["halo_contract_bwd exact-z tomographic"][0],
+               "bound_ms": bound_abwd_xt[0], "bound_by": bound_abwd_xt[1]},
+           "per_row_k_grad_k": {
+               "rows": rows_gl, "nk": len(ells_gl), "ms": ms_abwd_gl,
+               "ms_without_grad_k": ms_abwd_gl_nok,
+               "plain_ms": plain_ms_abwd_gl,
+               "device_ms": dtimes["halo_contract_bwd per-row k grad_k"][0],
+               "bound_ms": bound_abwd_gl[0], "bound_by": bound_abwd_gl[1],
+               "max_abs_err": bwd_gl["abs"], "geometry": geo_gl}},
         record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
                "no backward kernel in the JAX package",
@@ -3185,8 +3828,24 @@ def main():
             {"spec": list(c["spec"]), "rows": c["rows"], "width": c["n"],
              "max_abs_err": c["bwd"]["abs"], "ms": c["bwd"]["ms"],
              "library_ms": c["bwd"]["lib_ms"],
+             "device_ms": dtimes[c_key("options tomographic", c).replace(
+                 "df_contract", "df_contract_bwd", 1)][0],
+             "library_device_ms": dtimes[c_key(
+                 "options tomographic", c).replace(
+                     "df_contract", "df_contract_bwd", 1)][1],
              "bound_ms": c["bwd"]["bound"][0],
-             "bound_by": c["bwd"]["bound"][1]} for c in c19]},
+             "bound_by": c["bwd"]["bound"][1]} for c in c19],
+           "exact_z_tomographic": [
+            {"spec": list(c["spec"]), "rows": c["rows"], "width": c["n"],
+             "max_abs_err": c["bwd"]["abs"], "ms": c["bwd"]["ms"],
+             "library_ms": c["bwd"]["lib_ms"],
+             "device_ms": dtimes[c_key("exact-z tomographic", c).replace(
+                 "df_contract", "df_contract_bwd", 1)][0],
+             "library_device_ms": dtimes[c_key(
+                 "exact-z tomographic", c).replace(
+                     "df_contract", "df_contract_bwd", 1)][1],
+             "bound_ms": c["bwd"]["bound"][0],
+             "bound_by": c["bwd"]["bound"][1]} for c in c_xt]},
         record("hankel_matmul_bwd", "chomp_tpu_torch/csrc/hankel_matmul.cu",
                "chomp_tpu/ops/fftlog_pallas.py:47 (the forward's site); "
                "autodiff; no backward kernel in the JAX package",

@@ -53,7 +53,9 @@
 //    recurrence multiplies by constant reciprocals, no division.
 //
 // Layout: one block per (128-k tile, cosmology); each thread owns one k and
-// loops over the nodes, staged through shared memory in tiles of 64 (every
+// loops over the nodes (the k row is shared, k_stride 0, or the row's own,
+// k_stride NK: the Gauss-Legendre exact-z C_ell evaluates each projection
+// node at its own k = (l + 1/2) / chi), staged through shared memory in tiles of 64 (every
 // thread reads the same node: a broadcast), accumulating its five outputs
 // in double registers.  No atomics, so the result is deterministic.  The
 // Chebyshev tables live in __constant__ memory, copied there on the launch
@@ -303,7 +305,7 @@ __device__ __forceinline__ T profile_n(T kk, const Profile<T>& p) {
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-halo_contract_kernel(const T* __restrict__ k, int nk,
+halo_contract_kernel(const T* __restrict__ k, int k_stride, int nk,
                      const T* __restrict__ mat, int nm,
                      const T* __restrict__ gal, int ng,
                      T* __restrict__ out) {
@@ -314,7 +316,7 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
   const int tid = threadIdx.x;
   const int i = blockIdx.x * BLOCK + tid;
   const bool live = i < nk;
-  const T kk = live ? k[i] : T(1);
+  const T kk = live ? k[(size_t)b * k_stride + i] : T(1);
   double h_m = 0.0, h_g = 0.0, pp_mm = 0.0, pp_gg = 0.0, pp_gm = 0.0;
 
   const T* mb = mat + (size_t)b * nm * MAT_F;
@@ -436,6 +438,19 @@ halo_contract_kernel(const T* __restrict__ k, int nk,
 //    two removes the spill at 107 registers but leaves 16 warps an SM and
 //    runs ~20% slower (PERF.md, the ablation).  chip_smoke.py's phase 8
 //    prints ptxas' lines.
+// 5. grad_k (the Gauss-Legendre exact-z C_ell, whose k = (l + 1/2) / chi
+//    moves with the cosmology): d out / d k_i = r_s dN/dx at the node, so
+//    grad_k[r, i] = sum over nodes of S r_s dN/dx (S_m r_s,m dN_m/dx + S_g
+//    r_s,g dN_g/dx at a gal node), the dN/dx that d rs already needs.  It
+//    is a sum across the warps and blocks that hold the nodes, for each k:
+//    each lane adds its k's terms, in node order, to its warp's row of a
+//    double buffer in shared memory (one lane a k, so no race); at the end
+//    of a k tile the block sums its warps' rows in warp order into its
+//    work unit's row of a double scratch (R, units, NK) in device memory,
+//    and a second kernel sums the units in unit order.  No atomics: two
+//    launches agree bit for bit.  The buffer takes BWD_WARPS doubles of
+//    each k's share of the tile bytes (smaller k tiles); a launch that
+//    does not ask for grad_k runs the kernel compiled without it.
 
 constexpr int BWD_BLOCK = 256;
 constexpr int BWD_WARPS = BWD_BLOCK / 32;
@@ -507,10 +522,10 @@ __device__ void stage_profile_b(ProfileB<T>& p, T rs, T c) {
   p.d[M - 1] = T(0);
 }
 
-// N, k dN/dx and dN/dc at x = k r_s.
+// N, dN/dx and dN/dc at x = k r_s.
 template <typename T>
 __device__ __forceinline__ void profile_nd(T kk, const ProfileB<T>& p, T& n,
-                                           T& kdx, T& dc) {
+                                           T& dx, T& dc) {
   constexpr int M = Lens<T>::moments;
   const T x = kk * p.rs;
   const T b = p.c1 * x;
@@ -525,7 +540,7 @@ __device__ __forceinline__ void profile_nd(T kk, const ProfileB<T>& p, T& n,
       e = fma(e, x2, p.e[j]);
       if (j >= 1) d = fma(d, x2, p.d[j - 1]);
     }
-    kdx = kk * (d * x);
+    dx = d * x;
     dc = e;
     return;
   }
@@ -536,7 +551,7 @@ __device__ __forceinline__ void profile_nd(T kk, const ProfileB<T>& p, T& n,
   const T ux = p.c1 * u;  // 1/x
   aux_fg(x, ux, fmx, gx);
   n = gx + s * fm - co * g;
-  kdx = kk * (fmx - co * fm - s * g + s * ux * u);
+  dx = fmx - co * fm - s * g + s * ux * u;
   dc = s * u * p.inv_c1;
 }
 
@@ -568,11 +583,12 @@ __device__ __forceinline__ void warp_fold(const double (&acc)[F], int lane,
 }
 
 // A mat node over one staged tile: acc rs, c, wa, wb; G rows 0 h_m, 2
-// pp_mm; w = (wa, 2 wb).
-template <typename T, typename W>
+// pp_mm; w = (wa, 2 wb).  GK: adds S r_s dN/dx to the warp's grad_k row.
+template <typename T, typename W, bool GK>
 __device__ __forceinline__ void mat_node(const ProfileB<T>& p, const W* w,
                                          const T* s_k, const W* s_g, int kt,
-                                         int cnt, int lane, double* total) {
+                                         int cnt, int lane, double* total,
+                                         double* gk) {
   const W w0 = w[0], w1 = w[1];
   const W* g_hm = s_g;
   const W* g_mm = s_g + 2 * kt;
@@ -582,10 +598,12 @@ __device__ __forceinline__ void mat_node(const ProfileB<T>& p, const W* w,
     const int end = min(cnt, i0 + 32 * RUN);
     for (int i = i0; i < end; i += 32) {
       const T kk = s_k[i];
-      T n, kdx, dc;
-      profile_nd(kk, p, n, kdx, dc);
+      T n, dx, dc;
+      profile_nd(kk, p, n, dx, dc);
+      const T kdx = kk * dx;
       const W nw = (W)n, gh = g_hm[i], gm = g_mm[i];
       const W sv = fma(gm * w1, nw, gh * w0);
+      if (GK) gk[i] += (double)sv * ((double)dx * (double)p.rs);
       q[0].add(sv, (W)kdx);
       q[1].add(sv, (W)dc);
       q[2].add(gh, nw);
@@ -600,11 +618,13 @@ __device__ __forceinline__ void mat_node(const ProfileB<T>& p, const W* w,
 // A gal node over one staged tile: acc rs_m, c_m, rs_g, c_g, a_hg, a_gg,
 // b_gg, a_gm, b_gm; G rows 1 h_g, 3 pp_gg, 4 pp_gm; w = (a_hg, a_gg,
 // 2 b_gg, a_gm, b_gm).  SAME: the two profiles coincide (pg unread).
-template <typename T, typename W, bool SAME>
+// GK: adds S_m r_s,m dN_m/dx + S_g r_s,g dN_g/dx to the warp's grad_k row.
+template <typename T, typename W, bool SAME, bool GK>
 __device__ __forceinline__ void gal_node(const ProfileB<T>& pm,
                                          const ProfileB<T>& pg, const W* w,
                                          const T* s_k, const W* s_g, int kt,
-                                         int cnt, int lane, double* total) {
+                                         int cnt, int lane, double* total,
+                                         double* gk) {
   const W w0 = w[0], w1 = w[1], w2 = w[2], w3 = w[3], w4 = w[4];
   const W* g_hg = s_g + kt;
   const W* g_gg = s_g + 3 * kt;
@@ -617,13 +637,16 @@ __device__ __forceinline__ void gal_node(const ProfileB<T>& pm,
     const int end = min(cnt, i0 + 32 * RUN);
     for (int i = i0; i < end; i += 32) {
       const T kk = s_k[i];
-      T n_m, kdx_m, dc_m;
-      profile_nd(kk, pm, n_m, kdx_m, dc_m);
+      T n_m, dx_m, dc_m;
+      profile_nd(kk, pm, n_m, dx_m, dc_m);
+      const T kdx_m = kk * dx_m;
       const W nm = (W)n_m, kdxm = (W)kdx_m, dcm = (W)dc_m;
       W ng = nm, kdxg = kdxm, dcg = dcm;
+      T dx_g = dx_m;
       if (!SAME) {
-        T n_g, kdx_g, dc_g;
-        profile_nd(kk, pg, n_g, kdx_g, dc_g);
+        T n_g, dc_g;
+        profile_nd(kk, pg, n_g, dx_g, dc_g);
+        const T kdx_g = kk * dx_g;
         ng = (W)n_g;
         kdxg = (W)kdx_g;
         dcg = (W)dc_g;
@@ -631,6 +654,9 @@ __device__ __forceinline__ void gal_node(const ProfileB<T>& pm,
       const W gh = g_hg[i], gg = g_gg[i], gm = g_gm[i];
       const W sg = fma(gm * w4, nm, fma(gg, fma(w2, ng, w1), gh * w0));
       const W sm = gm * fma(w4, ng, w3);
+      if (GK)
+        gk[i] += (double)sm * ((double)dx_m * (double)pm.rs) +
+                 (double)sg * ((double)dx_g * (double)pg.rs);
       q[0].add(sm, kdxm);
       q[1].add(sm, dcm);
       q[2].add(sg, kdxg);
@@ -647,13 +673,14 @@ __device__ __forceinline__ void gal_node(const ProfileB<T>& pm,
   warp_fold(acc, lane, total);
 }
 
-template <typename T>
+template <typename T, bool GK>
 __global__ void __launch_bounds__(BWD_BLOCK)
-halo_contract_bwd_kernel(const T* __restrict__ k, int nk,
+halo_contract_bwd_kernel(const T* __restrict__ k, int k_stride, int nk,
                          const T* __restrict__ mat, int nm,
                          const T* __restrict__ gal, int ng,
                          const T* __restrict__ grad, T* __restrict__ gmat,
-                         T* __restrict__ ggal, int kt) {
+                         T* __restrict__ ggal, int kt,
+                         double* __restrict__ gk_part) {
   using W = typename BwdShape<T>::W;
   __shared__ ProfileB<T> s_pm[UNIT_M];
   __shared__ ProfileB<T> s_pg[2][UNIT_G];  // [0] matter, [1] galaxy profile
@@ -664,6 +691,7 @@ halo_contract_bwd_kernel(const T* __restrict__ k, int nk,
   extern __shared__ __align__(16) unsigned char s_dyn[];
   W* s_g = reinterpret_cast<W*>(s_dyn);              // [N_OUT][kt]
   T* s_k = reinterpret_cast<T*>(s_g + N_OUT * kt);   // [kt]
+  double* s_gk = reinterpret_cast<double*>(s_k + kt); // GK: [BWD_WARPS][kt]
 
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -699,26 +727,40 @@ halo_contract_bwd_kernel(const T* __restrict__ k, int nk,
   }
 
   const T* gb = grad + (size_t)b * N_OUT * nk;
+  const T* kb = k + (size_t)b * k_stride;
+  double* gk_w = s_gk + warp * kt;
   for (int t0 = 0; t0 < nk; t0 += kt) {
     const int cnt = min(kt, nk - t0);
     __syncthreads();
     for (int i = tid; i < cnt; i += BWD_BLOCK) {
-      s_k[i] = k[t0 + i];
+      s_k[i] = kb[t0 + i];
 #pragma unroll
       for (int o = 0; o < N_OUT; ++o)
         s_g[o * kt + i] = (W)gb[(size_t)o * nk + t0 + i];
+      if (GK)
+        for (int w = 0; w < BWD_WARPS; ++w) s_gk[w * kt + i] = 0.0;
     }
     __syncthreads();
     for (int j = warp; j < cm; j += BWD_WARPS)
-      mat_node<T, W>(s_pm[j], s_wm[j], s_k, s_g, kt, cnt, lane,
-                     tot_m + j * MAT_F);
+      mat_node<T, W, GK>(s_pm[j], s_wm[j], s_k, s_g, kt, cnt, lane,
+                         tot_m + j * MAT_F, gk_w);
     for (int j = warp; j < cg; j += BWD_WARPS) {
       if (s_same[j])
-        gal_node<T, W, true>(s_pg[0][j], s_pg[0][j], s_wg[j], s_k, s_g, kt,
-                             cnt, lane, tot_g + j * GAL_F);
+        gal_node<T, W, true, GK>(s_pg[0][j], s_pg[0][j], s_wg[j], s_k, s_g,
+                                 kt, cnt, lane, tot_g + j * GAL_F, gk_w);
       else
-        gal_node<T, W, false>(s_pg[0][j], s_pg[1][j], s_wg[j], s_k, s_g, kt,
-                              cnt, lane, tot_g + j * GAL_F);
+        gal_node<T, W, false, GK>(s_pg[0][j], s_pg[1][j], s_wg[j], s_k, s_g,
+                                  kt, cnt, lane, tot_g + j * GAL_F, gk_w);
+    }
+    if (GK) {
+      // The unit's share of grad_k for this tile: its warps in order.
+      __syncthreads();
+      double* out = gk_part + ((size_t)b * gridDim.x + blockIdx.x) * nk + t0;
+      for (int i = tid; i < cnt; i += BWD_BLOCK) {
+        double s = 0.0;
+        for (int w = 0; w < BWD_WARPS; ++w) s += s_gk[w * kt + i];
+        out[i] = s;
+      }
     }
   }
   __syncthreads();
@@ -728,17 +770,33 @@ halo_contract_bwd_kernel(const T* __restrict__ k, int nk,
   for (int s = tid; s < cg * GAL_F; s += BWD_BLOCK) og[s] = (T)tot_g[s];
 }
 
+// grad_k: the units' partial sums (R, units, NK), summed in unit order.
+template <typename T>
+__global__ void grad_k_sum_kernel(const double* __restrict__ part,
+                                  int units, int nk, int total,
+                                  T* __restrict__ gk) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int b = t / nk, i = t - b * nk;
+  const double* p = part + (size_t)b * units * nk + i;
+  double s = 0.0;
+  for (int u = 0; u < units; ++u) s += p[(size_t)u * nk];
+  gk[t] = (T)s;
+}
+
 // The backward's launch geometry (ops/tiles.py::bwd_geometry mirrors it):
 // one block per (work unit, cosmology); k tiles of kt, a multiple of 32,
-// as large as BwdShape::tile_bytes of staged k and cotangent allow.
+// as large as BwdShape::tile_bytes of staged k and cotangent (and, with
+// grad_k, the warps' double rows) allow.
 struct BwdGeometry {
   int units, kt, tiles, dyn_smem;
 };
 
 template <typename T>
-BwdGeometry bwd_geometry(int nm, int ng, int nk) {
+BwdGeometry bwd_geometry(int nm, int ng, int nk, bool gk) {
   using W = typename BwdShape<T>::W;
-  const int per_k = (int)(N_OUT * sizeof(W) + sizeof(T));
+  const int per_k = (int)(N_OUT * sizeof(W) + sizeof(T) +
+                          (gk ? BWD_WARPS * sizeof(double) : 0));
   const int kt_max = BwdShape<T>::tile_bytes / per_k / 32 * 32;
   const int units =
       std::max((nm + UNIT_M - 1) / UNIT_M, (ng + UNIT_G - 1) / UNIT_G);
@@ -760,52 +818,78 @@ cudaError_t prepare(const Sym& table_symbol, const void* tables,
 }
 
 template <typename T, typename Sym>
-int launch(const Sym& table_symbol, const void* tables, const void* k, int nk,
-           const void* mat, int nm, const void* gal, int ng, void* out,
-           int batch, const int* lens, cudaStream_t s) {
+int launch(const Sym& table_symbol, const void* tables, const void* k,
+           int k_stride, int nk, const void* mat, int nm, const void* gal,
+           int ng, void* out, int batch, const int* lens, cudaStream_t s) {
   const cudaError_t err = prepare<T>(table_symbol, tables, lens, s);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((nk + BLOCK - 1) / BLOCK, batch);
   halo_contract_kernel<T><<<grid, BLOCK, 0, s>>>(
-      (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng, (T*)out);
+      (const T*)k, k_stride, nk, (const T*)mat, nm, (const T*)gal, ng,
+      (T*)out);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool GK>
+cudaError_t launch_bwd_kernel(const BwdGeometry& g, const void* k,
+                              int k_stride, int nk, const void* mat, int nm,
+                              const void* gal, int ng, const void* grad,
+                              void* gmat, void* ggal, int batch,
+                              void* gk_part, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      halo_contract_bwd_kernel<T, GK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, g.dyn_smem);
+  if (err != cudaSuccess) return err;
+  halo_contract_bwd_kernel<T, GK><<<dim3(g.units, batch), BWD_BLOCK,
+                                    g.dyn_smem, s>>>(
+      (const T*)k, k_stride, nk, (const T*)mat, nm, (const T*)gal, ng,
+      (const T*)grad, (T*)gmat, (T*)ggal, g.kt, (double*)gk_part);
+  return cudaGetLastError();
+}
+
+// gk_part (batch, units, nk) double scratch and gk (batch, nk): both null,
+// or both given for grad_k.
 template <typename T, typename Sym>
 int launch_bwd(const Sym& table_symbol, const void* tables, const void* k,
-               int nk, const void* mat, int nm, const void* gal, int ng,
-               const void* grad, void* gmat, void* ggal, int batch,
+               int k_stride, int nk, const void* mat, int nm,
+               const void* gal, int ng, const void* grad, void* gmat,
+               void* ggal, void* gk_part, void* gk, int batch,
                const int* lens, cudaStream_t s) {
   cudaError_t err = prepare<T>(table_symbol, tables, lens, s);
   if (err != cudaSuccess) return (int)err;
-  const BwdGeometry g = bwd_geometry<T>(nm, ng, nk);
-  err = cudaFuncSetAttribute(halo_contract_bwd_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             g.dyn_smem);
+  const bool with_gk = gk != nullptr;
+  if (with_gk != (gk_part != nullptr)) return (int)cudaErrorInvalidValue;
+  const BwdGeometry g = bwd_geometry<T>(nm, ng, nk, with_gk);
+  if (!with_gk)
+    return (int)launch_bwd_kernel<T, false>(g, k, k_stride, nk, mat, nm, gal,
+                                            ng, grad, gmat, ggal, batch,
+                                            nullptr, s);
+  err = launch_bwd_kernel<T, true>(g, k, k_stride, nk, mat, nm, gal, ng, grad,
+                                   gmat, ggal, batch, gk_part, s);
   if (err != cudaSuccess) return (int)err;
-  halo_contract_bwd_kernel<T><<<dim3(g.units, batch), BWD_BLOCK, g.dyn_smem,
-                                s>>>(
-      (const T*)k, nk, (const T*)mat, nm, (const T*)gal, ng,
-      (const T*)grad, (T*)gmat, (T*)ggal, g.kt);
+  const int total = batch * nk;
+  grad_k_sum_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(
+      (const double*)gk_part, g.units, nk, total, (T*)gk);
   return (int)cudaGetLastError();
 }
 
 // out: units, block, unit_m, unit_g, kt, tiles, dynamic shared memory,
 // static shared memory, registers, local (spill) bytes, resident blocks
 // per SM.
-template <typename T>
+template <typename T, bool GK>
 int bwd_report(int nm, int ng, int nk, int* out) {
-  const BwdGeometry g = bwd_geometry<T>(nm, ng, nk);
+  const BwdGeometry g = bwd_geometry<T>(nm, ng, nk, GK);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, halo_contract_bwd_kernel<T>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, halo_contract_bwd_kernel<T, GK>);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(halo_contract_bwd_kernel<T>,
+  err = cudaFuncSetAttribute(halo_contract_bwd_kernel<T, GK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              g.dyn_smem);
   if (err != cudaSuccess) return (int)err;
   int resident = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &resident, halo_contract_bwd_kernel<T>, BWD_BLOCK, g.dyn_smem);
+      &resident, halo_contract_bwd_kernel<T, GK>, BWD_BLOCK, g.dyn_smem);
   if (err != cudaSuccess) return (int)err;
   const int vals[11] = {g.units, BWD_BLOCK, UNIT_M, UNIT_G, g.kt, g.tiles,
                         g.dyn_smem, (int)attr.sharedSizeBytes, attr.numRegs,
@@ -816,49 +900,57 @@ int bwd_report(int nm, int ng, int nk, int* out) {
 
 }  // namespace
 
+// k_stride: 0 when every row shares k (NK,), NK for a k row per cosmology
+// row (B, NK).
 extern "C" int halo_contract_launch(int device, int is_double, const void* k,
-                                    int nk, const void* mat, int nm,
-                                    const void* gal, int ng, void* out,
-                                    int batch, const void* tables, int afm,
-                                    int ag, int bfm, int bg, int series,
-                                    int g_asym, void* stream) {
+                                    int k_stride, int nk, const void* mat,
+                                    int nm, const void* gal, int ng,
+                                    void* out, int batch, const void* tables,
+                                    int afm, int ag, int bfm, int bg,
+                                    int series, int g_asym, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int lens[6] = {afm, ag, bfm, bg, series, g_asym};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
-    return launch<double>(c_tab_d, tables, k, nk, mat, nm, gal, ng, out, batch,
-                          lens, s);
-  return launch<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, out, batch,
-                       lens, s);
+    return launch<double>(c_tab_d, tables, k, k_stride, nk, mat, nm, gal, ng,
+                          out, batch, lens, s);
+  return launch<float>(c_tab_f, tables, k, k_stride, nk, mat, nm, gal, ng,
+                       out, batch, lens, s);
 }
 
 extern "C" int halo_contract_bwd_launch(int device, int is_double,
-                                        const void* k, int nk,
+                                        const void* k, int k_stride, int nk,
                                         const void* mat, int nm,
                                         const void* gal, int ng,
                                         const void* grad, void* gmat,
-                                        void* ggal, int batch,
-                                        const void* tables, int afm, int ag,
-                                        int bfm, int bg, int series,
-                                        int g_asym, void* stream) {
+                                        void* ggal, void* gk_part, void* gk,
+                                        int batch, const void* tables,
+                                        int afm, int ag, int bfm, int bg,
+                                        int series, int g_asym,
+                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int lens[6] = {afm, ag, bfm, bg, series, g_asym};
   cudaStream_t s = (cudaStream_t)stream;
   if (is_double)
-    return launch_bwd<double>(c_tab_d, tables, k, nk, mat, nm, gal, ng, grad,
-                              gmat, ggal, batch, lens, s);
-  return launch_bwd<float>(c_tab_f, tables, k, nk, mat, nm, gal, ng, grad,
-                           gmat, ggal, batch, lens, s);
+    return launch_bwd<double>(c_tab_d, tables, k, k_stride, nk, mat, nm, gal,
+                              ng, grad, gmat, ggal, gk_part, gk, batch, lens,
+                              s);
+  return launch_bwd<float>(c_tab_f, tables, k, k_stride, nk, mat, nm, gal, ng,
+                           grad, gmat, ggal, gk_part, gk, batch, lens, s);
 }
 
 extern "C" int halo_contract_bwd_geometry(int device, int is_double, int nm,
-                                          int ng, int nk, int* out) {
+                                          int ng, int nk, int with_gk,
+                                          int* out) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return is_double ? bwd_report<double>(nm, ng, nk, out)
-                   : bwd_report<float>(nm, ng, nk, out);
+  if (is_double)
+    return with_gk ? bwd_report<double, true>(nm, ng, nk, out)
+                   : bwd_report<double, false>(nm, ng, nk, out);
+  return with_gk ? bwd_report<float, true>(nm, ng, nk, out)
+                 : bwd_report<float, false>(nm, ng, nk, out);
 }
 
 extern "C" const char* halo_contract_error(int code) {

@@ -184,16 +184,16 @@ def contraction_nodes(cosmo: CosmoParams, halo: HaloParams,
 
 def contractions(cosmo: CosmoParams, halo: HaloParams, model: HaloModel,
                  k, st):
-    """(h_m, h_g, pp_mm, pp_gg, pp_gm), each (B, nk), at the static
-    ``k`` (nk,) through kernel A."""
+    """(h_m, h_g, pp_mm, pp_gg, pp_gm), each (B, nk), at ``k`` (nk,), or
+    (B, nk) a k row per cosmology row, through kernel A."""
     mat, gal = contraction_nodes(cosmo, halo, model)
     return halo_contract(k.contiguous(), mat, gal, st.cheb).unbind(1)
 
 
 def _linear(cosmo: CosmoParams, z, k, st):
     """(P_lin of the cb sector, r = D_cbnu / D_cb) at redshift ``z`` and
-    the static ``k``, (B, nk) each."""
-    kb = k[None, :]
+    ``k`` (nk,) or (B, nk), (B, nk) each."""
+    kb = k[None, :] if k.dim() == 1 else k
     return (linear.linear_power(cosmo, kb, z, st, species="cb"),
             neutrino.m_over_cb(cosmo, kb, z, st, st.grid.n_growth))
 
@@ -231,8 +231,10 @@ def powers_and_two_halo(cosmo: CosmoParams, halo: HaloParams,
 
 
 def powers(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k, st):
-    """All halo-model spectra at the static ``k`` (nk,): dict with keys
-    ``linear_power, power_mm, power_gm, power_mg, power_gg``, (B, nk)."""
+    """All halo-model spectra at ``k`` (nk,), or (B, nk) a k row per
+    cosmology row (differentiable in it: kernel A's backward gives
+    grad_k): dict with keys ``linear_power, power_mm, power_gm, power_mg,
+    power_gg``, (B, nk)."""
     return powers_and_two_halo(cosmo, halo, model, k, st)[0]
 
 

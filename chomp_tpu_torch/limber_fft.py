@@ -1,8 +1,9 @@
 """Lattice Limber projection — the w(theta) pipeline's lattice route.
 
 PyTorch counterpart of the JAX package's ``limber_fft.py`` (the direct
-convolution and the tomographic spectra; the whitened-FFT convolution,
-``limber_cl_fft(conv_method="fft")``, is not ported).  With u = ln chi and s = ln(ell + 1/2), C(s) = ∫ du
+convolution, the whitened-FFT convolution of ``limber_cl_fft(conv_method=
+"fft")`` and the tomographic spectra).  With u = ln chi and s = ln(ell +
+1/2), C(s) = ∫ du
 G(u) P(e^{s-u}) is a 1-D convolution of the P lattice (static ln k) with
 the window weights G on the matching static ln chi lattice; z(chi) on
 that lattice comes from Newton iteration off a static fiducial seed.
@@ -31,6 +32,12 @@ from chomp_tpu_torch.ops.hankel_matmul import full_fp32_matmul
 from chomp_tpu_torch.params import C_OVER_H0, CosmoParams, GridSpec, col
 from chomp_tpu_torch.projection import (WindowConvergence,
                                         WindowConvergenceIA, dndz)
+
+
+#: Pre-whitening tilt of the FFT convolution (the JAX ``TILT_ALPHA``):
+#: (P k^alpha) convolved with (G chi^alpha), the output untilted by
+#: e^(-alpha s), an identity that flattens the output's dynamic range.
+TILT_ALPHA = 1.5
 
 
 def _lattice_key(grid: GridSpec):
@@ -73,6 +80,15 @@ def _fiducial_z_seed(key, mid: bool = False):
     chi = np.exp(ln_chi + (0.5 * dln if mid else 0.0))
     z_dense, chi_dense = _fiducial_chi_table()
     return np.interp(chi, chi_dense, z_dense)
+
+
+@lru_cache(maxsize=None)
+def _fft_len(n: int) -> int:
+    """The least power of two >= ``n``."""
+    m = 1
+    while m < n:
+        m *= 2
+    return m
 
 
 @lru_cache(maxsize=None)
@@ -244,23 +260,50 @@ def limber_cl_fft(cosmo: CosmoParams, win_a, win_b, ells, p_lattice, st,
                   conv_method: str = "direct"):
     """Separable C_ell at the static (numpy) ``ells`` from P sampled on
     the k lattice, ``p_lattice`` (B|1, n_k), with the growth pivot
-    ``growth_pivot`` (a float or (B,)): (B, n_ell).  Only the direct
-    convolution is ported (``conv_method="direct"``)."""
-    if conv_method == "fft":
-        raise NotImplementedError(
-            "limber_cl_fft(conv_method='fft') (the whitened FFT "
-            "convolution) is not ported to chomp_tpu_torch yet: ROADMAP "
-            "queue 1, item 7b (the whitened FFT convolution)")
-    if conv_method != "direct":
+    ``growth_pivot`` (a float or (B,)): (B, n_ell).
+
+    ``conv_method``: "direct" (the grouped direct convolution over the
+    output window the ells read) or "fft" (the JAX package's whitened FFT
+    convolution: P k^alpha and G chi^alpha through ``torch.fft.rfft`` at
+    the next power of two, the product back through ``irfft``, untilted,
+    then the full Catmull-Rom matrix).  The JAX package calls the FFT
+    route float64-grade only, so it runs in float64 whatever the inputs'
+    dtype and rounds once, as the direct route's sums do."""
+    if conv_method not in ("direct", "fft"):
         raise ValueError(f"conv_method must be 'direct' or 'fft', got "
-                         f"{conv_method!r}")
-    j_lo, j_hi, w = _ells_window(ells, ell_offset, st)
+                         f"{conv_method!r} (the fft path is float64-grade "
+                         "only)")
     piv = torch.as_tensor(growth_pivot, dtype=st.dtype, device=st.device)
-    g = _lattice_g_rows(cosmo, [(win_a, win_b)], st, piv)
-    p = p_lattice.expand(g.shape[0], -1)[:, None]
-    conv = _conv_direct_rows(p, g, j_lo, j_hi)[:, 0]
+    g = _lattice_g_rows(cosmo, [(win_a, win_b)], st, piv)[:, 0]
+    p = p_lattice.expand(g.shape[0], -1)
+    if conv_method == "fft":
+        return _cl_fft_whitened(p, g, ells, ell_offset, st)
+    j_lo, j_hi, w = _ells_window(ells, ell_offset, st)
+    conv = _conv_direct_rows(p[:, None], g[:, None], j_lo, j_hi)[:, 0]
     with full_fp32_matmul():
         return conv @ w.T
+
+
+def _cl_fft_whitened(p, g, ells, ell_offset, st):
+    """C_ell (B, n_ell) from P (B, n_k) on the k lattice and the window
+    weights G (B, n_chi) on the chi lattice by the whitened FFT
+    convolution, in float64, rounded once to ``p``'s dtype."""
+    ln_k, ln_chi = _lattices(st.grid)
+    n_out = len(ln_k) + len(ln_chi) - 1
+    nfft = _fft_len(n_out)
+    f64 = dict(dtype=torch.float64, device=p.device)
+    tilt_p = torch.as_tensor(np.exp(TILT_ALPHA * (ln_k - ln_k[0])), **f64)
+    tilt_g = torch.as_tensor(np.exp(TILT_ALPHA * (ln_chi - ln_chi[0])),
+                             **f64)
+    untilt = torch.as_tensor(
+        np.exp(-TILT_ALPHA * np.arange(n_out) * st.grid.lattice_dln), **f64)
+    pf = torch.fft.rfft(p.double() * tilt_p, n=nfft, dim=-1)
+    gf = torch.fft.rfft(g.double() * tilt_g, n=nfft, dim=-1)
+    conv = torch.fft.irfft(pf * gf, n=nfft, dim=-1)[..., :n_out] * untilt
+    w = torch.as_tensor(_s_weights(
+        tuple(np.asarray(ells, dtype=np.float64).tolist()), ell_offset,
+        _lattice_key(st.grid)), **f64)
+    return (conv @ w.T).to(p.dtype)
 
 
 def _cheb_nodes(lo: float, hi: float, n: int):
@@ -301,6 +344,26 @@ def _repeat_rows(params, b: int, j: int):
         else v for k, v in params.fields().items()})
 
 
+def exact_z_anchor_models(cosmo, halo_params, hod, n_z_anchor: int,
+                          z_anchor_lo: float, z_anchor_hi: float, st):
+    """The halo models of :func:`exact_z_anchor_spectra`: (rows, halo
+    params, models, z (B J,), z_nodes, w_bary) over B x J rows, row b J +
+    j cosmology b at anchor j; ``hod`` one HOD (one model) or a list of
+    HODs (one model each, on ONE mass-table build)."""
+    from chomp_tpu_torch import halo as halo_mod
+
+    cosmo = cosmo.batched()
+    b, j = cosmo.batch, int(n_z_anchor)
+    z_nodes, w_bary = _cheb_nodes(z_anchor_lo, z_anchor_hi, j)
+    rows = _repeat_rows(cosmo, b, j)
+    hp = _repeat_rows(halo_params, b, j)
+    z = torch.as_tensor(z_nodes, dtype=st.dtype, device=st.device).repeat(b)
+    hods = hod if isinstance(hod, (list, tuple)) else [hod]
+    models = halo_mod.build_halo_models(
+        rows, hp, [_repeat_rows(h, b, j) for h in hods], z, st)
+    return rows, hp, models, z, z_nodes, w_bary
+
+
 def exact_z_anchor_spectra(cosmo, halo_params, hod, kinds, n_z_anchor: int,
                            z_anchor_lo: float, z_anchor_hi: float, st,
                            matter_power: str = "halo"):
@@ -309,6 +372,15 @@ def exact_z_anchor_spectra(cosmo, halo_params, hod, kinds, n_z_anchor: int,
     ``kinds``, from ONE halo model over B x J rows: row b J + j is
     cosmology b at anchor j, so ``halo.powers`` launches kernel A once
     (the JAX code runs the anchors one after another under ``lax.map``).
+
+    ``hod`` a list of HODs (the per-bin HODs of exact-z tomography):
+    their models share one mass-table build over the B x J rows, and
+    every sample's galaxy pack folds into the batch as row (b J + j) L +
+    i (``halo.tomographic_powers``), so the L samples still take ONE
+    kernel A launch, over B x J x L rows (the JAX code runs one anchor
+    sweep per HOD).  The spectra are then keyed "power_mm" (sample 0's),
+    ("power_gg", i, i) and ("power_gm", i), those whose kind is in
+    ``kinds``.
 
     ``matter_power`` "halofit" or "linear" swaps the power_mm anchors
     (halofit or the linear power at each anchor row, B x J rows); gg and
@@ -321,18 +393,21 @@ def exact_z_anchor_spectra(cosmo, halo_params, hod, kinds, n_z_anchor: int,
     if matter_power not in ("halo", "halofit", "linear"):
         raise ValueError(f"matter_power must be halo|halofit|linear, got "
                          f"{matter_power!r}")
-    cosmo = cosmo.batched()
-    b, j = cosmo.batch, int(n_z_anchor)
-    z_nodes, w_bary = _cheb_nodes(z_anchor_lo, z_anchor_hi, j)
-    rows = _repeat_rows(cosmo, b, j)
-    hp, hod = _repeat_rows(halo_params, b, j), _repeat_rows(hod, b, j)
-    z = torch.as_tensor(z_nodes, dtype=st.dtype, device=st.device).repeat(b)
-    model = halo_mod.build_halo_model(rows, hp, hod, z, st)
-    p_all = halo_mod.powers(rows, hp, model, st.lattice_k, st)
-    if "power_mm" in kinds and matter_power != "halo":
+    b = cosmo.batched().batch
+    rows, hp, models, z, z_nodes, w_bary = exact_z_anchor_models(
+        cosmo, halo_params, hod, n_z_anchor, z_anchor_lo, z_anchor_hi, st)
+    if isinstance(hod, (list, tuple)):
+        p_all = halo_mod.tomographic_powers(rows, hp, models, st.lattice_k,
+                                            st, with_cross=False)
+    else:
+        p_all = halo_mod.powers(rows, hp, models[0], st.lattice_k, st)
+    p_all = {key: v for key, v in p_all.items()
+             if (key if isinstance(key, str) else key[0]) in kinds}
+    if "power_mm" in p_all and matter_power != "halo":
         p_all["power_mm"] = mm_override(rows, z, matter_power, st)
-    return dict(p_j={k: p_all[k].reshape(b, j, -1) for k in kinds},
-                d_j=model.mass.growth.reshape(b, j), z_nodes=z_nodes,
+    j = len(z_nodes)
+    return dict(p_j={k: v.reshape(b, j, -1) for k, v in p_all.items()},
+                d_j=models[0].mass.growth.reshape(b, j), z_nodes=z_nodes,
                 w_bary=w_bary, z_lo=float(z_anchor_lo),
                 z_hi=float(z_anchor_hi))
 
@@ -371,12 +446,14 @@ def anchor_conv(p_j, g_j, j_lo: int, j_hi: int):
 
 def exact_z_conv_rows(cosmo, anchors, rows, st, j_lo: int, j_hi: int):
     """The Chebyshev-anchored lattice convolution for each probe row of
-    ``rows`` (win_a, win_b, kind): (B, R, j_hi - j_lo), in the anchors'
-    dtype (:func:`exact_z_g_rows`, then :func:`anchor_conv`)."""
+    ``rows`` (win_a, win_b, source): (B, R, j_hi - j_lo), in the anchors'
+    dtype (:func:`exact_z_g_rows`, then :func:`anchor_conv`).  A row's
+    source is a key of ``anchors["p_j"]`` or its own anchor spectra (B,
+    J, n_k) (exact-z tomography: lens bin i's gg / gm, the shared mm)."""
     g_j = exact_z_g_rows(cosmo, anchors, [(wa, wb) for wa, wb, _k in rows],
                          st)
-    p_j = torch.stack([anchors["p_j"][kind] for _wa, _wb, kind in rows],
-                      dim=1)
+    p_j = torch.stack([src if torch.is_tensor(src) else anchors["p_j"][src]
+                       for _wa, _wb, src in rows], dim=1)
     return anchor_conv(p_j, g_j, j_lo, j_hi)
 
 

@@ -13,8 +13,10 @@ five halo-model integrals, without a (k, M) matrix in device memory:
 (B, NG, 9) per galaxy-pack node (rs_m, c_m, rs_g, c_g, a_hg, a_gg, b_gg,
 a_gm, b_gm): the matter profile (feedback hooks folded into rs_m, c_m)
 and the NFW galaxy profile, with 1/mu(c), the quadrature weight and the
-Scranton y / y^2 select folded into the weights.  Output (B, 5, NK):
-h_m, h_g, pp_mm, pp_gg, pp_gm.
+Scranton y / y^2 select folded into the weights.  ``k`` is (NK,), shared
+by every row, or (B, NK), a k row per cosmology row (the Gauss-Legendre
+exact-z C_ell evaluates each projection node at its own k).  Output (B, 5,
+NK): h_m, h_g, pp_mm, pp_gg, pp_gm.
 
 Replaces the JAX package's ``ops/halo_pallas.py::fused_contractions`` and the
 XLA contraction block of the JAX package's ``halo.py::powers``; the CUDA source
@@ -23,13 +25,14 @@ is the plain PyTorch version of the same function.  Where b = (1+c)x <=
 :data:`SMALL_B` the kernel evaluates N from its moment series instead
 (:func:`moment_coeffs`, :func:`nfw_n_small` mirror that route).
 
-Gradients: :func:`halo_contract` is differentiable in ``mat`` and ``gal``
-(``k`` and the table are static).  Its backward is a second kernel of the
+Gradients: :func:`halo_contract` is differentiable in ``mat``, ``gal``
+and ``k`` (the table is static).  Its backward is a second kernel of the
 same source (:func:`halo_contract_bwd`; plain version
 :func:`halo_contract_bwd_ref`, the same formulas and routes in torch),
-which recomputes N and its derivatives from the saved node arrays.  The
-JAX package has no backward kernel: its gradients are autodiff of the
-XLA path, which autograd of :func:`halo_contract_ref` reproduces.
+which recomputes N and its derivatives from the saved node arrays, and
+gives grad_k, when it is asked for, from the same dN/dx.  The JAX package
+has no backward kernel: its gradients are autodiff of the XLA path, which
+autograd of :func:`halo_contract_ref` reproduces.
 """
 
 from __future__ import annotations
@@ -143,17 +146,22 @@ def nfw_n_small(x, coeffs):
 _REF_K_BLOCK = 256
 
 
+def _k_block(k, i):
+    """k[..., i:i + 256] as (B|1, K, 1): the shared row or each row's."""
+    kb = k[..., i:i + _REF_K_BLOCK]
+    return (kb[None] if kb.dim() == 1 else kb)[..., None]
+
+
 def halo_contract_ref(k, mat, gal):
     """Plain PyTorch version of the kernel (same inputs and output),
     evaluated in blocks of 256 k so that its (B, k, node) temporaries
     stay small at the main path's widths."""
-    return torch.cat([_ref_block(k[i:i + _REF_K_BLOCK], mat, gal)
-                      for i in range(0, max(len(k), 1), _REF_K_BLOCK)],
+    return torch.cat([_ref_block(_k_block(k, i), mat, gal)
+                      for i in range(0, max(k.shape[-1], 1), _REF_K_BLOCK)],
                      dim=-1)
 
 
-def _ref_block(k, mat, gal):
-    kk = k[None, :, None]
+def _ref_block(kk, mat, gal):
     n_m = nfw_n(kk * mat[:, None, :, 0], mat[:, None, :, 1])
     gm = gal[:, None, :, :]
     n_gm = nfw_n(kk * gm[..., 0], gm[..., 1])
@@ -211,11 +219,14 @@ def profile_nd(x, c, coeffs):
             torch.where(small, c_s, s * u / c1))
 
 
-def halo_contract_bwd_ref(k, mat, gal, cheb, grad_out):
+def halo_contract_bwd_ref(k, mat, gal, cheb, grad_out, grad_k=False):
     """Plain version of the backward kernel: (grad_mat (B, NM, 4),
     grad_gal (B, NG, 9)) of ``sum(grad_out * halo_contract(k, mat,
-    gal))``, the formulas of :func:`profile_nd` summed over k in blocks
-    of 256, in the inputs' dtype."""
+    gal))``, and with ``grad_k`` its gradient in k as a third member, (B,
+    NK) for a k row per cosmology and (NK,) for a shared k: the formulas
+    of :func:`profile_nd` summed over k in blocks of 256, in the inputs'
+    dtype.  grad_k sums S r_s dN/dx over the nodes (d out / d k = r_s
+    dN/dx at x = k r_s)."""
     _check(k, mat, gal, cheb)
     _check_grad(k, mat, grad_out)
     m_coef = moment_coeffs(mat[..., 1], n_moments(k.dtype))[:, None]
@@ -223,8 +234,9 @@ def halo_contract_bwd_ref(k, mat, gal, cheb, grad_out):
     gg_coef = moment_coeffs(gal[..., 3], n_moments(k.dtype))[:, None]
     g_mat = torch.zeros_like(mat)
     g_gal = torch.zeros_like(gal)
-    for i in range(0, len(k), _REF_K_BLOCK):
-        kk = k[i:i + _REF_K_BLOCK][None, :, None]
+    g_k = []
+    for i in range(0, k.shape[-1], _REF_K_BLOCK):
+        kk = _k_block(k, i)
         g = grad_out[:, :, i:i + _REF_K_BLOCK, None]   # (B, 5, K, 1)
         g_hm, g_hg, g_mm, g_gg, g_gm = g.unbind(1)
         m = mat[:, None]
@@ -244,11 +256,19 @@ def halo_contract_bwd_ref(k, mat, gal, cheb, grad_out):
             (g_hg * n_g).sum(1), (g_gg * n_g).sum(1),
             (g_gg * n_g * n_g).sum(1), (g_gm * n_m).sum(1),
             (g_gm * n_m * n_g).sum(1)], -1)
-    return g_mat, g_gal
+        if grad_k:
+            g_k.append((sv * dx * m[..., 0]).sum(-1)
+                       + (s_m * dx_m * q[..., 0] + s_g * dx_g * q[..., 2]
+                          ).sum(-1))
+    if not grad_k:
+        return g_mat, g_gal
+    g_k = torch.cat(g_k, dim=-1) if g_k else grad_out.new_zeros(
+        mat.shape[0], 0)
+    return g_mat, g_gal, (g_k if k.dim() == 2 else g_k.sum(0))
 
 
 def _check_grad(k, mat, grad_out):
-    want = (mat.shape[0], N_OUT, k.shape[0])
+    want = (mat.shape[0], N_OUT, k.shape[-1])
     if tuple(grad_out.shape) != want:
         raise ValueError(f"halo_contract backward: cotangent must be {want}, "
                          f"got {tuple(grad_out.shape)}")
@@ -258,9 +278,12 @@ def _check_grad(k, mat, grad_out):
 
 
 def _check(k, mat, gal, cheb):
-    if k.dim() != 1 or mat.dim() != 3 or gal.dim() != 3:
-        raise ValueError("halo_contract: need k (NK,), mat (B, NM, 4), "
-                         "gal (B, NG, 9)")
+    if k.dim() not in (1, 2) or mat.dim() != 3 or gal.dim() != 3:
+        raise ValueError("halo_contract: need k (NK,) or (B, NK), mat (B, "
+                         "NM, 4), gal (B, NG, 9)")
+    if k.dim() == 2 and k.shape[0] != mat.shape[0]:
+        raise ValueError(f"halo_contract: a k row per cosmology needs "
+                         f"{mat.shape[0]} rows, got {k.shape[0]}")
     if mat.shape[-1] != MAT_FIELDS or gal.shape[-1] != GAL_FIELDS:
         raise ValueError(f"halo_contract: node fields must be {MAT_FIELDS} "
                          f"and {GAL_FIELDS}, got {mat.shape} and {gal.shape}")
@@ -282,20 +305,26 @@ _TABLE_ARGS = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 @lru_cache(maxsize=None)
 def _lib():
-    lib = load("halo_contract")
+    return _lib_argtypes(load("halo_contract"))
+
+
+def _lib_argtypes(lib):
+    """``lib`` (the built halo_contract library) with its C functions'
+    argument and result types set."""
     lib.halo_contract_launch.restype = ctypes.c_int
     lib.halo_contract_launch.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + _TABLE_ARGS)
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        + _TABLE_ARGS)
     lib.halo_contract_bwd_launch.restype = ctypes.c_int
     lib.halo_contract_bwd_launch.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        + _TABLE_ARGS)
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int, ctypes.c_void_p] + _TABLE_ARGS)
     lib.halo_contract_bwd_geometry.restype = ctypes.c_int
-    lib.halo_contract_bwd_geometry.argtypes = [ctypes.c_int] * 5 + [
+    lib.halo_contract_bwd_geometry.argtypes = [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.halo_contract_error.restype = ctypes.c_char_p
     lib.halo_contract_error.argtypes = [ctypes.c_int]
@@ -322,12 +351,12 @@ def _forward(k, mat, gal, cheb):
     if k.device.type == "cpu":
         return halo_contract_ref(k, mat, gal)
     lib, idx = _cuda_inputs("halo_contract", (k, mat, gal, cheb))
-    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[0]
+    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[-1]
     out = torch.empty((b, N_OUT, nk), dtype=k.dtype, device=k.device)
     if b == 0 or nk == 0:
         return out
     rc = lib.halo_contract_launch(
-        idx, int(k.dtype == torch.float64), k.data_ptr(), nk,
+        idx, int(k.dtype == torch.float64), k.data_ptr(), _k_stride(k), nk,
         mat.data_ptr(), nm, gal.data_ptr(), ng, out.data_ptr(), b,
         cheb.data_ptr(), *_lens(k.dtype), raw_stream(idx))
     _raise_on(rc, lib, "halo_contract")
@@ -335,28 +364,51 @@ def _forward(k, mat, gal, cheb):
     return out
 
 
-def halo_contract_bwd(k, mat, gal, cheb, grad_out):
+def _k_stride(k) -> int:
+    """The kernels' k row stride: 0 for a shared k, NK per row."""
+    return k.shape[-1] if k.dim() == 2 else 0
+
+
+def halo_contract_bwd(k, mat, gal, cheb, grad_out, grad_k=False):
     """The backward kernel on CUDA tensors, :func:`halo_contract_bwd_ref`
     on CPU tensors: (grad_mat, grad_gal) for the cotangent ``grad_out``
-    (B, 5, NK)."""
+    (B, 5, NK), and with ``grad_k`` the gradient in k as a third member
+    ((B, NK), or (NK,) for a shared k): the kernel's per-unit float64
+    partials (B, units, NK), summed in unit order by a second kernel of
+    the launch."""
+    from chomp_tpu_torch.ops.tiles import bwd_geometry
+
     if k.device.type == "cpu":
-        return halo_contract_bwd_ref(k, mat, gal, cheb, grad_out)
+        return halo_contract_bwd_ref(k, mat, gal, cheb, grad_out, grad_k)
     _check(k, mat, gal, cheb)
     _check_grad(k, mat, grad_out)
     lib, idx = _cuda_inputs("halo_contract_bwd",
                             (k, mat, gal, cheb, grad_out))
     g_mat, g_gal = torch.empty_like(mat), torch.empty_like(gal)
-    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[0]
-    if b == 0 or nm + ng == 0:
+    b, nm, ng, nk = mat.shape[0], mat.shape[1], gal.shape[1], k.shape[-1]
+    g_k = part = None
+    if grad_k:
+        g_k = torch.zeros((b, nk), dtype=k.dtype, device=k.device)
+        units = bwd_geometry(b, nm, ng, nk, k.element_size(),
+                             with_grad_k=True).grid[0]
+        part = torch.empty((b, units, nk), dtype=torch.float64,
+                           device=k.device)
+    if b == 0 or nm + ng == 0 or nk == 0:
+        g_mat.zero_()
+        g_gal.zero_()
+    else:
+        rc = lib.halo_contract_bwd_launch(
+            idx, int(k.dtype == torch.float64), k.data_ptr(), _k_stride(k),
+            nk, mat.data_ptr(), nm, gal.data_ptr(), ng, grad_out.data_ptr(),
+            g_mat.data_ptr(), g_gal.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if g_k is None else g_k.data_ptr(), b, cheb.data_ptr(),
+            *_lens(k.dtype), raw_stream(idx))
+        _raise_on(rc, lib, "halo_contract_bwd")
+        halo_contract.bwd_launches += 1
+    if not grad_k:
         return g_mat, g_gal
-    rc = lib.halo_contract_bwd_launch(
-        idx, int(k.dtype == torch.float64), k.data_ptr(), nk,
-        mat.data_ptr(), nm, gal.data_ptr(), ng, grad_out.data_ptr(),
-        g_mat.data_ptr(), g_gal.data_ptr(), b, cheb.data_ptr(),
-        *_lens(k.dtype), raw_stream(idx))
-    _raise_on(rc, lib, "halo_contract_bwd")
-    halo_contract.bwd_launches += 1
-    return g_mat, g_gal
+    return g_mat, g_gal, (g_k if k.dim() == 2 else g_k.sum(0))
 
 
 _BWD_REPORT = ("units", "block", "unit_m", "unit_g", "kt", "tiles",
@@ -364,23 +416,24 @@ _BWD_REPORT = ("units", "block", "unit_m", "unit_g", "kt", "tiles",
                "blocks_per_sm")
 
 
-def bwd_launch_report(nm, ng, nk, dtype, device=0) -> dict:
+def bwd_launch_report(nm, ng, nk, dtype, device=0,
+                      with_grad_k=False) -> dict:
     """What the built backward kernel launches at this shape, from the
     CUDA library itself: the geometry (:func:`~chomp_tpu_torch.ops.tiles.
     bwd_geometry` mirrors it), the static shared memory, registers and
-    local (spill) bytes of the compiled kernel and its resident blocks per
-    SM."""
+    local (spill) bytes of the compiled kernel (the one with grad_k when
+    ``with_grad_k``) and its resident blocks per SM."""
     lib = _lib()
     out = (ctypes.c_int * len(_BWD_REPORT))()
     _raise_on(lib.halo_contract_bwd_geometry(
-        device, int(dtype == torch.float64), nm, ng, nk, out), lib,
-        "halo_contract_bwd geometry")
+        device, int(dtype == torch.float64), nm, ng, nk, int(with_grad_k),
+        out), lib, "halo_contract_bwd geometry")
     return dict(zip(_BWD_REPORT, out))
 
 
 class HaloContract(torch.autograd.Function):
     """Kernel A with its backward kernel: saves k, mat, gal and the table,
-    and recomputes N in the backward."""
+    and recomputes N in the backward (grad_k only when k needs it)."""
 
     @staticmethod
     def forward(ctx, k, mat, gal, cheb):
@@ -390,27 +443,30 @@ class HaloContract(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         k, mat, gal, cheb = ctx.saved_tensors
-        g_mat, g_gal = halo_contract_bwd(k, mat, gal, cheb,
-                                         grad_out.contiguous())
-        return (None, g_mat if ctx.needs_input_grad[1] else None,
-                g_gal if ctx.needs_input_grad[2] else None, None)
+        need_k = ctx.needs_input_grad[0]
+        grads = halo_contract_bwd(k, mat, gal, cheb, grad_out.contiguous(),
+                                  grad_k=need_k)
+        return (grads[2] if need_k else None,
+                grads[0] if ctx.needs_input_grad[1] else None,
+                grads[1] if ctx.needs_input_grad[2] else None, None)
 
 
 def halo_contract(k, mat, gal, cheb):
     """Kernel A on CUDA tensors; the plain version for CPU tensors.
 
-    ``cheb`` is :func:`cheb_table` on the inputs' device and dtype (the
-    kernel copies it to constant memory).  Differentiable in ``mat`` and
-    ``gal`` (:class:`HaloContract`: the backward kernel on CUDA, its plain
-    version on the CPU); ``k`` and ``cheb`` are static, and raise if they
-    require grad."""
+    ``k`` is (NK,) or (B, NK) (a row per cosmology row); ``cheb`` is
+    :func:`cheb_table` on the inputs' device and dtype (the kernel copies
+    it to constant memory).  Differentiable in ``mat``, ``gal`` and ``k``
+    (:class:`HaloContract`: the backward kernel on CUDA, its plain version
+    on the CPU); ``cheb`` is static, and raises if it requires grad."""
     _check(k, mat, gal, cheb)
     if k.device.type not in ("cpu", "cuda"):
         raise ValueError(f"halo_contract: unsupported device {k.device}")
-    if k.requires_grad or cheb.requires_grad:
-        raise ValueError("halo_contract: k and the table are static; only "
-                         "mat and gal take gradients")
-    if torch.is_grad_enabled() and (mat.requires_grad or gal.requires_grad):
+    if cheb.requires_grad:
+        raise ValueError("halo_contract: the table is static; k, mat and "
+                         "gal take gradients")
+    if torch.is_grad_enabled() and (k.requires_grad or mat.requires_grad
+                                    or gal.requires_grad):
         return HaloContract.apply(k, mat, gal, cheb)
     return _forward(k, mat, gal, cheb)
 

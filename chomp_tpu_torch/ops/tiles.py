@@ -67,6 +67,7 @@ def split_k(rows: int, n: int, t: int) -> SplitK:
 # Kernel A' (csrc/halo_contract.cu): a block of BWD_BLOCK threads is one
 # cosmology and one work unit of BWD_UNIT_M mat and BWD_UNIT_G gal nodes.
 BWD_BLOCK = 256
+BWD_WARPS = BWD_BLOCK // 32
 BWD_UNIT_M, BWD_UNIT_G = 16, 16
 GAL_WEIGHTS = 5
 #: Dynamic shared memory a k tile may take (staged k and cotangent rows).
@@ -114,13 +115,14 @@ class BwdGeometry:
 
 
 def bwd_geometry(batch: int, nm: int, ng: int, nk: int,
-                 itemsize: int = 4) -> BwdGeometry:
+                 itemsize: int = 4, with_grad_k: bool = False) -> BwdGeometry:
     """Kernel A' at (batch, nm, ng, nk) in float32 (``itemsize`` 4) or
     float64 (8): units of 16 + 16 nodes, and k tiles of the most k (a
-    multiple of 32) whose k and five cotangent rows fit the tile's bytes.
-    The static shared memory is the sum of the kernel's arrays: 48 staged
-    profiles, the weights, the same-profile flags and the double totals."""
-    per_k = (N_OUT + 1) * itemsize
+    multiple of 32) whose k and five cotangent rows (and, ``with_grad_k``,
+    each warp's float64 grad_k row) fit the tile's bytes.  The static
+    shared memory is the sum of the kernel's arrays: 48 staged profiles,
+    the weights, the same-profile flags and the double totals."""
+    per_k = (N_OUT + 1) * itemsize + (8 * BWD_WARPS if with_grad_k else 0)
     kt_max = BWD_TILE_BYTES[itemsize] // per_k // 32 * 32
     kt = max(32, min(kt_max, _cdiv(nk, 32) * 32))
     units = max(_cdiv(nm, BWD_UNIT_M), _cdiv(ng, BWD_UNIT_G))

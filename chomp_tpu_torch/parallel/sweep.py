@@ -7,8 +7,9 @@ PyTorch counterpart of the JAX package's ``parallel/sweep.py``'s
 ``_fused_probe_rows`` sweep.py:452-501), its exact-z mode
 (``exact_z_anchors``, sweep.py:268-292 and 343-431) and the GL +
 cubic-table branch (``method="table"``, sweep.py:303-306 and 407-411);
-and of ``Nuisance3x2pt``, ``default_nuisance`` and the separable route
-of ``make_tomographic_pipeline`` (sweep.py:35-63, 504-882).  Every
+and of ``Nuisance3x2pt``, ``default_nuisance`` and
+``make_tomographic_pipeline`` with its exact-z mode (sweep.py:35-63,
+504-882).  Every
 physics option of the JAX functions is carried: ``with_bao``,
 ``HaloParams.mass_fn``, ``matter_power``, ``include_cmb_lensing``,
 ``geometry="curved"``, ``nonlimber_ell_switch`` and ``nonlimber_rsd``.
@@ -27,15 +28,15 @@ fields) in place of ``jit(vmap(fn))``:
            Limber C_ell per probe -> one Hankel + theta-binning product
            per output (kernel B) -> w, gamma_t, xi_+-, w_gk_cmb;
     tomographic: the fft route over every lens / source bin pair (per-bin
-           HODs: one kernel A launch over B x n_lens rows), with the
-           nuisance windows, the magnification and kappa_CMB rows and the
-           shear calibration.
+           HODs: one kernel A launch over B x n_lens rows; in exact-z
+           mode over B x J x n_lens anchor rows), with the nuisance
+           windows, the magnification and kappa_CMB rows and the shear
+           calibration.
 
 The static numpy operators live in module buffers, on the device and in
 the dtype chosen at construction (float32 is the serving precision;
-float64 is the reference mode).  What the port does not carry yet raises
-``NotImplementedError`` naming its ROADMAP item (exact-z tomography);
-nothing is silently ignored.
+float64 is the reference mode).  Nothing is silently ignored: what the
+JAX functions refuse, the port refuses.
 """
 
 from __future__ import annotations
@@ -545,11 +546,25 @@ def make_tomographic_pipeline(halo_params, hod, lens_dists, src_dists,
     the w, gamma_t, xi_+, xi_- (and w_gk_cmb) rows concatenated in that
     order, the JAX package's ``covariance.tomographic_probes`` order.
     Same arguments as the JAX ``make_tomographic_pipeline``, plus the
-    explicit ``device`` and ``dtype``; its separable route.
+    explicit ``device`` and ``dtype``.
 
     ``hod`` is one HOD shared by every lens bin or a list of one HOD per
     lens bin (one mass-table build, and every bin's galaxy pack in one
-    kernel A launch).  ``with_nuisance``: per-bin photo-z shifts, shear
+    kernel A launch).
+
+    ``exact_z_anchors`` (e.g. 6-10) drops the separable-growth
+    approximation for every bin pair: each lens bin's gg and gm spectra
+    and the shared mm are expanded over that many Chebyshev redshift
+    anchors on [1e-3, max(1, every bin's z_max)], a window fixed here, at
+    construction (each z_max must be one value).  The anchors' halo
+    models are one model over B x J rows (per-bin HODs: every bin's
+    galaxy pack folded in, one kernel A launch over B x J x n_lens rows),
+    and every probe row rides one J-channel convolution.  The halo
+    models at ``z_pivot`` still give ``n_g`` and the separable pieces of
+    the non-Limber repair (a second kernel A launch).  Not combinable
+    with ``with_nuisance``, as in the JAX package.
+
+    ``with_nuisance``: per-bin photo-z shifts, shear
     calibration and NLA intrinsic alignments from a
     :class:`Nuisance3x2pt`; ``include_magnification`` (needs it) adds the
     lens magnification rows with slopes alpha.  Every probe row, the
@@ -581,33 +596,30 @@ def make_tomographic_pipeline(halo_params, hod, lens_dists, src_dists,
     if isinstance(hod, (list, tuple)) and len(hod) != len(lens_dists):
         raise ValueError(f"per-bin HODs: got {len(hod)} HODs for "
                          f"{len(lens_dists)} lens bins")
-    if exact_z_anchors:
-        raise NotImplementedError(
-            "make_tomographic_pipeline(exact_z_anchors) is not ported to "
-            "chomp_tpu_torch yet: ROADMAP queue 1, item 8.1 (exact-z "
-            "tomography)")
-    for d in (*lens_dists, *src_dists):
-        _warn_if_separable_bias(d, z_pivot)
+    if not exact_z_anchors:
+        for d in (*lens_dists, *src_dists):
+            _warn_if_separable_bias(d, z_pivot)
     return TomographicPipeline(
         halo_params, hod, lens_dists, src_dists, theta_deg, z_pivot, grid,
         with_nuisance, include_magnification, with_bao=with_bao,
-        geometry=geometry, include_cmb_lensing=include_cmb_lensing,
+        geometry=geometry, exact_z_anchors=exact_z_anchors,
+        include_cmb_lensing=include_cmb_lensing,
         nonlimber_ell_switch=nonlimber_ell_switch,
         nonlimber_rsd=nonlimber_rsd, matter_power=matter_power,
         device=device, dtype=dtype)
 
 
 class TomographicPipeline(nn.Module):
-    """The separable route of the JAX ``make_tomographic_pipeline``
-    (sweep.py:723-880; see :func:`make_tomographic_pipeline`).
+    """The JAX ``make_tomographic_pipeline`` (sweep.py:504-882; see
+    :func:`make_tomographic_pipeline`), separable or exact-z.
     Parameters, dN/dz, windows, theta bins and the operators live on one
     device and dtype, fixed at construction."""
 
     def __init__(self, halo_params, hod, lens_dists, src_dists, theta_deg,
                  z_pivot, grid, with_nuisance, include_magnification, *,
-                 with_bao=False, geometry="flat", include_cmb_lensing=False,
-                 nonlimber_ell_switch=None, nonlimber_rsd=False,
-                 matter_power="halo", device, dtype):
+                 with_bao=False, geometry="flat", exact_z_anchors=None,
+                 include_cmb_lensing=False, nonlimber_ell_switch=None,
+                 nonlimber_rsd=False, matter_power="halo", device, dtype):
         super().__init__()
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
@@ -624,6 +636,12 @@ class TomographicPipeline(nn.Module):
         self.include_magnification = bool(include_magnification)
         self.geometry = geometry
         self.matter_power = matter_power
+        self.exact_z_anchors = int(exact_z_anchors or 0)
+        # The anchor window's top, read once here (the JAX function fixes
+        # it at build time too): forward never reads back to the host.
+        self.z_hi_anchor = (max(1.0, *(float(d.z_max)
+                                       for d in (*self.lens, *self.src)))
+                            if self.exact_z_anchors else None)
         self.wins_g = [projection.WindowGalaxy(dist=d) for d in self.lens]
         self.wins_k = [projection.WindowConvergence(dist=d) for d in self.src]
         self.win_kcmb = _cmb_window(include_cmb_lensing, device, dtype)
@@ -684,25 +702,62 @@ class TomographicPipeline(nn.Module):
     def contraction_rows(self, cosmo: CosmoParams):
         """Kernel A's inputs as :meth:`spectra` launches it: [(mat rows,
         gal rows)], one pair a launch; with per-bin HODs, row b L + i is
-        cosmology b with lens bin i's galaxy pack."""
+        cosmology b with lens bin i's galaxy pack.  In exact-z mode the
+        rows are the anchors' (cosmology b at anchor j is row b J + j;
+        per-bin HODs: row (b J + j) L + i)."""
         cosmo = _checked_batch(cosmo, self.st)
-        models = self.halo_models(cosmo)
+        hp = self.halo_params
+        if self.exact_z_anchors:
+            cosmo, hp, models, *_z = limber_fft.exact_z_anchor_models(
+                cosmo, hp, self.hods if self.per_bin else self.hods[0],
+                self.exact_z_anchors, 1e-3, self.z_hi_anchor, self.st)
+        else:
+            models = self.halo_models(cosmo)
         if not self.per_bin:
-            return [halo.contraction_nodes(cosmo, self.halo_params,
-                                           models[0])]
-        mat, gals, _ = halo.tomographic_nodes(cosmo, self.halo_params,
-                                              models, self.st,
+            return [halo.contraction_nodes(cosmo, hp, models[0])]
+        mat, gals, _ = halo.tomographic_nodes(cosmo, hp, models, self.st,
                                               with_cross=False)
         return [(m, g) for _i, m, g in halo.fold_rows(mat, gals)]
 
+    def anchors(self, cosmo: CosmoParams):
+        """The exact-z anchor spectra (:func:`~chomp_tpu_torch.limber_fft.
+        exact_z_anchor_spectra`) of every lens bin's HOD: one kernel A
+        launch over B x J (x n_lens with per-bin HODs) rows, the mm row of
+        ``matter_power`` at the anchors."""
+        return limber_fft.exact_z_anchor_spectra(
+            cosmo, self.halo_params,
+            self.hods if self.per_bin else self.hods[0],
+            ("power_gg", "power_gm", "power_mm"), self.exact_z_anchors,
+            1e-3, self.z_hi_anchor, self.st, matter_power=self.matter_power)
+
     def spectra(self, cosmo: CosmoParams):
-        """(models, p_gg per lens bin, p_gm per lens bin, p_mm, h) on the k
-        lattice: one kernel A launch for every lens bin's HOD.  ``p_mm`` is
+        """(models, p_gg per lens bin, p_gm per lens bin, p_mm, h, anchors):
+        the halo models at z_pivot and the spectra the probe rows read.
+        Separable: on the k lattice at the pivot, (B, n_k) each, from one
+        kernel A launch for every lens bin's HOD; ``p_mm`` is
         ``matter_power``'s; ``h`` is (h_m, [h_g per lens bin]), the
-        two-halo integrals of that launch."""
+        two-halo integrals of that launch; ``anchors`` None.  Exact-z: each
+        at the anchors, (B, J, n_k), from :meth:`anchors` (returned too),
+        and ``h`` None."""
+        models = self.halo_models(cosmo)
+        if self.exact_z_anchors:
+            anchors = self.anchors(cosmo)
+            p = anchors["p_j"]
+            n_l = len(self.lens)
+            if self.per_bin:
+                p_gg = [p[("power_gg", i, i)] for i in range(n_l)]
+                p_gm = [p[("power_gm", i)] for i in range(n_l)]
+            else:
+                p_gg, p_gm = [p["power_gg"]] * n_l, [p["power_gm"]] * n_l
+            return models, p_gg, p_gm, p["power_mm"], None, anchors
+        return (models, *self.pivot_spectra(cosmo, models), None)
+
+    def pivot_spectra(self, cosmo: CosmoParams, models, with_mm=True):
+        """(p_gg per lens bin, p_gm per lens bin, p_mm or None, h) on the k
+        lattice at the pivot (see :meth:`spectra`), from one kernel A
+        launch."""
         st = self.st
         n_l = len(self.lens)
-        models = self.halo_models(cosmo)
         if self.per_bin:
             p, h = halo.tomographic_powers_and_two_halo(
                 cosmo, self.halo_params, models, st.lattice_k, st,
@@ -714,18 +769,20 @@ class TomographicPipeline(nn.Module):
                 cosmo, self.halo_params, models[0], st.lattice_k, st)
             p_gg, p_gm = [p["power_gg"]] * n_l, [p["power_gm"]] * n_l
             h = (h_m, [h_g] * n_l)
-        p_mm = (p["power_mm"] if self.matter_power == "halo" else
+        p_mm = (None if not with_mm else p["power_mm"]
+                if self.matter_power == "halo" else
                 limber_fft.mm_override(cosmo, self.z_pivot_t(),
                                        self.matter_power, st))
-        return models, p_gg, p_gm, p_mm, h
+        return p_gg, p_gm, p_mm, h
 
     def probe_rows(self, cosmo: CosmoParams,
                    nuisance: Nuisance3x2pt | None = None):
         """(batch, batched nuisance point or None, halo models, rows, the
-        windows and spectra): the probe rows (win_a, win_b, spectrum on
-        the k lattice, operator indices) in the JAX order: w, gamma_t, xi
-        (xi_+ and xi_- of one convolution), the magnification rows, then
-        the kappa_CMB rows (and their magnification rows)."""
+        windows, spectra and anchors): the probe rows (win_a, win_b,
+        spectrum on the k lattice, or at the anchors in exact-z mode,
+        operator indices) in the JAX order: w, gamma_t, xi (xi_+ and xi_-
+        of one convolution), the magnification rows, then the kappa_CMB
+        rows (and their magnification rows)."""
         st = self.st
         cosmo = _checked_batch(cosmo, st)
         nu = None
@@ -739,7 +796,7 @@ class TomographicPipeline(nn.Module):
                                  f"{st.device}, as this pipeline")
             nu = nuisance.batched(cosmo.batch)
         wins_g, wins_k, wk_lens = self.windows_at(nu)
-        models, p_gg, p_gm, p_mm, h = self.spectra(cosmo)
+        models, p_gg, p_gm, p_mm, h, anchors = self.spectra(cosmo)
         n_l = len(wins_g)
         rows = ([(w, w, p_gg[i], [0]) for i, w in enumerate(wins_g)]
                 + [(wk, wg, p_gm[i], [1]) for i, wg in enumerate(wins_g)
@@ -758,7 +815,8 @@ class TomographicPipeline(nn.Module):
             if wk_lens is not None:
                 rows += [(wk_lens[i], self.win_kcmb, p_mm, [0])
                          for i in range(n_l)]
-        return cosmo, nu, models, rows, (wins_g, wins_k, p_gg, p_gm, h)
+        return cosmo, nu, models, rows, (wins_g, wins_k, p_gg, p_gm, h,
+                                         anchors)
 
     def _nonlimber_terms(self, lat, models, wins_g, wins_k, p_gg, p_gm, h):
         """The corrections of the w rows, then the gamma_t rows (lens-major),
@@ -780,8 +838,12 @@ class TomographicPipeline(nn.Module):
         """The non-Limber corrections that forward adds (before the shear
         calibration): {"w_theta": (B, n_lens, n_theta), "gamma_t": (B,
         n_lens n_src, n_theta)}, float64."""
-        cosmo, _nu, models, _rows, (wins_g, wins_k, p_gg, p_gm, h) = \
-            self.probe_rows(cosmo, nuisance)
+        cosmo, _nu, models, _rows, (wins_g, wins_k, p_gg, p_gm, h,
+                                    anchors) = self.probe_rows(cosmo,
+                                                               nuisance)
+        if anchors is not None:
+            p_gg, p_gm, _mm, h = self.pivot_spectra(cosmo, models,
+                                                    with_mm=False)
         terms = self._nonlimber_terms(self.lattice(cosmo, models), models,
                                       wins_g, wins_k, p_gg, p_gm, h)
         n_l = len(wins_g)
@@ -795,9 +857,14 @@ class TomographicPipeline(nn.Module):
                                        models[0].mass.growth)
 
     def conv_rows(self, cosmo, models, rows, j_lo: int, j_hi: int,
-                  lat=None):
+                  lat=None, anchors=None):
         """The grouped lattice convolution of ``rows`` over conv-output
-        positions [j_lo, j_hi): (B, R, j_hi - j_lo), float64 sums."""
+        positions [j_lo, j_hi): (B, R, j_hi - j_lo), float64 sums; with
+        ``anchors`` (exact-z) the J-channel anchored convolution."""
+        if anchors is not None:
+            return limber_fft.exact_z_conv_rows(
+                cosmo, anchors, [(wa, wb, p) for wa, wb, p, _s in rows],
+                self.st, j_lo, j_hi)
         lat = lat or self.lattice(cosmo, models)
         g_rows = lat.g_rows([(wa, wb) for wa, wb, _p, _s in rows])
         p_rows = torch.stack([p for _a, _b, p, _s in rows], dim=1)
@@ -805,14 +872,14 @@ class TomographicPipeline(nn.Module):
 
     def forward(self, cosmo: CosmoParams, nuisance: Nuisance3x2pt | None = None
                 ) -> dict:
-        cosmo, nu, models, rows, (wins_g, wins_k, p_gg, p_gm, h) = \
-            self.probe_rows(cosmo, nuisance)
+        cosmo, nu, models, rows, (wins_g, wins_k, p_gg, p_gm, h,
+                                  anchors) = self.probe_rows(cosmo, nuisance)
         n_l, n_s, n_xi = len(self.lens), len(self.src), len(self.pairs_xi)
         n_gt = n_l * n_s
-        lat = self.lattice(cosmo, models)
+        lat = self.lattice(cosmo, models) if anchors is None else None
         outs = _fused_probe_rows(
             lambda j_lo, j_hi: self.conv_rows(cosmo, models, rows, j_lo,
-                                              j_hi, lat),
+                                              j_hi, lat, anchors),
             [r[3] for r in rows], self.operator)
         w_rows = [o[0] for o in outs[:n_l]]
         gt_rows = [o[0] for o in outs[n_l:n_l + n_gt]]
@@ -841,7 +908,13 @@ class TomographicPipeline(nn.Module):
         if self.nonlimber is not None:
             # The exact low-ell repair of every w and gamma_t row, before
             # the (1+m) calibration; the xi, magnification and kappa_CMB
-            # rows keep plain Limber, as in the JAX package.
+            # rows keep plain Limber, as in the JAX package.  In exact-z
+            # mode it runs separably, off one more pivot evaluation (a
+            # second kernel A launch).
+            if anchors is not None:
+                p_gg, p_gm, _mm, h = self.pivot_spectra(cosmo, models,
+                                                        with_mm=False)
+                lat = self.lattice(cosmo, models)
             terms = self._nonlimber_terms(lat, models, wins_g, wins_k, p_gg,
                                           p_gm, h)
             dtype = self.st.dtype

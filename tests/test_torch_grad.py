@@ -274,13 +274,21 @@ def test_bc_autograd_on_cpu_is_the_plain_backward(op):
 
 
 def test_static_operands_refuse_gradients(statics):
-    """k, the table and the operators are static buffers: asking for
-    their gradient raises."""
+    """The table and the operators are static buffers: asking for their
+    gradient raises.  k is not static any more (the Gauss-Legendre exact-z
+    C_ell's k moves with the cosmology): it takes kernel A's grad_k, the
+    plain backward's on the CPU."""
     k = statics.lattice_k[:10].clone().requires_grad_(True)
     mat = torch.ones(1, 3, 4, **KW)
     gal = torch.ones(1, 2, 9, **KW)
+    out = hc.halo_contract(k, mat, gal, statics.cheb)
+    (g_k,) = torch.autograd.grad(out.sum(), k)
+    assert torch.equal(g_k, hc.halo_contract_bwd_ref(
+        k.detach(), mat, gal, statics.cheb, torch.ones_like(out),
+        grad_k=True)[2])
+    cheb = statics.cheb.clone().requires_grad_(True)
     with pytest.raises(ValueError, match="static"):
-        hc.halo_contract(k, mat, gal, statics.cheb)
+        hc.halo_contract(k.detach(), mat, gal, cheb)
     op = torch.ones(4, 3, **KW, requires_grad=True)
     with pytest.raises(ValueError, match="static"):
         hm.hankel_matmul(torch.ones(2, 4, **KW), op)

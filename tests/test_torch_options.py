@@ -18,7 +18,8 @@
   including the w_gk_cmb rows and the data vector's order.
 - The float64 autograd Jacobian of the flat cell against the committed
   jacfwd, on 6 entries of the data vector.
-- The options still unported raise, naming their ROADMAP item.
+- The two options that raised until PR 10 (exact-z tomography, the
+  whitened FFT convolution) give results.
 
 Budget: no JAX pipeline is compiled here; ~47 s and ~1 GiB alone
 (CHANGES.md).
@@ -390,20 +391,35 @@ def test_flat_cell_jacobian_matches_jacfwd():
         assert np.max(np.abs(got - jac[:, e]) / peak) < 1e-9, e
 
 
-# -- what stays unported --------------------------------------------------
+# -- what was unported until exact-z tomography --------------------------
 
 def test_unported_options_still_raise():
-    """Exact-z tomography (ROADMAP item 8.1) and the whitened FFT
-    convolution (item 7b) raise NotImplementedError naming their item."""
-    kw = dict(grid=GRID, **KW)
-    hp = convert.halo_params(default_halo(), **KW)
-    hod = convert.hod_zheng(default_hod(), **KW)
-    lens = [convert.dndz(d, **KW) for d in tt.LENS]
-    with pytest.raises(NotImplementedError, match="item 8.1"):
-        sweep.make_tomographic_pipeline(hp, hod, lens, lens,
-                                        exact_z_anchors=4, **kw)
-    win = projection.WindowGalaxy(dist=lens[0])
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        limber_fft.limber_cl_fft(port_cosmo(), win, win, np.array([10.0]),
-                                 torch.ones(1, 10, **KW), statics(),
-                                 conv_method="fft")
+    """The two options that raised until they were ported, exact-z
+    tomography (ROADMAP item 8.1) and the whitened FFT convolution (item
+    7b), now give results: the exact-z tomographic pipeline (per-bin
+    HODs, J = 4, TINY_THETA_DEG) builds and runs, finite, with the
+    separable pipeline's shapes and values of its own (its JAX values:
+    tests/test_torch_exactz_tomo.py); ``conv_method="fft"`` gives the
+    direct route's C_ell within 1e-10; an unknown method stays a
+    ValueError."""
+    theta = tsr.TINY_THETA_DEG
+    exact = tt.port_pipeline(True, exact_z_anchors=4, theta_deg=theta)(
+        tt.port_batch())
+    plain = tt.port_pipeline(True, theta_deg=theta)(tt.port_batch())
+    for key in ("w_theta", "gamma_t", "xi_plus", "xi_minus", "vector"):
+        assert exact[key].shape == plain[key].shape
+        assert bool(torch.isfinite(exact[key]).all())
+        assert _rel(exact[key], plain[key].numpy()) > 1e-3, key
+    torch.testing.assert_close(exact["n_g"], plain["n_g"], rtol=0.0,
+                               atol=0.0)
+    win = projection.WindowGalaxy(dist=convert.dndz(tt.LENS[0], **KW))
+    st = statics()
+    p = limber_fft.p_lattice_linear(port_cosmo(), st)
+    ells = np.geomspace(10.0, 3000.0, 7)
+    fft = limber_fft.limber_cl_fft(port_cosmo(), win, win, ells, p, st,
+                                   conv_method="fft")
+    direct = limber_fft.limber_cl_fft(port_cosmo(), win, win, ells, p, st)
+    torch.testing.assert_close(fft, direct, rtol=1e-10, atol=0.0)
+    with pytest.raises(ValueError, match="conv_method"):
+        limber_fft.limber_cl_fft(port_cosmo(), win, win, ells, p, st,
+                                 conv_method="gather")

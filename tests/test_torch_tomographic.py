@@ -25,8 +25,9 @@ package (float64 CPU), on the JAX tests' tiny grid
 - The float64 autograd Jacobian over cosmology and nuisances through
   ``inference.make_theory_fn`` against the JAX ``jacfwd`` (10 entries of
   the data vector, every probe kind and bin).
-- Exact-z tomography raises; each option ported since builds and runs
-  (its values against JAX: tests/test_torch_options.py).
+- Each option builds and runs, exact-z tomography included (their
+  values against JAX: tests/test_torch_options.py and
+  tests/test_torch_exactz_tomo.py).
 """
 
 import dataclasses
@@ -520,7 +521,8 @@ UNPORTED = [dict(exact_z_anchors=4), dict(geometry="curved"),
 
 #: Per option of UNPORTED that is ported now: the outputs it must change
 #: against the plain per-bin pipeline (the others stay bit for bit).
-_OPTION_MOVES = {"geometry": "all", "include_cmb_lensing": (),
+_OPTION_MOVES = {"exact_z_anchors": "all", "geometry": "all",
+                 "include_cmb_lensing": (),
                  "nonlimber_ell_switch": ("w_theta", "gamma_t"),
                  "matter_power": ("xi_plus", "xi_minus"), "with_bao": "all"}
 THETA_OPTIONS = np.geomspace(0.5, 4.0, 5)
@@ -529,17 +531,13 @@ THETA_OPTIONS = np.geomspace(0.5, 4.0, 5)
 @pytest.mark.parametrize("options", UNPORTED,
                          ids=[",".join(o) for o in UNPORTED])
 def test_unported_options_raise(options):
-    """Exact-z tomography still raises, naming ROADMAP item 8.1.  Every
-    other option is ported now: with per-bin HODs at THETA_OPTIONS it
-    builds and runs, finite and of the plain pipeline's shapes (w_gk_cmb
-    of w's, appended to the vector), changed where the option acts and
-    bit for bit the same elsewhere.  Its values against the JAX package
-    are held in tests/test_torch_options.py (the tomographic option
-    cell)."""
-    if "exact_z_anchors" in options:
-        with pytest.raises(NotImplementedError, match="item 8.1"):
-            port_pipeline(True, **options)
-        return
+    """Every option is ported now, exact-z tomography included: with
+    per-bin HODs at THETA_OPTIONS it builds and runs, finite and of the
+    plain pipeline's shapes (w_gk_cmb of w's, appended to the vector),
+    changed where the option acts and bit for bit the same elsewhere.
+    Its values against the JAX package are held in
+    tests/test_torch_options.py (the tomographic option cell) and
+    tests/test_torch_exactz_tomo.py (exact-z tomography)."""
     out = port_pipeline(True, theta_deg=THETA_OPTIONS, **options)(
         port_batch())
     base = port_pipeline(True, theta_deg=THETA_OPTIONS)(port_batch())

@@ -36,7 +36,8 @@ Backward (kernel A', ``--backward``):
 
 The layout (move 1) carries the others (the staged unit, the butterfly),
 so its ablation is ``parent``: the file given with ``--parent`` (an
-earlier kernel with the same C interface), if any.
+earlier kernel, with this C interface or the one before the k row stride
+and grad_k arguments), if any.
 
 Inputs are the main path's (bench.py configuration A at DEFAULT_GRID, 512
 cosmologies, float32): the lattice k with the main node set and with the
@@ -50,8 +51,9 @@ gates of phase 8: 2e-5 and 1.5x that), and its time: CUDA events around
 5 back-to-back launches, over 5, in ``--rounds`` rounds that alternate the
 variants' order; mean (min-max).  With ``--parent``, first checks that
 kernel A's outputs of the current build equal the parent's bit for bit
-(float32 on the three sets, float64 on 8 cosmologies).  Needs a CUDA GPU;
-prints the card's name and power limit first.
+(float32 on the three sets, float64 on 8 cosmologies), and with
+``--backward`` A''s as well.  Needs a CUDA GPU; prints the card's name and
+power limit first.
 """
 
 import argparse
@@ -195,8 +197,41 @@ def variant_sources(edits, parent):
     return paths
 
 
+_TABLE_ARGS = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+class _BeforeRowStride:
+    """A library of the C interface before the k row stride and the grad_k
+    arguments, called through the current one (shared k only)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        lib.halo_contract_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + _TABLE_ARGS)
+        lib.halo_contract_bwd_launch.argtypes = (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+            + _TABLE_ARGS)
+        self.halo_contract_error = lib.halo_contract_error
+
+    def halo_contract_launch(self, dev, is_double, k, k_stride, nk, *rest):
+        assert k_stride == 0, "the parent takes a shared k only"
+        return self.lib.halo_contract_launch(dev, is_double, k, nk, *rest)
+
+    def halo_contract_bwd_launch(self, dev, is_double, k, k_stride, nk, mat,
+                                 nm, gal, ng, grad, gmat, ggal, gk_part, gk,
+                                 *rest):
+        assert k_stride == 0 and gk is None, "the parent has no grad_k"
+        return self.lib.halo_contract_bwd_launch(
+            dev, is_double, k, nk, mat, nm, gal, ng, grad, gmat, ggal, *rest)
+
+
 def build(paths):
     """One nvcc per source, all started together; {name: ctypes lib}."""
+    from chomp_tpu_torch.ops.halo_contract import _lib_argtypes
     from chomp_tpu_torch.ops.build import ARCH, nvcc
 
     procs = {}
@@ -214,22 +249,9 @@ def build(paths):
         regs = [ln.split(":")[-1].strip() for ln in err.splitlines()
                 if "registers" in ln]
         print(f"[build] {name}: {' ; '.join(regs)}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        lib.halo_contract_launch.restype = ctypes.c_int
-        lib.halo_contract_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.halo_contract_bwd_launch.restype = ctypes.c_int
-        lib.halo_contract_bwd_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.halo_contract_error.restype = ctypes.c_char_p
-        lib.halo_contract_error.argtypes = [ctypes.c_int]
-        libs[name] = lib
+        lib = _lib_argtypes(ctypes.CDLL(str(so)))
+        libs[name] = (lib if "int k_stride" in paths[name].read_text()
+                      else _BeforeRowStride(lib))
     return libs
 
 
@@ -313,6 +335,20 @@ def main():
             same.append(f"{sname} {torch.equal(*outs)}")
         print("[forward] kernel A of this build vs the parent, bit for bit: "
               + " | ".join(same), flush=True)
+        if args.backward:
+            same = []
+            for sname, (k, mat, gal), cheb in runs:
+                g = torch.tensor(np.random.default_rng(13).normal(
+                    size=(mat.shape[0], hc.N_OUT, k.numel())),
+                    dtype=k.dtype, device=dev)
+                outs = []
+                for name in ("kernel", "parent"):
+                    use(name)
+                    outs.append(hc.halo_contract_bwd(k, mat, gal, cheb, g))
+                same.append(f"{sname} " + str(all(
+                    torch.equal(a, b) for a, b in zip(*outs))))
+            print("[backward] kernel A' of this build vs the parent, bit for "
+                  "bit: " + " | ".join(same), flush=True)
 
     def rel(got, ref):
         d = (got.double() - ref).abs().amax(dim=(0, 2))

@@ -794,9 +794,199 @@ def write_options_reference():
     print(f"wrote {path}")
 
 
+#: The Gauss-Legendre exact-z C_ell of chip_smoke.py phase 22: power_gg
+#: through configuration A's window at 20 log-spaced ells over 10..3000,
+#: n_z GL nodes (each with its own halo model).
+GL_ELLS = np.geomspace(10.0, 3000.0, 20).tolist()
+GL_N_Z = 32
+#: The anchors of the lattice exact-z C_ell held to the GL route there.
+GL_LATTICE_J = 8
+#: The exact-z tomographic cases of tests/test_torch_exactz_tomo.py on the
+#: 2 lens x 2 source layout of tests/test_torch_tomographic.py (J =
+#: TINY_J): one HOD shared by both lens bins or per-bin HODs, the grid's
+#: theta bins or TINY_THETA_DEG ("tiny", where the curved operators stay
+#: small), and the pipeline options.
+EXACTZ_TOMO_CASES = {
+    "shared": dict(per_bin=False, theta="grid", options={}),
+    "per_bin": dict(per_bin=True, theta="grid", options={}),
+    "shared_curved": dict(per_bin=False, theta="tiny", options=dict(
+        geometry="curved", matter_power="halofit",
+        include_cmb_lensing=True)),
+    "per_bin_curved": dict(per_bin=True, theta="tiny", options=dict(
+        geometry="curved", matter_power="halofit", with_bao=True,
+        include_cmb_lensing=True, nonlimber_ell_switch=60,
+        nonlimber_rsd=True)),
+    "shared_options": dict(per_bin=False, theta="tiny", options=dict(
+        matter_power="linear", with_bao=True, include_cmb_lensing=True,
+        nonlimber_ell_switch=60, nonlimber_rsd=True)),
+    "per_bin_options": dict(per_bin=True, theta="tiny", options=dict(
+        matter_power="halofit", with_bao=True, include_cmb_lensing=True,
+        nonlimber_ell_switch=60, nonlimber_rsd=True)),
+}
+EXACTZ_TOMO_KEYS = ("w_theta", "gamma_t", "xi_plus", "xi_minus", "w_gk_cmb",
+                    "n_g", "vector")
+
+
+def exactz_tomo_part(name):
+    """One block of tests/data/torch_exactz_tomo_reference.json (JAX
+    float64 CPU): "tiny" (the EXACTZ_TOMO_CASES at the tomographic tests'
+    3 cosmologies, and the jacfwd of the "per_bin" case's data vector),
+    "gl" (``projection.limber_cl_exact_z`` at the configuration of
+    tests/test_exact_z_lattice.py and its jacfwd), "chip_tomo" (the DES
+    Y3-like cell with per-bin HODs, exact_z_anchors = EXACT_J, flat, at
+    DEFAULT_GRID and the 3 configuration-B cosmologies, one after another
+    under lax.map) or "chip_gl" (the GL C_ell of chip_smoke.py phase 22 at
+    DEFAULT_GRID and those cosmologies)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo, default_halo, projection
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.params import DEFAULT_GRID
+    from chomp_tpu.parallel.sweep import make_tomographic_pipeline
+    from tests import test_exact_z_lattice as tz
+    from tests import test_torch_tomographic as tt
+    from tests import torch_parity as tp
+
+    t0 = time.perf_counter()
+
+    def keep(out):
+        return {k: np.asarray(out[k]).tolist() for k in EXACTZ_TOMO_KEYS
+                if k in out}
+
+    def cl_fn(grid, win, ells, n_z):
+        def cl(c):
+            return projection.limber_cl_exact_z(
+                c, default_halo(), default_hod(), win, win,
+                jnp.asarray(ells), "power_gg", n_z=n_z, grid=grid)
+        return cl
+
+    if name == "tiny":
+        hods = [default_hod(), default_hod(**tt.HOD_B)]
+        cases = {}
+        for case, spec in EXACTZ_TOMO_CASES.items():
+            theta = (TINY_THETA_DEG if spec["theta"] == "tiny" else None)
+            fn = make_tomographic_pipeline(
+                default_halo(), hods if spec["per_bin"] else hods[0],
+                tt.LENS, tt.SRC, theta_deg=theta, grid=tt.GRID,
+                z_pivot=tt.Z_PIVOT, exact_z_anchors=TINY_J,
+                **spec["options"])
+            cases[case] = keep(jax.jit(jax.vmap(fn))(tt.jax_batch()))
+            print(f"[{time.perf_counter() - t0:7.1f} s] tiny {case}",
+                  flush=True)
+        fn = make_tomographic_pipeline(default_halo(), hods, tt.LENS, tt.SRC,
+                                       grid=tt.GRID, z_pivot=tt.Z_PIVOT,
+                                       exact_z_anchors=TINY_J)
+
+        def one(c):
+            def vec(p):
+                return fn(dataclasses.replace(
+                    c, omega_m0=p[0], omega_l0=1.0 - p[0],
+                    sigma_8=p[1]))["vector"]
+
+            p = jnp.stack([c.omega_m0, c.sigma_8])
+            return vec(p), jax.jacfwd(vec)(p)
+
+        val, jac = jax.jit(jax.vmap(one))(tt.jax_batch())
+        om, s8 = tt.cosmologies()
+        print(f"[{time.perf_counter() - t0:7.1f} s] tiny jacfwd", flush=True)
+        return {"grid": dataclasses.asdict(tt.GRID), "omega_m0": om.tolist(),
+                "sigma_8": s8.tolist(), "exact_z_anchors": TINY_J,
+                "theta_tiny": TINY_THETA_DEG, "cases": cases,
+                "per_bin_jacobian": {"vector": np.asarray(val).tolist(),
+                                     "jacobian": np.asarray(jac).tolist()}}
+    if name == "gl":
+        ells = np.logspace(1, 3, 6)
+        cl = cl_fn(tz.G, tz._win(), ells, 32)
+        fid = default_cosmo()
+
+        def vec(p):
+            return cl(dataclasses.replace(fid, omega_m0=p[0],
+                                          omega_l0=1.0 - p[0], sigma_8=p[1]))
+
+        p = jnp.stack([fid.omega_m0, fid.sigma_8])
+        val, jac = jax.jit(lambda q: (vec(q), jax.jacfwd(vec)(q)))(p)
+        print(f"[{time.perf_counter() - t0:7.1f} s] gl jacfwd", flush=True)
+        return {"grid": dataclasses.asdict(tz.G), "ells": ells.tolist(),
+                "n_z": 32, "omega_m0": float(fid.omega_m0),
+                "sigma_8": float(fid.sigma_8),
+                "value": np.asarray(val).tolist(),
+                "jacobian": np.asarray(jac).tolist()}
+    oms, s8s = cosmologies(EXACT_INDICES, N_COSMO_EXACT)
+    block = {"grid": dataclasses.asdict(DEFAULT_GRID),
+             "n_cosmo": N_COSMO_EXACT, "indices": list(EXACT_INDICES),
+             "omega_m0": oms.tolist(), "sigma_8": s8s.tolist()}
+    batch = jax_batch(oms, s8s)
+    if name == "chip_tomo":
+        lens, src, hods, z_pivot = tomo_layout(DEFAULT_GRID)
+        fn = make_tomographic_pipeline(default_halo(), hods, lens, src,
+                                       grid=DEFAULT_GRID, z_pivot=z_pivot,
+                                       exact_z_anchors=EXACT_J)
+        out = jax.jit(lambda b: jax.lax.map(fn, b))(batch)
+        block.update(exact_z_anchors=EXACT_J, outputs=keep(out))
+    elif name == "chip_gl":
+        from chomp_tpu import limber_fft
+
+        win = projection.WindowGalaxy(dist=tp.jax_dist())
+        cl = cl_fn(DEFAULT_GRID, win, np.asarray(GL_ELLS), GL_N_Z)
+        out = np.asarray(jax.jit(lambda b: jax.lax.map(cl, b))(batch))
+        lat = np.asarray(jax.jit(lambda b: jax.lax.map(
+            lambda c: limber_fft.limber_cl_fft_exact_z(
+                c, default_halo(), default_hod(), win, win,
+                np.asarray(GL_ELLS), "power_gg", n_z_anchor=GL_LATTICE_J,
+                grid=DEFAULT_GRID), b))(batch))
+        block.update(ells=GL_ELLS, n_z=GL_N_Z, cl=out.tolist(),
+                     lattice_j=GL_LATTICE_J, lattice=lat.tolist(),
+                     jax_lattice_vs_gl_worst=float(np.max(np.abs(
+                         lat / out - 1.0))))
+    else:
+        raise SystemExit(f"unknown exact-z tomography block {name!r}")
+    print(f"[{time.perf_counter() - t0:7.1f} s] {name}", flush=True)
+    return block
+
+
+EXACTZ_TOMO_PARTS = ("tiny", "gl", "chip_tomo", "chip_gl")
+
+
+def write_exactz_tomo_reference():
+    """tests/data/torch_exactz_tomo_reference.json: each block in a
+    process of its own, one after another; a block whose part file
+    (``tests/data/.exactz_tomo_<name>.json``, written by
+    ``--exactz-tomo-part <name> <file>``) exists already is taken as it
+    is, so the parts may be made in parallel first."""
+    import subprocess
+
+    blocks = {}
+    for name in EXACTZ_TOMO_PARTS:
+        part = DATA / f".exactz_tomo_{name}.json"
+        if not part.exists():
+            subprocess.run([sys.executable, __file__, "--exactz-tomo-part",
+                            name, str(part)], check=True)
+        blocks[name] = json.loads(part.read_text())
+    data = {"config": "exact-z tomography (make_tomographic_pipeline with "
+                      "exact_z_anchors) and the Gauss-Legendre exact-z "
+                      "C_ell (projection.limber_cl_exact_z, power_gg), JAX "
+                      "float64 CPU; 'tiny': EXACTZ_TOMO_CASES of tools/"
+                      "torch_slice_reference.py on tests/test_torch_"
+                      "tomographic.py's layout and grid; 'gl': at tests/"
+                      "test_exact_z_lattice.py's configuration; 'chip_tomo' "
+                      "and 'chip_gl': chip_smoke.py phases 20 and 22 at "
+                      "DEFAULT_GRID; jacobian columns (omega_m0, sigma_8) "
+                      "with omega_l0 = 1 - omega_m0",
+            "cases": EXACTZ_TOMO_CASES, "cell": TOMO_CELL, **blocks}
+    path = DATA / "torch_exactz_tomo_reference.json"
+    path.write_text(json.dumps(data, indent=1) + "\n")
+    for name in EXACTZ_TOMO_PARTS:
+        (DATA / f".exactz_tomo_{name}.json").unlink()
+    print(f"wrote {path}")
+
+
 FILES = ("torch_slice_reference.json", "torch_table_reference.json",
          "torch_grad_reference.json", "torch_exactz_reference.json",
-         "torch_tomo_reference.json", "torch_options_reference.json")
+         "torch_tomo_reference.json", "torch_options_reference.json",
+         "torch_exactz_tomo_reference.json")
 
 
 def main():
@@ -811,6 +1001,11 @@ def main():
         Path(args[2]).write_text(json.dumps(
             option_tiny_reference() if args[1] == "tiny"
             else option_cell_reference(args[1])))
+        return
+    if args[:1] == ["--exactz-tomo-part"]:
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+        Path(args[2]).write_text(json.dumps(exactz_tomo_part(args[1])))
         return
     seed = 0
     if "--seed" in args:
@@ -835,6 +1030,8 @@ def main():
         write_tomo_reference(seed)
     if FILES[5] in names:
         write_options_reference()
+    if FILES[6] in names:
+        write_exactz_tomo_reference()
 
 
 def write_slice_and_table():
