@@ -200,7 +200,41 @@ order (any failure exits nonzero; nothing falls back):
    field), their times, bounds and A''s launch geometry against
    ops/tiles.py; walls and peaks; ``limber_cl_fft(conv_method="fft")``
    against the direct route (float64 1e-10; the float32 result's error
-   and both times reported).
+   and both times reported);
+23. the HOD families (tests/data/torch_families_reference.json): bench.py
+   configuration A at 512 cosmologies with a Poisson, a Mandelbaum and a
+   Kravtsov HOD on both routes (A 1 and C 2; A 1 and B 2), float32
+   against the card's float64 plain path (8) and JAX (3) at 1e-4, the
+   float64 kernels against plain (1e-12) and plain against JAX (1e-10);
+   kernels A and A' on Mandelbaum's node set (two breakpoints and two
+   switch masses: 5 panels of 64, NG = 320) at phase 2's and 8's gates,
+   with times and bounds; then the DES Y3-like cell of phase 13 with
+   per-bin families (Mandelbaum, Mandelbaum, Kravtsov, Zheng, Zheng): A
+   once per distinct galaxy node count (2), C 3, phase 13's gates, A and
+   A' on each fold (8 rows gated, all timed), forward and
+   forward+backward walls and peaks;
+24. the float32 gate at the prior corners (``utils.corners``: 5 corners
+   and 2 near-fiducial points): the lattice route at DEFAULT_GRID, flat
+   (worst |w32/w64 - 1| < 1e-5 and median < 2e-6, against the card's
+   float64 plain path and the committed JAX float64 values) and curved
+   at theta 0.2-5 deg (w and gamma_t < 1e-4); float64 kernels against
+   plain (1e-12) and plain against JAX (1e-10); the table route's figures
+   and each corner's worst bin reported;
+25. the rest of inference on phase 10's lattice likelihood:
+   ``adaptive_hmc`` (64 chains in Fisher-whitened coordinates, two
+   warmup windows, diagonal mass: finite, step in (0.05, 5), mean
+   acceptance in (0.6, 0.99)); MOPED (the compressed Fisher equals the
+   full one in float64 to 1e-8 of its largest entry);
+   ``external_loglike(vectorized=True)`` over 64 walkers in one call and
+   a short ``ensemble_sample``; walls per leapfrog, warmup window and
+   ensemble step;
+26. the emulator on configuration A's lattice w and gamma_t over an
+   (omega_m0, sigma_8) box: a design sweep of 256 + 64 nodes in one
+   batched float32 call, value training (holdout max_rel < 4e-2), and a
+   Sobolev run on the float64 Jacobians of a 128 + 32 node design with
+   the box's vertices and faces (holdout max_rel < 5e-3 and jac_max_rel
+   < 2e-2, the JAX tests' gates); walls of the sweep, the Jacobians and
+   training.
 
 Each phase prints its seconds (``[time] phase N``).  Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
 over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
@@ -220,6 +254,7 @@ FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
 """
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -276,14 +311,17 @@ def in_turns_ms(kernel, other, reps=100, other_reps=100):
 def device_ms(fn, reps=20):
     """Device milliseconds per call of ``fn()``: the CUDA kernel time that
     torch.profiler's ``key_averages()`` records over ``reps`` calls, over
-    ``reps``; None where it records no device time."""
+    ``reps``; None where it records no device time.  The profiler records
+    kernel activity only (recording the host ops as well took three times
+    as long over this script's profiled calls).  A session now and then
+    records no kernel in either mode (tools/torch_profiler_probe.py
+    counts them): its row reads "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -599,14 +637,14 @@ def jac_err(got, ref):
 
 
 def tomo_cell(ref, *, device, dtype, halo_params=None, nuisance=True,
-              **options):
+              hods=None, **options):
     """(pipeline, nuisance point without a batch axis) of the tomographic
     cell that ``ref`` (tests/data/torch_tomo_reference.json) defines:
     Gaussian lens and source dN/dz, per-bin Zheng HODs, DEFAULT_GRID,
     ``with_nuisance`` and ``include_magnification`` (both off, and the
     point None, with ``nuisance=False``: exact-z tomography refuses
-    them); ``options`` (and ``halo_params``) as
-    make_tomographic_pipeline's."""
+    them); ``hods`` replace the per-bin Zheng HODs; ``options`` (and
+    ``halo_params``) as make_tomographic_pipeline's."""
     import torch
 
     from chomp_tpu_torch import (DNdzGaussian, default_halo, default_hod,
@@ -625,9 +663,9 @@ def tomo_cell(ref, *, device, dtype, halo_params=None, nuisance=True,
             for z0 in cell["lens_z0"]]
     src = [gauss(z0, sz, cell["src_z_max"])
            for z0, sz in zip(cell["src_z0"], cell["src_sigma_z"])]
-    hods = [default_hod(log10_m_min=m, log10_m_0=m,
-                        log10_m_1p=m + cell["log10_m_1p_offset"], **kw)
-            for m in cell["log10_m_min"]]
+    hods = hods or [default_hod(log10_m_min=m, log10_m_0=m,
+                                log10_m_1p=m + cell["log10_m_1p_offset"],
+                                **kw) for m in cell["log10_m_min"]]
     pipe = make_tomographic_pipeline(
         halo_params or default_halo(**kw), hods, lens, src,
         grid=DEFAULT_GRID, z_pivot=cell["z_pivot"], with_nuisance=nuisance,
@@ -636,6 +674,844 @@ def tomo_cell(ref, *, device, dtype, halo_params=None, nuisance=True,
         return pipe, None
     return pipe, Nuisance3x2pt(**{k: torch.tensor(v, **kw)
                                   for k, v in ref["nuisance"].items()})
+
+
+def hod_of(spec, **kw):
+    """A port HOD from (class name, fields) of
+    tests/data/torch_families_reference.json."""
+    import torch
+
+    from chomp_tpu_torch import hod
+
+    cls, fields = spec
+    return getattr(hod, cls)(**{k: torch.tensor(float(v), **kw)
+                                for k, v in fields.items()})
+
+
+def cuda():
+    import torch
+
+    return torch.device("cuda", 0)
+
+
+@functools.cache
+def cheb(dtype):
+    """DEFAULT_GRID's Chebyshev matrix on the card, in ``dtype``."""
+    from chomp_tpu_torch.grids import Statics
+    from chomp_tpu_torch.params import DEFAULT_GRID
+
+    return Statics(DEFAULT_GRID, device=cuda(), dtype=dtype).cheb
+
+
+def counted_kernels():
+    """The kernel wrappers that count their launches, by kernel name."""
+    from chomp_tpu_torch.ops import df32, halo_contract as hc
+    from chomp_tpu_torch.ops import hankel_matmul as hm
+
+    return {"halo_contract": hc.halo_contract,
+            "df_contract": df32.df_contract,
+            "hankel_matmul": hm.hankel_matmul}
+
+
+def counts_zero():
+    for fn in counted_kernels().values():
+        fn.launches = 0
+        fn.bwd_launches = 0
+
+
+def counts():
+    """(forward, backward) launch counts by kernel name."""
+    counted = counted_kernels()
+    return ({n: fn.launches for n, fn in counted.items()},
+            {n: fn.bwd_launches for n, fn in counted.items()})
+
+
+def setup(dtype, idx=None, feedback=False, n=N_COSMO):
+    """(batch, halo, hod, dist) at ``idx`` of bench.py's n-point
+    linspaces (all n by default)."""
+    import torch
+
+    from chomp_tpu_torch import (DNdzGaussian, default_cosmo, default_halo,
+                                 default_hod)
+    from chomp_tpu_torch.parallel.sweep import broadcast_cosmo
+
+    o_all = np.linspace(0.24, 0.32, n)
+    s_all = np.linspace(0.75, 0.88, n)
+    o = o_all if idx is None else o_all[idx]
+    s = s_all if idx is None else s_all[idx]
+    kw = dict(device=cuda(), dtype=dtype)
+    # The feedback hooks (c x 1.2, k x nu^0.05) make every galaxy
+    # node's matter profile differ from its galaxy profile.
+    hooks = (dict(bary_c=np.full(len(o), 1.2),
+                  bary_eta=np.full(len(o), 0.1)) if feedback else {})
+    batch = broadcast_cosmo(default_cosmo(**kw), omega_m0=o,
+                            omega_l0=1.0 - o, sigma_8=s, **hooks)
+    dist = DNdzGaussian(*(torch.tensor(v, **kw)
+                          for v in (0.0, 2.0, 1.0, 0.2)))
+    return batch, default_halo(**kw), default_hod(**kw), dist
+
+
+def seeded(shape, seed, dtype=None):
+    """Seeded normal numbers on the card (float64 by default)."""
+    import torch
+
+    return torch.tensor(np.random.default_rng(seed).normal(size=shape),
+                        dtype=dtype or torch.float64, device=cuda())
+
+
+def check_a(k, mat32, gal32, k64, mat64, gal64, cheb32, cheb64):
+    """Kernel A in float64 against its plain version (relative to each
+    output's peak); in float32 against the plain version on the same
+    float32 inputs in float64, beside the plain float32 version's own
+    error against that reference; two launches bit for bit."""
+    import torch
+
+    from chomp_tpu_torch.ops import halo_contract as hc
+
+    got64 = hc.halo_contract(k64, mat64, gal64, cheb64)
+    got32 = hc.halo_contract(k, mat32, gal32, cheb32)
+    exact = hc.halo_contract_ref(k.double(), mat32.double(),
+                                 gal32.double())
+    plain32, plain_ms = once_ms(lambda: hc.halo_contract_ref(k, mat32,
+                                                             gal32))
+    return {"f64": rel_to_peak(got64, hc.halo_contract_ref(k64, mat64,
+                                                           gal64)),
+            "plain_ms": plain_ms,
+            "f32": rel_to_peak(got32.double(), exact),
+            "abs": float((got32.double() - exact).abs().max()),
+            "plain32": rel_to_peak(plain32.double(), exact),
+            "vs_plain32": rel_to_peak(got32, plain32),
+            "same": (torch.equal(got32, hc.halo_contract(
+                k, mat32, gal32, cheb32)) and torch.equal(
+                    got64, hc.halo_contract(k64, mat64, gal64, cheb64)))}
+
+
+def bound_a_of(k, mat, gal):
+    """Kernel A's (bound_ms, bound_by) in float32 on these inputs."""
+    import torch
+
+    from chomp_tpu_torch.ops import halo_contract as hc
+
+    f32 = torch.float32
+    return bound(halo_contract_flops(k, mat, gal, hc._lens(f32),
+                                     hc.n_moments(f32)),
+                 4 * (k.numel() + mat.numel() + gal.numel()
+                      + cheb(f32).numel() + hc.N_OUT * mat.shape[0]
+                      * k.shape[-1]))
+
+
+def bwd_ref_rows(k, mat, gal, cheb_, g, step=512, grad_k=False):
+    """Kernel A's plain backward in blocks of ``step`` rows (each row
+    is its own sum; whole, its float64 products at the tomographic
+    rows would take tens of GB); ``k`` shared or a row per row."""
+    import torch
+
+    from chomp_tpu_torch.ops import halo_contract as hc
+
+    parts = [hc.halo_contract_bwd_ref(
+        k if k.dim() == 1 else k[i:i + step], mat[i:i + step],
+        gal[i:i + step], cheb_, g[i:i + step], grad_k=grad_k)
+        for i in range(0, mat.shape[0], step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def check_a_bwd(k, mat32, gal32, k64, mat64, gal64, seed, grad_k=False):
+    """Kernel A's backward under a seeded normal cotangent: float64
+    against the plain backward (relative to each gradient field's
+    peak, grad_k one more field with ``grad_k``: k a row per row);
+    float32 against the plain backward in float64 on the same float32
+    inputs, beside the plain float32 backward's own error (and the
+    host ms of that one call); two launches bit for bit."""
+    import torch
+
+    from chomp_tpu_torch.ops import halo_contract as hc
+
+    f32 = torch.float32
+    cheb32, cheb64 = cheb(f32), cheb(torch.float64)
+    kw_ = dict(grad_k=grad_k)
+    g32 = seeded((mat32.shape[0], hc.N_OUT, k.shape[-1]), seed, f32)
+    g64 = g32[:mat64.shape[0]].double()
+    got64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64, **kw_)
+    ref64 = bwd_ref_rows(k64, mat64, gal64, cheb64, g64, **kw_)
+    got32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32, **kw_)
+    exact = bwd_ref_rows(k.double(), mat32.double(), gal32.double(),
+                         cheb64, g32.double(), **kw_)
+    plain32, plain_ms = once_ms(lambda: bwd_ref_rows(
+        k, mat32, gal32, cheb32, g32, **kw_))
+    again32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32, **kw_)
+    again64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64, **kw_)
+    return {"f64": max(field_peak_rel(a, r) for a, r in zip(got64, ref64)),
+            "f32": max(field_peak_rel(a.double(), r)
+                       for a, r in zip(got32, exact)),
+            "abs": max(float((a.double() - r).abs().max())
+                       for a, r in zip(got32, exact)),
+            "plain32": max(field_peak_rel(a.double(), r)
+                           for a, r in zip(plain32, exact)),
+            "plain_ms": plain_ms,
+            "same": all(torch.equal(a, b) for a, b in
+                        zip(got32 + got64, again32 + again64))}
+
+
+def bound_abwd_of(k, mat, gal, g, grad_k=False):
+    """Kernel A''s (bound_ms, bound_by) in float32 on these inputs."""
+    import torch
+
+    from chomp_tpu_torch.ops import halo_contract as hc
+
+    f32 = torch.float32
+    return bound(
+        halo_contract_bwd_flops(k, mat, gal, hc._lens(f32),
+                                hc.n_moments(f32), grad_k),
+        4 * ((2 if grad_k else 1) * k.numel()
+             + 2 * (mat.numel() + gal.numel())
+             + cheb(f32).numel() + g.numel()))
+
+
+def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
+                 pipe_a32, pipe_a64, profiled, lap):
+    """Phases 23-26 (HOD families, the float32 gate at the prior corners,
+    the rest of inference and the emulator), on main()'s cosmology grid
+    (``oms``, ``s8s``, the ``check`` indices), k grids, Chebyshev
+    matrices and configuration A's float32 and float64 lattice pipelines.
+    Returns the figures of the kernels' JSON line: launch counts by path
+    and kernel A / A' at the new node sets."""
+    import dataclasses
+
+    import torch
+
+    from chomp_tpu_torch import (DNdzGaussian, default_cosmo, default_halo,
+                                 default_hod, emulator, halo, inference)
+    from chomp_tpu_torch.ops import halo_contract as hc
+    from chomp_tpu_torch.params import DEFAULT_GRID
+    from chomp_tpu_torch.parallel.sweep import broadcast_cosmo, make_pipeline
+    from chomp_tpu_torch.utils import corners
+
+    dev, f32, f64 = cuda(), torch.float32, torch.float64
+    ref = json.loads((REPO / "tests" / "data"
+                      / "torch_families_reference.json").read_text())
+    paths, bwd_paths, kern, busy = {}, {}, {}, []
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    def counted(fn):
+        """(fn(), its forward launch counts)."""
+        torch.cuda.synchronize()
+        counts_zero()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts()[0]
+
+    def counted_fb(fn):
+        """(fn(), (forward, backward) launch counts)."""
+        torch.cuda.synchronize()
+        counts_zero()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts()
+
+    # -- 23. the HOD families ---------------------------------------------
+    rf = ref["chip_families"]
+    idx_f = np.asarray(rf["indices"])
+    if not np.allclose(rf["omega_m0"], oms[idx_f]):
+        fail("families reference file does not match this run's "
+             "cosmologies")
+    meas = sorted(set(check.tolist()) | set(idx_f.tolist()))
+    pos_chk = [meas.index(i) for i in check]
+    pos_ref = [meas.index(i) for i in idx_f]
+    batch32 = setup(f32)[0]
+    batch64 = setup(f64, meas)[0]
+    want = {"fft": {"halo_contract": 1, "df_contract": 2,
+                    "hankel_matmul": 0},
+            "table": {"halo_contract": 1, "df_contract": 0,
+                      "hankel_matmul": 2}}
+
+    def family_pipe(spec, method, dtype):
+        kw = dict(device=dev, dtype=dtype)
+        dist = DNdzGaussian(*(torch.tensor(v, **kw)
+                              for v in (0.0, 2.0, 1.0, 0.2)))
+        return make_pipeline(default_halo(**kw), hod_of(spec, **kw), dist,
+                             power_spec="power_gg", grid=DEFAULT_GRID,
+                             include_lensing=True, z_pivot=1.0,
+                             method=method, **kw)
+
+    def host(out, keys=("w_theta", "gamma_t")):
+        return {k: out[k].double().cpu().numpy() for k in keys}
+
+    def errs(got, ref_):
+        return max(worst_bin(got[k], ref_[k]) for k in ("w_theta",
+                                                         "gamma_t"))
+
+    fam_rows = {}
+    for fam, spec in ref["families"].items():
+        for method in ("fft", "table"):
+            pipe32 = family_pipe(spec, method, f32)
+            with torch.no_grad():
+                out32, launches = counted(lambda: pipe32(batch32))
+            got = host(out32)
+            finite = all(bool(np.all(np.isfinite(v))) for v in got.values())
+            pipe64 = family_pipe(spec, method, f64)
+            with torch.no_grad():
+                with plain_path():
+                    plain = host(pipe64(batch64))
+                kern64 = host(pipe64(batch64))
+                wall = median_wall(lambda: pipe32(batch32), reps=3)
+            jref = {k: np.asarray(rf[f"{fam}_{method}"][k])
+                    for k in ("w_theta", "gamma_t")}
+            e = {"vs_plain": errs({k: v[check] for k, v in got.items()},
+                                  {k: v[pos_chk] for k, v in plain.items()}),
+                 "vs_jax": errs({k: v[idx_f] for k, v in got.items()}, jref),
+                 "k64": errs(kern64, plain),
+                 "plain_vs_jax": errs({k: v[pos_ref] for k, v in
+                                       plain.items()}, jref)}
+            fam_rows[(fam, method)] = dict(e, wall=wall, launches=launches)
+            paths[f"hod_{fam}_{method}"] = launches
+            print(f"[families] {fam} ({spec[0]}), method={method}, "
+                  f"DEFAULT_GRID, B={N_COSMO}, float32 | launches "
+                  f"{launches} | finite={finite} | worst bin vs card f64 "
+                  f"plain path {e['vs_plain']:.3e} (8 cosmologies, gate "
+                  f"1e-4) | vs JAX f64 {e['vs_jax']:.3e} (3, gate 1e-4) | "
+                  f"f64 kernels vs plain {e['k64']:.3e} (gate 1e-12) | f64 "
+                  f"plain vs JAX {e['plain_vs_jax']:.3e} (gate 1e-10) | wall "
+                  f"median of 3 = {wall * 1e3:.1f} ms", flush=True)
+            if launches != want[method]:
+                fail(f"{fam} {method} launches {launches}; want "
+                     f"{want[method]}")
+            if not finite:
+                fail(f"{fam} {method}: outputs not finite")
+            for name, gate in (("vs_plain", 1e-4), ("vs_jax", 1e-4),
+                               ("k64", 1e-12), ("plain_vs_jax", 1e-10)):
+                if not e[name] <= gate:
+                    fail(f"{fam} {method} {name}: {e[name]} (gate {gate})")
+            if (fam, method) == ("mandelbaum", "fft"):
+                busy.append(("families mandelbaum lattice forward",
+                             no_grad(lambda p=pipe32: p(batch32)),
+                             wall * 1e3, N_COSMO))
+            del pipe32, pipe64, out32
+
+    # Kernels A and A' on Mandelbaum's node set: two breakpoints and two
+    # switch masses make 5 panels of 64 nodes (NG = 320).
+    from chomp_tpu_torch.grids import Statics
+
+    spec_m = ref["families"]["mandelbaum"]
+
+    def mand_nodes(dtype, idx=None):
+        st = Statics(DEFAULT_GRID, device=dev, dtype=dtype)
+        batch_, hp_, _, _ = setup(dtype, idx)
+        z = torch.ones(1, device=dev, dtype=dtype)
+        model = halo.build_halo_model(batch_, hp_,
+                                      hod_of(spec_m, device=dev,
+                                             dtype=dtype), z, st)
+        return halo.contraction_nodes(batch_, hp_, model)
+
+    mat_m32, gal_m32 = mand_nodes(f32)
+    mat_m64, gal_m64 = mand_nodes(f64, check)
+    ng_m = gal_m32.shape[1]
+    if ng_m != 320:
+        fail(f"Mandelbaum galaxy pack has {ng_m} nodes; want 320")
+    a_m = check_a(k32, mat_m32, gal_m32, k64, mat_m64, gal_m64,
+                    cheb32, cheb64)
+    ms_am, plain_ms_am = in_turns_ms(
+        lambda: hc.halo_contract(k32, mat_m32, gal_m32, cheb32),
+        lambda: hc.halo_contract_ref(k32, mat_m32, gal_m32),
+        other_reps=1)
+    bound_am = bound_a_of(k32, mat_m32, gal_m32)
+    # A' on 64 rows for the float32 gate (the plain backward in float64
+    # over all 512 would take tens of seconds); its time covers 512.
+    bwd_m = check_a_bwd(k32, mat_m32[:64].contiguous(),
+                          gal_m32[:64].contiguous(), k64, mat_m64,
+                          gal_m64, 40)
+    g_m = seeded((N_COSMO, hc.N_OUT, k32.numel()), 41, f32)
+    ms_abm, plain_ms_abm = in_turns_ms(
+        lambda: hc.halo_contract_bwd(k32, mat_m32, gal_m32, cheb32, g_m),
+        lambda: hc.halo_contract_bwd_ref(k32, mat_m32, gal_m32, cheb32,
+                                         g_m), other_reps=1)
+    bound_abm = bound_abwd_of(k32, mat_m32, gal_m32, g_m)
+    profiled["halo_contract NG=320"] = (lambda: hc.halo_contract(
+        k32, mat_m32, gal_m32, cheb32), None, 5)
+    profiled["halo_contract_bwd NG=320"] = (lambda: hc.halo_contract_bwd(
+        k32, mat_m32, gal_m32, cheb32, g_m), None, 5)
+    print(f"[families A] Mandelbaum nodes B={N_COSMO} NK={k32.numel()} "
+          f"NM={mat_m32.shape[1]} NG={ng_m} | f64 rel_to_peak="
+          f"{a_m['f64']:.3e} (gate 1e-12) | f32 vs plain in f64 "
+          f"{a_m['f32']:.3e} (gate 2e-6, <= 1.5x the plain f32's "
+          f"{a_m['plain32']:.3e}) | deterministic={a_m['same']} | kernel "
+          f"{ms_am:.3f} ms, plain {plain_ms_am:.3f} ms (CUDA events, in "
+          f"turns) | bound {bound_am[0]:.4f} ms by {bound_am[1]}",
+          flush=True)
+    print(f"[families A'] the same nodes | f64 field_peak_rel="
+          f"{bwd_m['f64']:.3e} (gate 1e-12) | f32 (64 rows) vs plain "
+          f"backward in f64 {bwd_m['f32']:.3e} (gate 2e-5, <= 1.5x the "
+          f"plain f32's {bwd_m['plain32']:.3e}) | deterministic="
+          f"{bwd_m['same']} | kernel {ms_abm:.3f} ms, plain "
+          f"{plain_ms_abm:.3f} ms | bound {bound_abm[0]:.4f} ms by "
+          f"{bound_abm[1]}", flush=True)
+    if not (a_m["f64"] <= 1e-12 and a_m["f32"] <= 2e-6
+            and a_m["f32"] <= 1.5 * a_m["plain32"] and a_m["same"]):
+        fail(f"halo_contract on the Mandelbaum nodes: {a_m}")
+    if not (bwd_m["f64"] <= 1e-12 and bwd_m["f32"] <= 2e-5
+            and bwd_m["f32"] <= 1.5 * bwd_m["plain32"] and bwd_m["same"]):
+        fail(f"halo_contract_bwd on the Mandelbaum nodes: {bwd_m}")
+    kern["ng320"] = {"rows": N_COSMO, "ng": ng_m, "ms": ms_am,
+                     "plain_ms": plain_ms_am, "bound_ms": bound_am[0],
+                     "bound_by": bound_am[1], "max_abs_err": a_m["abs"],
+                     "bwd_ms": ms_abm, "bwd_plain_ms": plain_ms_abm,
+                     "bwd_bound_ms": bound_abm[0],
+                     "bwd_bound_by": bound_abm[1],
+                     "bwd_max_abs_err": bwd_m["abs"]}
+
+    # The DES Y3-like tomographic cell with mixed per-bin families.
+    rt = ref["chip_tomo"]
+    ref_tm = json.loads((REPO / "tests" / "data"
+                         / "torch_tomo_reference.json").read_text())
+    idx_t = np.asarray(rt["indices"])
+    if (not np.allclose(rt["omega_m0"], oms[idx_t])
+            or rt["nuisance_seed"] != ref_tm["seed"]):
+        fail("mixed tomographic reference does not match this run")
+    keys_tm = ("w_theta", "gamma_t", "xi_plus", "xi_minus")
+
+    def mixed_of(dtype):
+        kw = dict(device=dev, dtype=dtype)
+        return tomo_cell(ref_tm, hods=[hod_of(s, **kw) for s in rt["hods"]],
+                         **kw)
+
+    def tomo_err(got, ref_):
+        """The worst bin of the rows that keep one sign over theta (xi_-
+        and rows that change sign: relative to the row's peak)."""
+        e = []
+        for k in keys_tm:
+            g, r = np.asarray(got[k]), np.asarray(ref_[k])
+            peak = np.abs(g - r).max(-1) / np.abs(r).max(-1)
+            bins = np.abs(g / r - 1.0).max(-1)
+            one = ((r > 0).all(-1) | (r < 0).all(-1)) & (k != "xi_minus")
+            e.append(float(np.where(one, bins, peak).max()))
+        return max(e)
+
+    pipe_x, nu_x = mixed_of(f32)
+    launch_rows = pipe_x.contraction_rows(batch32)
+    ngs = sorted(int(g.shape[1]) for _, g in launch_rows)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out_x, launches_x = counted(lambda: pipe_x(batch32, nu_x))
+    peak_x = torch.cuda.max_memory_allocated() / 1e9
+    got_x = {k: out_x[k].double().cpu().numpy() for k in keys_tm}
+    finite_x = all(bool(np.all(np.isfinite(v))) for v in got_x.values())
+    del out_x
+    pipe_x64, nu_x64 = mixed_of(f64)
+    with torch.no_grad():
+        with plain_path():
+            plain_x = pipe_x64(batch64, nu_x64)
+            plain_x = {k: plain_x[k].cpu().numpy() for k in keys_tm}
+        kern_x = pipe_x64(batch64, nu_x64)
+        kern_x = {k: kern_x[k].cpu().numpy() for k in keys_tm}
+        wall_x = median_wall(lambda: pipe_x(batch32, nu_x), reps=3)
+    jref_x = {k: np.asarray(rt["outputs"][k]) for k in keys_tm}
+    err_x = {"vs_plain": tomo_err({k: v[check] for k, v in got_x.items()},
+                                  {k: v[pos_chk] for k, v in
+                                   plain_x.items()}),
+             "vs_jax": tomo_err({k: v[idx_t] for k, v in got_x.items()},
+                                jref_x),
+             "k64": tomo_err(kern_x, plain_x),
+             "plain_vs_jax": tomo_err({k: v[pos_ref] for k, v in
+                                       plain_x.items()}, jref_x)}
+    w_x = seeded((N_COSMO, 45 * DEFAULT_GRID.n_theta), 42, f32)
+
+    def grad_run_x():
+        om = torch.tensor(oms, dtype=f32, device=dev, requires_grad=True)
+        s8 = torch.tensor(s8s, dtype=f32, device=dev, requires_grad=True)
+        out = pipe_x(broadcast_cosmo(default_cosmo(device=dev, dtype=f32),
+                                     omega_m0=om, omega_l0=1.0 - om,
+                                     sigma_8=s8), nu_x)
+        return torch.autograd.grad((out["vector"] * w_x).sum(), (om, s8))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g_x, fb_x = counted_fb(grad_run_x)
+    peak_x_fb = torch.cuda.max_memory_allocated() / 1e9
+    finite_gx = all(bool(torch.isfinite(g).all()) for g in g_x)
+    del g_x
+    wall_x_fb = median_wall(grad_run_x, reps=3)
+    paths["tomographic_mixed"] = launches_x
+    busy.append(("tomographic mixed forward",
+                 no_grad(lambda: pipe_x(batch32, nu_x)), wall_x * 1e3,
+                 N_COSMO))
+    bwd_paths["tomographic_mixed"] = {f"{n}_bwd": c
+                                      for n, c in fb_x[1].items()}
+    want_x = {"halo_contract": len(set(ngs)), "df_contract": 3,
+              "hankel_matmul": 0}
+    print(f"[families tomo] DES Y3-like cell with per-bin HODs "
+          f"{[s[0] for s in rt['hods']]}, B={N_COSMO}, float32 | kernel A "
+          f"launches by galaxy node count {ngs} | forward launches "
+          f"{launches_x} | forward+backward {fb_x} | finite="
+          f"{finite_x and finite_gx} | vs card f64 plain path "
+          f"{err_x['vs_plain']:.3e} (8 cosmologies, gate 1e-4) | vs JAX f64 "
+          f"{err_x['vs_jax']:.3e} (3, gate 1e-4) | f64 kernels vs plain "
+          f"{err_x['k64']:.3e} (gate 1e-12) | f64 plain vs JAX "
+          f"{err_x['plain_vs_jax']:.3e} (gate 1e-10) | forward wall "
+          f"{wall_x * 1e3:.1f} ms, peak {peak_x:.2f} GB | forward+backward "
+          f"wall {wall_x_fb * 1e3:.1f} ms, peak {peak_x_fb:.2f} GB (medians "
+          f"of 3)", flush=True)
+    if launches_x != want_x or len(set(ngs)) != 2:
+        fail(f"mixed tomographic launches {launches_x} (node counts {ngs}); "
+             f"want {want_x}, two node counts")
+    if fb_x[1]["halo_contract"] != len(set(ngs)):
+        fail(f"mixed tomographic backward launches {fb_x[1]}")
+    if not (finite_x and finite_gx):
+        fail("mixed tomographic outputs or gradients not finite")
+    for name, gate in (("vs_plain", 1e-4), ("vs_jax", 1e-4), ("k64", 1e-12),
+                       ("plain_vs_jax", 1e-10)):
+        if not err_x[name] <= gate:
+            fail(f"mixed tomographic {name}: {err_x[name]} (gate {gate})")
+    # A and A' on each fold of the cell (the launches of its forward),
+    # held on 8 rows at phase 2's and 8's gates, timed over all rows.
+    launch_64 = pipe_x64.contraction_rows(batch64)
+    kern["mixed_fold"] = []
+    for (mat32, gal32), (mat64, gal64) in zip(launch_rows, launch_64):
+        mat32, gal32 = mat32.contiguous(), gal32.contiguous()
+        sel = torch.arange(8, device=dev) * (mat64.shape[0] // 8)
+        m64, g64_ = mat64[sel].contiguous(), gal64[sel].contiguous()
+        sel32 = torch.arange(8, device=dev) * (mat32.shape[0] // 8)
+        a_f = check_a(k32, mat32[sel32].contiguous(),
+                        gal32[sel32].contiguous(), k64, m64, g64_,
+                        cheb32, cheb64)
+        b_f = check_a_bwd(k32, mat32[sel32].contiguous(),
+                            gal32[sel32].contiguous(), k64, m64, g64_, 43)
+        g_f = seeded((mat32.shape[0], hc.N_OUT, k32.numel()), 44, f32)
+        ms_f = events_ms(lambda: hc.halo_contract(k32, mat32, gal32,
+                                                  cheb32), reps=20)
+        ms_fb = events_ms(lambda: hc.halo_contract_bwd(
+            k32, mat32, gal32, cheb32, g_f), reps=20)
+        b_a, b_ab = (bound_a_of(k32, mat32, gal32),
+                     bound_abwd_of(k32, mat32, gal32, g_f))
+        ng = int(gal32.shape[1])
+        profiled[f"halo_contract mixed NG={ng}"] = (
+            lambda m=mat32, g=gal32: hc.halo_contract(k32, m, g, cheb32),
+            None, 5)
+        profiled[f"halo_contract_bwd mixed NG={ng}"] = (
+            lambda m=mat32, g=gal32, c=g_f: hc.halo_contract_bwd(
+                k32, m, g, cheb32, c), None, 5)
+        print(f"[families tomo A/A'] fold NG={ng}: {mat32.shape[0]} rows | "
+              f"A f64 {a_f['f64']:.3e} f32 {a_f['f32']:.3e} (plain f32 "
+              f"{a_f['plain32']:.3e}) same={a_f['same']} | A' f64 "
+              f"{b_f['f64']:.3e} f32 {b_f['f32']:.3e} (plain f32 "
+              f"{b_f['plain32']:.3e}) same={b_f['same']} (8 rows) | A "
+              f"{ms_f:.3f} ms (bound {b_a[0]:.4f} by {b_a[1]}), A' "
+              f"{ms_fb:.3f} ms (bound {b_ab[0]:.4f} by {b_ab[1]}) (CUDA "
+              f"events, 20 calls)", flush=True)
+        if not (a_f["f64"] <= 1e-12 and a_f["f32"] <= 2e-6
+                and a_f["f32"] <= 1.5 * a_f["plain32"] and a_f["same"]):
+            fail(f"halo_contract on the mixed fold NG={ng}: {a_f}")
+        if not (b_f["f64"] <= 1e-12 and b_f["f32"] <= 2e-5
+                and b_f["f32"] <= 1.5 * b_f["plain32"] and b_f["same"]):
+            fail(f"halo_contract_bwd on the mixed fold NG={ng}: {b_f}")
+        kern["mixed_fold"].append(
+            {"rows": int(mat32.shape[0]), "ng": ng, "ms": ms_f,
+             "bound_ms": b_a[0], "bound_by": b_a[1],
+             "max_abs_err": a_f["abs"], "bwd_ms": ms_fb,
+             "bwd_bound_ms": b_ab[0], "bwd_bound_by": b_ab[1],
+             "bwd_max_abs_err": b_f["abs"]})
+    del pipe_x64, launch_64
+    lap("23")
+
+    # -- 24. the float32 gate at the prior corners --------------------------
+    rc = ref["chip_corners"]
+    names = list(corners.PRIOR_CORNERS) + ["near_fiducial_0.25",
+                                           "near_fiducial_0.31"]
+    corner = {}
+
+    def corner_pipe(grid, geometry, method, dtype):
+        kw = dict(device=dev, dtype=dtype)
+        dist = DNdzGaussian(*(torch.tensor(v, **kw)
+                              for v in (0.0, 2.0, 1.0, 0.2)))
+        return make_pipeline(default_halo(**kw), default_hod(**kw), dist,
+                             grid=grid, geometry=geometry, method=method,
+                             **kw)
+
+    def rel_bins(a, b):
+        return np.abs(np.asarray(a) / np.asarray(b) - 1.0)
+
+    grid_c = DEFAULT_GRID.replace(n_theta=8, theta_min_deg=0.2,
+                                  theta_max_deg=5.0)
+    for label, grid, geometry, method in (
+            ("flat", DEFAULT_GRID, "flat", "fft"),
+            ("curved", grid_c, "curved", "fft"),
+            ("table", DEFAULT_GRID, "flat", "table")):
+        if dataclasses.asdict(grid) != rc[label if label != "table"
+                                          else "flat"]["grid"]:
+            fail(f"corner reference grid of {label} differs")
+        b32 = corners.corner_batch(default_cosmo(device=dev, dtype=f32))
+        b64 = corners.corner_batch(default_cosmo(device=dev, dtype=f64))
+        p32 = corner_pipe(grid, geometry, method, f32)
+        p64 = corner_pipe(grid, geometry, method, f64)
+        with torch.no_grad():
+            o32, launches = counted(lambda: p32(b32))
+            o32 = host(o32)
+            with plain_path():
+                plain = host(p64(b64))
+            kern64 = host(p64(b64))
+        jref = {k: np.asarray(rc["flat" if label == "table" else label][k])
+                for k in ("w_theta", "gamma_t")}
+        rw = rel_bins(o32["w_theta"], plain["w_theta"])
+        rg = rel_bins(o32["gamma_t"], plain["gamma_t"])
+        rwj = rel_bins(o32["w_theta"], jref["w_theta"])
+        rgj = rel_bins(o32["gamma_t"], jref["gamma_t"])
+        q = {"w_worst": float(rw.max()), "w_median": float(np.median(rw)),
+             "gt_worst": float(rg.max()), "gt_median": float(np.median(rg)),
+             "w_worst_jax": float(rwj.max()),
+             "w_median_jax": float(np.median(rwj)),
+             "gt_worst_jax": float(rgj.max()),
+             "k64": errs(kern64, plain), "plain_vs_jax": errs(plain, jref),
+             "per_corner_w": rw.max(-1).tolist(),
+             "per_corner_gt": rg.max(-1).tolist(), "launches": launches,
+             "finite": all(bool(np.all(np.isfinite(v)))
+                           for v in o32.values())}
+        corner[label] = q
+        if label == "flat":
+            with torch.no_grad():
+                wall_c = median_wall(lambda: p32(b32), reps=3)
+            busy.append(("corners flat forward",
+                         no_grad(lambda p=p32, b=b32: p(b)), wall_c * 1e3,
+                         len(names)))
+            q["wall"] = wall_c
+        paths[f"corners_{label}"] = launches
+        print(f"[corners] {label} ({geometry}, method={method}, theta "
+              f"{grid.theta_min_deg}-{grid.theta_max_deg} deg x "
+              f"{grid.n_theta}), 5 prior corners + 2 near-fiducial, float32 "
+              f"vs the card's f64 plain path: w worst |w32/w64-1| "
+              f"{q['w_worst']:.3e} median {q['w_median']:.3e}, gamma_t worst "
+              f"{q['gt_worst']:.3e} median {q['gt_median']:.3e} | vs JAX "
+              f"f64: w worst {q['w_worst_jax']:.3e} median "
+              f"{q['w_median_jax']:.3e}, gamma_t worst {q['gt_worst_jax']:.3e}"
+              f" | f64 kernels vs plain {q['k64']:.3e} (gate 1e-12) | f64 "
+              f"plain vs JAX {q['plain_vs_jax']:.3e} (gate 1e-10; the table "
+              f"route's against JAX's lattice route is reported) | launches "
+              f"{launches} | "
+              f"worst w bin by corner: " + ", ".join(
+                  f"{n} {v:.2e}" for n, v in zip(names, q["per_corner_w"]))
+              + " | gamma_t: " + ", ".join(
+                  f"{v:.2e}" for v in q["per_corner_gt"]), flush=True)
+        if not q["finite"]:
+            fail(f"corners {label}: outputs not finite")
+        if not q["k64"] <= 1e-12:
+            fail(f"corners {label}: f64 kernels vs plain {q['k64']}")
+        if label != "table" and not q["plain_vs_jax"] <= 1e-10:
+            fail(f"corners {label}: f64 plain vs JAX {q['plain_vs_jax']}")
+        del p32, p64
+    cf, cc = corner["flat"], corner["curved"]
+    print(f"[corners] gates: flat w worst {cf['w_worst']:.3e} (< 1e-5) and "
+          f"median {cf['w_median']:.3e} (< 2e-6) against the card's f64 "
+          f"and against JAX ({cf['w_worst_jax']:.3e}, "
+          f"{cf['w_median_jax']:.3e}); curved w {cc['w_worst']:.3e} and "
+          f"gamma_t {cc['gt_worst']:.3e} (< 1e-4); the table route's "
+          f"figures are reported", flush=True)
+    for name, val, gate in (
+            ("flat w worst bin", cf["w_worst"], 1e-5),
+            ("flat w median", cf["w_median"], 2e-6),
+            ("flat w worst bin vs JAX", cf["w_worst_jax"], 1e-5),
+            ("flat w median vs JAX", cf["w_median_jax"], 2e-6),
+            ("curved w worst bin", cc["w_worst"], 1e-4),
+            ("curved gamma_t worst bin", cc["gt_worst"], 1e-4),
+            ("curved w worst bin vs JAX", cc["w_worst_jax"], 1e-4),
+            ("curved gamma_t worst bin vs JAX", cc["gt_worst_jax"], 1e-4)):
+        if not val < gate:
+            fail(f"corners: {name} {val} (gate {gate})")
+    lap("24")
+
+    # -- 25. the rest of inference on the lattice route ---------------------
+    # Phase 10's likelihood: float64 data at the fiducial, a diagonal
+    # covariance, the float32 theory.
+    fid = torch.tensor([0.278, 0.811], dtype=f64, device=dev)
+    th64, _ = inference.make_theory_fn(pipe_a64, default_cosmo(
+        device=dev, dtype=f64))
+    th32, _ = inference.make_theory_fn(pipe_a32, default_cosmo(
+        device=dev, dtype=f32))
+    with torch.no_grad():
+        data = th64(fid)[0]
+    sig = 0.05 * data.abs() + 1e-3 * data.abs().max()
+    cov = torch.diag(sig * sig)
+    fisher64 = inference.fisher_matrix(th64, cov, fid)
+    like = inference.GaussianLikelihood(th32, data, cov)
+    # adaptive_hmc in Fisher-whitened coordinates (p = fid + u L^-1, F =
+    # L L^T), so that its unit-scale defaults fit the posterior.
+    chol_f = torch.linalg.cholesky(fisher64)
+    a_w = torch.linalg.inv(chol_f).T.contiguous()
+
+    def nlp_w(u):
+        return like.neg_log_post(fid + u @ a_w.T)
+
+    n_chains, n_warm, n_samp, n_leap = 64, 16, 8, 3
+    gen = torch.Generator(device=dev).manual_seed(25)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ah, fb_ah = counted_fb(lambda: inference.adaptive_hmc(
+        nlp_w, torch.zeros(2, dtype=f64, device=dev), gen,
+        n_warmup=n_warm, n_samples=n_samp, n_chains=n_chains, n_leap=n_leap,
+        init_jitter=0.5, init_step=0.3))
+    wall_ah = time.perf_counter() - t0
+    n_sweeps = n_warm + n_samp
+    per_leap = wall_ah / (n_sweeps * n_leap + 2)
+    samples_p = fid + ah["samples"] @ a_w.T
+    acc_ah = float(ah["accept"].mean())
+    finite_ah = bool(torch.isfinite(samples_p).all())
+    paths["adaptive_hmc"] = fb_ah[0]
+    bwd_paths["adaptive_hmc"] = {f"{n}_bwd": c for n, c in fb_ah[1].items()}
+    print(f"[inference+] adaptive_hmc on phase 10's lattice likelihood "
+          f"(float32 pipeline, Fisher-whitened), {n_chains} chains, "
+          f"{n_warm} warmup sweeps (two windows), {n_samp} samples, "
+          f"{n_leap} leapfrogs, diagonal mass | finite={finite_ah} | step "
+          f"size {ah['step_size']:.4f} (gate (0.05, 5)) | mean acceptance "
+          f"{acc_ah:.4f} (gate (0.6, 0.99)) | mass_diag {ah['mass_diag']} | "
+          f"sample mean {samples_p.reshape(-1, 2).mean(0).tolist()} | "
+          f"launches forward/backward {fb_ah} | wall {wall_ah:.2f} s = "
+          f"{per_leap * 1e3:.1f} ms per leapfrog (one gradient of {n_chains} "
+          f"chains), {per_leap * n_leap * n_warm / 2:.2f} s per warmup "
+          f"window, {per_leap * n_leap * 1e3:.1f} ms per sweep", flush=True)
+    u_chains = torch.full((n_chains, 2), 0.3, dtype=f64, device=dev,
+                          requires_grad=True)
+    busy.append(("adaptive_hmc leapfrog gradient",
+                 lambda: torch.autograd.grad(nlp_w(u_chains).sum(), u_chains),
+                 per_leap * 1e3, n_chains))
+    if not finite_ah:
+        fail("adaptive_hmc samples not finite")
+    if not 0.05 < ah["step_size"] < 5.0:
+        fail(f"adaptive_hmc step size {ah['step_size']}")
+    if not 0.6 < acc_ah < 0.99:
+        fail(f"adaptive_hmc mean acceptance {acc_ah}")
+
+    # MOPED on the float64 theory: the compressed Fisher is the full one.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (b_mat, compress), fb_mo = counted_fb(
+        lambda: inference.moped_compression(th64, cov, fid))
+    f_comp = inference.fisher_matrix(lambda p: compress(th64(p)),
+                                     torch.eye(2, dtype=f64, device=dev),
+                                     fid)
+    wall_mo = time.perf_counter() - t0
+    mo_err = float((f_comp - fisher64).abs().max()
+                   / fisher64.abs().max())
+    cov_y = b_mat @ cov.to(f64) @ b_mat.T
+    unit_err = float((cov_y - torch.eye(2, dtype=f64, device=dev)).abs()
+                     .max())
+    paths["moped"] = fb_mo[0]
+    bwd_paths["moped"] = {f"{n}_bwd": c for n, c in fb_mo[1].items()}
+    print(f"[inference+] MOPED (float64 pipeline): compressed vs full Fisher "
+          f"{mo_err:.3e} of its largest entry (gate 1e-8) | Cov(y) - I "
+          f"{unit_err:.3e} | launches {fb_mo} | wall {wall_mo:.2f} s (two "
+          f"Jacobians of {2 * DEFAULT_GRID.n_theta} replica rows)",
+          flush=True)
+    if not mo_err <= 1e-8:
+        fail(f"MOPED compressed Fisher vs full: {mo_err}")
+
+    # external_loglike over 64 walkers in one call, then a short ensemble.
+    lp_vec = inference.external_loglike(like, vectorized=True, device=dev)
+    z = torch.randn((64, 2), generator=gen, device=dev, dtype=f64)
+    walkers = (fid + z @ a_w.T).cpu().numpy()
+    (lp_w, launches_ext) = counted(lambda: lp_vec(walkers))
+    with torch.no_grad():
+        lp_ref = -like.neg_log_post(torch.as_tensor(
+            walkers, device=dev)).cpu().numpy()
+    ext_err = float(np.abs(lp_w - lp_ref).max() / np.abs(lp_ref).max())
+    n_ens = 10
+    t0 = time.perf_counter()
+    (chain, acc_e), launches_ens = counted(lambda: inference.ensemble_sample(
+        lp_vec, walkers, n_ens, seed=25, vectorized=True))
+    wall_e = time.perf_counter() - t0
+    paths["external_loglike"] = launches_ext
+    paths["ensemble_sample"] = launches_ens
+    print(f"[inference+] external_loglike(vectorized=True): 64 walkers, "
+          f"shape {lp_w.shape}, launches {launches_ext} (one pipeline call), "
+          f"finite={bool(np.all(np.isfinite(lp_w)))}, vs -neg_log_post "
+          f"{ext_err:.3e} of its largest (gate 1e-12) | ensemble_sample "
+          f"{n_ens} steps x 64 walkers "
+          f"(vectorized: one call of 32 walkers per half-step): acceptance "
+          f"{acc_e:.3f}, launches {launches_ens}, wall {wall_e:.2f} s = "
+          f"{wall_e / n_ens * 1e3:.1f} ms per ensemble step", flush=True)
+    if not (lp_w.shape == (64,) and np.all(np.isfinite(lp_w))
+            and ext_err <= 1e-12):
+        fail(f"external_loglike: shape {lp_w.shape}, error {ext_err}")
+    if launches_ext["halo_contract"] != 1:
+        fail(f"external_loglike launches {launches_ext}; want one forward")
+    if not (np.all(np.isfinite(chain)) and 0.0 < acc_e < 1.0):
+        fail(f"ensemble_sample: acceptance {acc_e}")
+    lap("25")
+
+    # -- 26. the emulator on the pipeline -----------------------------------
+    bounds = np.array([[0.26, 0.30], [0.78, 0.84]])
+    egen = torch.Generator().manual_seed(26)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_all = emulator.latin_hypercube(egen, 320, bounds)
+    with torch.no_grad():
+        y_all, launches_sw = counted(lambda: th32(torch.as_tensor(
+            x_all, device=dev)))
+    y_all = y_all.double().cpu().numpy()
+    wall_sw = time.perf_counter() - t0
+    paths["emulator_sweep"] = launches_sw
+    busy.append(("emulator design sweep forward", no_grad(
+        lambda: th32(torch.as_tensor(x_all, device=dev))), wall_sw * 1e3,
+        len(x_all)))
+    t0 = time.perf_counter()
+    n_ep_v = 1500
+    emu_v, rep_v = emulator.train_emulator(
+        None, bounds, egen, x_train=x_all[:256], y_train=y_all[:256],
+        x_val=x_all[256:], y_val=y_all[256:], n_pca=None, hidden=(64, 64),
+        n_epochs=n_ep_v, batch_size=128, learning_rate=5e-3, device=dev)
+    torch.cuda.synchronize()
+    wall_tv = time.perf_counter() - t0
+    # Sobolev on a smaller design (box vertices and faces included), with
+    # float64 values and Jacobians.
+    n_s, n_sv = 128, 32
+    t0 = time.perf_counter()
+    x_s = emulator.design_nodes(egen, bounds, n_s, n_sv, sobolev=True)
+    with torch.no_grad():
+        y_s = th64(torch.as_tensor(x_s, device=dev)).cpu().numpy()
+    j_s, fb_js = counted_fb(lambda: inference.jacobian(
+        th64, torch.as_tensor(x_s, device=dev), chunk=1024))
+    j_s = j_s.cpu().numpy()
+    torch.cuda.synchronize()
+    wall_js = time.perf_counter() - t0
+    paths["emulator_jacobians"] = fb_js[0]
+    bwd_paths["emulator_jacobians"] = {f"{n}_bwd": c
+                                       for n, c in fb_js[1].items()}
+    t0 = time.perf_counter()
+    n_ep_s = 16000
+    emu_s, rep_s = emulator.train_emulator(
+        None, bounds, egen, x_train=x_s[:n_s], y_train=y_s[:n_s],
+        x_val=x_s[n_s:], y_val=y_s[n_s:], j_train=j_s[:n_s],
+        j_val=j_s[n_s:], jac_weight=10.0, n_pca=None, hidden=(32, 32),
+        n_epochs=n_ep_s, batch_size=n_s, learning_rate=3e-2, device=dev)
+    torch.cuda.synchronize()
+    wall_ts = time.perf_counter() - t0
+    steps_v = n_ep_v * 2
+    print(f"[emulator] configuration A's lattice w + gamma_t (float32 "
+          f"pipeline) over omega_m0 {bounds[0].tolist()} x sigma_8 "
+          f"{bounds[1].tolist()} | design sweep of 256 + 64 nodes in one "
+          f"batched call: {wall_sw:.2f} s, launches {launches_sw} | value "
+          f"training (PCA full rank {rep_v.n_pca}, (64, 64), {n_ep_v} epochs "
+          f"of 2 minibatches of 128, float64 on the card): holdout max_rel "
+          f"{rep_v.max_rel_err:.3e} (gate 4e-2), rms {rep_v.rms_err:.3e}, "
+          f"{wall_tv:.1f} s = {steps_v / wall_tv:.0f} steps/s | Sobolev: "
+          f"{n_s} + {n_sv} nodes, float64 values and Jacobians "
+          f"({(n_s + n_sv) * 2 * DEFAULT_GRID.n_theta} replica rows in "
+          f"chunks of 1024, launches {fb_js}) {wall_js:.1f} s; training "
+          f"((32, 32), {n_ep_s} full-batch epochs) {wall_ts:.1f} s = "
+          f"{n_ep_s / wall_ts:.0f} steps/s, Jacobian weight 10: holdout "
+          f"max_rel {rep_s.max_rel_err:.3e} (gate 5e-3, the JAX tests'), "
+          f"jac_max_rel {rep_s.jac_max_rel_err:.3e} (gate 2e-2, the JAX "
+          f"tests'; the JAX package's own on its pipeline is 5e-2, "
+          f"examples/emulator_example.py:82)", flush=True)
+    if not rep_v.max_rel_err < 4e-2:
+        fail(f"emulator value training: max_rel {rep_v.max_rel_err}")
+    if not (rep_s.max_rel_err < 5e-3 and rep_s.jac_max_rel_err < 2e-2):
+        fail(f"emulator Sobolev training: max_rel {rep_s.max_rel_err}, "
+             f"jac {rep_s.jac_max_rel_err}")
+    lap("26")
+    return {"paths": paths, "bwd_paths": bwd_paths, "kernels": kern,
+            "corners": corner, "families": fam_rows, "busy": busy}
 
 
 def once_ms(fn):
@@ -712,24 +1588,6 @@ def main():
     check = np.unique(np.linspace(0, N_COSMO - 1, N_CHECK).round()
                       ).astype(int)
 
-    def setup(dtype, idx=None, feedback=False, n=N_COSMO):
-        """(batch, halo, hod, dist) at ``idx`` of bench.py's n-point
-        linspaces (all n by default)."""
-        o_all = np.linspace(0.24, 0.32, n)
-        s_all = np.linspace(0.75, 0.88, n)
-        o = o_all if idx is None else o_all[idx]
-        s = s_all if idx is None else s_all[idx]
-        kw = dict(device=dev, dtype=dtype)
-        # The feedback hooks (c x 1.2, k x nu^0.05) make every galaxy
-        # node's matter profile differ from its galaxy profile.
-        hooks = (dict(bary_c=np.full(len(o), 1.2),
-                      bary_eta=np.full(len(o), 0.1)) if feedback else {})
-        batch = broadcast_cosmo(default_cosmo(**kw), omega_m0=o,
-                                omega_l0=1.0 - o, sigma_8=s, **hooks)
-        dist = DNdzGaussian(*(torch.tensor(v, **kw)
-                              for v in (0.0, 2.0, 1.0, 0.2)))
-        return batch, default_halo(**kw), default_hod(**kw), dist
-
     # -- 2. kernel A ----------------------------------------------------
     def model_for(dtype, idx=None, feedback=False):
         st = Statics(DEFAULT_GRID, device=dev, dtype=dtype)
@@ -742,28 +1600,6 @@ def main():
         st, batch, hp, dist, model = model_for(dtype, idx, feedback)
         mat, gal = halo.contraction_nodes(batch, hp, model)
         return st, mat, gal
-
-    def check_a(k, mat32, gal32, k64, mat64, gal64, cheb32, cheb64):
-        """Kernel A in float64 against its plain version (relative to each
-        output's peak); in float32 against the plain version on the same
-        float32 inputs in float64, beside the plain float32 version's own
-        error against that reference; two launches bit for bit."""
-        got64 = hc.halo_contract(k64, mat64, gal64, cheb64)
-        got32 = hc.halo_contract(k, mat32, gal32, cheb32)
-        exact = hc.halo_contract_ref(k.double(), mat32.double(),
-                                     gal32.double())
-        plain32, plain_ms = once_ms(lambda: hc.halo_contract_ref(k, mat32,
-                                                                 gal32))
-        return {"f64": rel_to_peak(got64, hc.halo_contract_ref(k64, mat64,
-                                                               gal64)),
-                "plain_ms": plain_ms,
-                "f32": rel_to_peak(got32.double(), exact),
-                "abs": float((got32.double() - exact).abs().max()),
-                "plain32": rel_to_peak(plain32.double(), exact),
-                "vs_plain32": rel_to_peak(got32, plain32),
-                "same": (torch.equal(got32, hc.halo_contract(
-                    k, mat32, gal32, cheb32)) and torch.equal(
-                        got64, hc.halo_contract(k64, mat64, gal64, cheb64)))}
 
     st64, mat64, gal64 = nodes(f64, check)
     st32, mat32, gal32 = nodes(f32)
@@ -802,13 +1638,6 @@ def main():
             k32, matf32, galf32, cheb32), None, 5),
         "halo_contract table k": (lambda: hc.halo_contract(
             st32.k_table, mat32, gal32, cheb32), None, 5)}
-
-    def bound_a_of(k, mat, gal):
-        return bound(halo_contract_flops(k, mat, gal, hc._lens(f32),
-                                         hc.n_moments(f32)),
-                     4 * (k.numel() + mat.numel() + gal.numel()
-                          + cheb32.numel() + hc.N_OUT * mat.shape[0]
-                          * k.shape[-1]))
 
     bound_a = bound_a_of(k32, mat32, gal32)
     bound_a_fb = bound_a_of(k32, matf32, galf32)
@@ -1244,53 +2073,6 @@ def main():
     # -- 8. the backward kernels against their plain versions -----------
     from chomp_tpu_torch import inference
 
-    def seeded(shape, seed, dtype=f64):
-        return torch.tensor(np.random.default_rng(seed).normal(size=shape),
-                            dtype=dtype, device=dev)
-
-    def bwd_ref_rows(k, mat, gal, cheb, g, step=512, grad_k=False):
-        """Kernel A's plain backward in blocks of ``step`` rows (each row
-        is its own sum; whole, its float64 products at the tomographic
-        rows would take tens of GB); ``k`` shared or a row per row."""
-        parts = [hc.halo_contract_bwd_ref(
-            k if k.dim() == 1 else k[i:i + step], mat[i:i + step],
-            gal[i:i + step], cheb, g[i:i + step], grad_k=grad_k)
-            for i in range(0, mat.shape[0], step)]
-        return tuple(torch.cat(p) for p in zip(*parts))
-
-    def check_a_bwd(k, mat32, gal32, k64, mat64, gal64, seed,
-                    grad_k=False):
-        """Kernel A's backward under a seeded normal cotangent: float64
-        against the plain backward (relative to each gradient field's
-        peak, grad_k one more field with ``grad_k``: k a row per row);
-        float32 against the plain backward in float64 on the same float32
-        inputs, beside the plain float32 backward's own error (and the
-        host ms of that one call); two launches bit for bit."""
-        kw_ = dict(grad_k=grad_k)
-        g32 = seeded((mat32.shape[0], hc.N_OUT, k.shape[-1]), seed, f32)
-        g64 = g32[:mat64.shape[0]].double()
-        got64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64, **kw_)
-        ref64 = bwd_ref_rows(k64, mat64, gal64, cheb64, g64, **kw_)
-        got32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32, **kw_)
-        exact = bwd_ref_rows(k.double(), mat32.double(), gal32.double(),
-                             cheb64, g32.double(), **kw_)
-        plain32, plain_ms = once_ms(lambda: bwd_ref_rows(
-            k, mat32, gal32, cheb32, g32, **kw_))
-        again32 = hc.halo_contract_bwd(k, mat32, gal32, cheb32, g32, **kw_)
-        again64 = hc.halo_contract_bwd(k64, mat64, gal64, cheb64, g64,
-                                       **kw_)
-        return {"f64": max(field_peak_rel(a, r) for a, r in zip(got64,
-                                                                  ref64)),
-                "f32": max(field_peak_rel(a.double(), r)
-                           for a, r in zip(got32, exact)),
-                "abs": max(float((a.double() - r).abs().max())
-                           for a, r in zip(got32, exact)),
-                "plain32": max(field_peak_rel(a.double(), r)
-                               for a, r in zip(plain32, exact)),
-                "plain_ms": plain_ms,
-                "same": all(torch.equal(a, b) for a, b in
-                            zip(got32 + got64, again32 + again64))}
-
     bwd_a = {
         "main": check_a_bwd(k32, mat32, gal32, k64, mat64, gal64, 10),
         "feedback": check_a_bwd(k32, matf32, galf32, k64, matf64, galf64,
@@ -1309,14 +2091,6 @@ def main():
         k32, matf32, galf32, cheb32, ga32))
     ms_abwd_tab = events_ms(lambda: hc.halo_contract_bwd(
         st32.k_table, mat32, gal32, cheb32, ga32_tab))
-
-    def bound_abwd_of(k, mat, gal, g, grad_k=False):
-        return bound(
-            halo_contract_bwd_flops(k, mat, gal, hc._lens(f32),
-                                    hc.n_moments(f32), grad_k),
-            4 * ((2 if grad_k else 1) * k.numel()
-                 + 2 * (mat.numel() + gal.numel())
-                 + cheb32.numel() + g.numel()))
 
     bound_abwd = bound_abwd_of(k32, mat32, gal32, ga32)
     bound_abwd_fb = bound_abwd_of(k32, matf32, galf32, ga32)
@@ -1505,9 +2279,7 @@ def main():
     lap("8")
 
     # -- 9. gradients of both slices at full width ------------------------
-    counted = {"halo_contract": hc.halo_contract,
-               "df_contract": df32.df_contract,
-               "hankel_matmul": hm.hankel_matmul}
+    counted = counted_kernels()
     fwd_want = {"lattice": {"halo_contract": 1, "df_contract": 2,
                             "hankel_matmul": 0},
                 "table": {"halo_contract": 1, "df_contract": 0,
@@ -1710,15 +2482,6 @@ def main():
                              grid=DEFAULT_GRID, include_lensing=True,
                              exact_z_anchors=j_x, device=dev, dtype=dtype)
 
-    def counts_zero():
-        for fn in counted.values():
-            fn.launches = 0
-            fn.bwd_launches = 0
-
-    def counts():
-        return ({n: fn.launches for n, fn in counted.items()},
-                {n: fn.bwd_launches for n, fn in counted.items()})
-
     batch_x, hp_x, hod_x, dist_x = setup(f32, n=n_x)
     pipe_x = pipe_x_of(f32, hp_x, hod_x, dist_x)
     torch.cuda.synchronize()
@@ -1903,8 +2666,9 @@ def main():
     th64, _ = inference.make_theory_fn(pipe_x64, default_cosmo(**kw64))
     p32_ = torch.tensor(p_ref_x, dtype=f32, device=dev)
     p64_ = torch.tensor(p_ref_x, **kw64)
-    jx32 = inference.jacobian(th32, p32_, chunk=64).cpu().numpy()
-    jx64k = inference.jacobian(th64, p64_, chunk=64).cpu().numpy()
+    # 128 replica rows a pass (~22 GB at float64).
+    jx32 = inference.jacobian(th32, p32_, chunk=128).cpu().numpy()
+    jx64k = inference.jacobian(th64, p64_, chunk=128).cpu().numpy()
     # The plain path's Jacobian at the first reference cosmology only (all
     # 3 until PR 8); the float64 kernels' Jacobian is held to the JAX
     # jacfwd at all 3 (gate 1e-9), the float32 one to it (gate 1e-3).
@@ -1938,7 +2702,8 @@ def main():
           f"{grad_launches_x[1]} | finite={finite_gx} | wall median of 5 = "
           f"{wall_x_fb * 1e3:.1f} ms | peak device memory {peak_x_fb:.2f} GB"
           f" | Jacobian at the 3 reference cosmologies (inference.jacobian, "
-          f"chunks of 64 replicas; the plain path at the first): f32 vs "
+          f"chunks of 128 replicas, the plain path at the first in 64): "
+          f"f32 vs "
           f"card f64 plain path {je_x['f32_vs_plain64']:.3e} (gate 1e-3), "
           f"f64 kernels vs f64 plain {je_x['k64_vs_plain64']:.3e} (gate "
           f"1e-10), f64 plain vs JAX jacfwd {je_x['plain64_vs_jax']:.3e} "
@@ -3594,6 +4359,12 @@ def main():
             fail(f"GL exact-z {name}: {val} (gate {gate})")
     lap("22")
 
+    # -- 23-26. HOD families, the prior corners, inference, the emulator --
+    late = phases_23_26(
+        oms=oms, s8s=s8s, check=check, k32=k32, k64=k64, cheb32=cheb32,
+        cheb64=cheb64, pipe_a32=pipe, pipe_a64=pipe64, profiled=profiled,
+        lap=lap)
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -3640,6 +4411,8 @@ def main():
          (fwd_nograd(pipe_xc, batch_xt), wall_xc * 1e3, n_x)),
         ("GL exact-z forward", (fwd_nograd(gl_cl, gl32), wall_gl * 1e3,
                                 n_x))]
+    runs_op += [(label, (fn, wall_b, n_b))
+                for label, fn, wall_b, n_b in late["busy"]]
     for route, (run, wall_fb, *n_r) in [*runs.items(),
                                         ("tomographic forward",
                                          (fwd_tm, wall_tm * 1e3)),
@@ -3674,6 +4447,8 @@ def main():
                      if "grad_launches" in q})
     bwd_paths = {route: {f"{n}_bwd": c for n, c in bw.items()}
                  for route, (_fw, bw) in bwd_of.items()}
+    paths.update(late["paths"])
+    bwd_paths.update(late["bwd_paths"])
 
     def c_key(label, c):
         return f"df_contract {label} {c['spec'][0]:g} {c['spec'][1]}"
@@ -3725,7 +4500,16 @@ def main():
                "plain_ms": plain_ms_a_gl,
                "device_ms": dtimes["halo_contract per-row k"][0],
                "bound_ms": bound_a_gl[0], "bound_by": bound_a_gl[1],
-               "max_abs_err": a_gl["abs"]}},
+               "max_abs_err": a_gl["abs"]},
+           "ng320": {
+               k: v for k, v in late["kernels"]["ng320"].items()
+               if not k.startswith("bwd_")}
+           | {"device_ms": dtimes["halo_contract NG=320"][0]},
+           "mixed_fold": [
+               {k: v for k, v in q.items() if not k.startswith("bwd_")}
+               | {"device_ms": dtimes[
+                   f"halo_contract mixed NG={q['ng']}"][0]}
+               for q in late["kernels"]["mixed_fold"]]},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
                bound_c, lib_ms_c, *dtimes["df_contract"])
@@ -3808,7 +4592,18 @@ def main():
                "plain_ms": plain_ms_abwd_gl,
                "device_ms": dtimes["halo_contract_bwd per-row k grad_k"][0],
                "bound_ms": bound_abwd_gl[0], "bound_by": bound_abwd_gl[1],
-               "max_abs_err": bwd_gl["abs"], "geometry": geo_gl}},
+               "max_abs_err": bwd_gl["abs"], "geometry": geo_gl},
+           "ng320": {
+               k.removeprefix("bwd_"): v
+               for k, v in late["kernels"]["ng320"].items()
+               if k.startswith("bwd_") or k in ("rows", "ng")}
+           | {"device_ms": dtimes["halo_contract_bwd NG=320"][0]},
+           "mixed_fold": [
+               {k.removeprefix("bwd_"): v for k, v in q.items()
+                if k.startswith("bwd_") or k in ("rows", "ng")}
+               | {"device_ms": dtimes[
+                   f"halo_contract_bwd mixed NG={q['ng']}"][0]}
+               for q in late["kernels"]["mixed_fold"]]},
         record("df_contract_bwd", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94 (the forward's site); autodiff; "
                "no backward kernel in the JAX package",

@@ -10,17 +10,22 @@ Their options are ported: the EH98 BAO transfer (``linear``), the
 Tinker mass function (``mass``), halofit and linear mm legs
 (``nlpower``), the CMB-lensing window (``cmblens``), the curved-sky
 operators (``curved``) and the non-Limber repair with its RSD term
-(``nonlimber``).  Three
+(``nonlimber``); every HOD family of the JAX package (``hod``) rides
+every route.  Three
 hand-written CUDA kernels carry them: the halo-model mass contraction
 (``ops.halo_contract``), the compensated operator contraction
 (``ops.df32``) and the Hankel-operator product (``ops.hankel_matmul``),
 each with a backward kernel, so both routes differentiate on the card;
-``inference`` holds the gradient core (theory map, Jacobian, Gaussian
-likelihood, Fisher, MAP fit, HMC).  The package imports torch, numpy and
+``inference`` holds the JAX package's inference surface (theory map,
+Jacobian, Gaussian / Poisson / composite likelihoods, Fisher, MOPED,
+templates and scale cuts, MAP fit, HMC and adaptive HMC, the
+external-sampler bridge and ensemble sampler) and ``emulator`` its MLP
+emulator.  The package imports torch, numpy and
 scipy only; the JAX package beside it is its reference in the tests.
 """
 
-from chomp_tpu_torch.hod import HODZheng, default_hod
+from chomp_tpu_torch.hod import (HODKravtsov, HODMandelbaum, HODPoisson,
+                                 HODZheng, default_hod)
 from chomp_tpu_torch.params import (DEFAULT_GRID, CosmoParams, GridSpec,
                                     HaloParams, default_cosmo, default_halo)
 from chomp_tpu_torch.parallel.sweep import (Nuisance3x2pt, broadcast_cosmo,
@@ -31,6 +36,7 @@ from chomp_tpu_torch.projection import (DNdzGaussian, DNdzInterpolation,
 
 __all__ = ["CosmoParams", "DEFAULT_GRID", "DNdzGaussian",
            "DNdzInterpolation", "DNdzMagLim", "DNdzShifted", "GridSpec",
-           "HODZheng", "HaloParams", "Nuisance3x2pt", "broadcast_cosmo",
+           "HODKravtsov", "HODMandelbaum", "HODPoisson", "HODZheng",
+           "HaloParams", "Nuisance3x2pt", "broadcast_cosmo",
            "default_cosmo", "default_halo", "default_hod",
            "default_nuisance", "make_pipeline", "make_tomographic_pipeline"]

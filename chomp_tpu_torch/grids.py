@@ -154,6 +154,9 @@ class Statics(nn.Module):
         ln_m, w_m = gl_fixed(float(np.log(grid.m_min)),
                              float(np.log(grid.m_max)), grid.n_mass)
         self.register_buffer("mass_ln_m", t(ln_m), persistent=False)
+        # The float64 grid of the switch-mass solve (halo._switch_lnm).
+        self.register_buffer("mass_ln_m64", torch.as_tensor(
+            ln_m, dtype=torch.float64, device=device), persistent=False)
         self.register_buffer("mass_w", t(w_m), persistent=False)
         ln_k, w_k = gl_composite(float(np.log(grid.sigma_k_min)),
                                  float(np.log(grid.sigma_k_max)),

@@ -53,14 +53,25 @@ class HaloModel:
     ln_m_sw2: torch.Tensor  # (B,) lnM where <N(N-1)> crosses 1
 
 
-def _switch_lnm(moment_fn, tables: MassTables):
-    """lnM where a monotone HOD moment crosses 1: interpolation seed off
-    the table + 4 Newton steps on the closed form (derivative by
-    ``torch.func``), each step clamped to +-20 e-folds; the result is
-    clamped into the mass range.  (B,)."""
-    vals = moment_fn(tables.m)
-    lnv = torch.log(torch.clamp_min(vals, 1e-300))
-    seed = interp(torch.zeros_like(tables.f_norm), lnv, tables.ln_m)
+def _switch_lnm(moment_fn, st):
+    """lnM where a monotone HOD moment crosses 1, (B,) in float64:
+    interpolation seed off the static mass grid + 4 Newton steps on the
+    closed form (derivative by ``torch.func``), each step clamped to
+    +-20 e-folds; the result is clamped into the mass range.
+
+    The solve runs in float64 whatever the pipeline's dtype
+    (``moment_fn`` takes float64 masses: a float64 copy of the HOD).
+    Where a moment reaches 1 at a step or an onset (Poisson's M_min,
+    Kravtsov's and Mandelbaum's centrals) the Newton steps of the JAX
+    package do not settle: a float64 iterate that lands one ulp below the
+    onset has no slope and jumps 20 e-folds, so a float32 solve would
+    end elsewhere than the float64 one, with another Scranton select
+    over a whole mass range.  The moment is floored at 1e-300 before
+    its log, as in the JAX package."""
+    ln_m = st.mass_ln_m64[None, :]
+    lnv = torch.log(torch.clamp_min(moment_fn(torch.exp(ln_m)), 1e-300))
+    seed = interp(torch.zeros(lnv.shape[0], dtype=torch.float64,
+                              device=ln_m.device), lnv, ln_m)
 
     def g(lnm):
         v = torch.log(torch.clamp_min(moment_fn(torch.exp(lnm)), 1e-300))
@@ -70,7 +81,7 @@ def _switch_lnm(moment_fn, tables: MassTables):
         dv, (_, val) = torch.func.grad_and_value(g, has_aux=True)(seed)
         seed = seed - torch.clamp(
             val / torch.where(torch.abs(dv) > 1e-30, dv, 1e-30), -20.0, 20.0)
-    return torch.clamp(seed, tables.ln_m[:, 0], tables.ln_m[:, -1])
+    return torch.clamp(seed, ln_m[:, 0], ln_m[:, -1])
 
 
 def build_halo_model(cosmo: CosmoParams, halo: HaloParams, hod, z, st,
@@ -84,8 +95,9 @@ def build_halo_model(cosmo: CosmoParams, halo: HaloParams, hod, z, st,
     n_second = hod.second_moment(t.m)
     lo, hi = t.ln_m[:, 0], t.ln_m[:, -1]
     if st.grid.scranton_switch:
-        sw1 = _switch_lnm(hod.first_moment, t)
-        sw2 = _switch_lnm(hod.second_moment, t)
+        hod64 = hod.to(dtype=torch.float64)
+        sw1 = _switch_lnm(hod64.first_moment, st).to(lo).expand_as(lo)
+        sw2 = _switch_lnm(hod64.second_moment, st).to(lo).expand_as(lo)
     else:
         sw1 = sw2 = lo.clone()
 
@@ -249,11 +261,13 @@ def _cross_gal_pack(cosmo: CosmoParams, halo: HaloParams,
     hod_a, hod_b = model_a.hod, model_b.hod
     lo, hi = t.ln_m[:, 0], t.ln_m[:, -1]
 
-    def prod_moment(m):
-        return hod_a.first_moment(m) * hod_b.first_moment(m)
+    hod_a64, hod_b64 = (h.to(dtype=torch.float64) for h in (hod_a, hod_b))
 
-    sw = (_switch_lnm(prod_moment, t) if st.grid.scranton_switch
-          else lo.clone())
+    def prod_moment(m):
+        return hod_a64.first_moment(m) * hod_b64.first_moment(m)
+
+    sw = (_switch_lnm(prod_moment, st).to(lo).expand_as(lo)
+          if st.grid.scranton_switch else lo.clone())
     marks = torch.sort(torch.stack(
         [torch.clamp(b.expand_as(lo), lo, hi) for b in
          (*hod_a.breakpoints(), *hod_b.breakpoints(), sw)], dim=-1),

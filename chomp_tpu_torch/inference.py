@@ -1,32 +1,34 @@
-"""Inference on top of the pipelines: theory map, Gaussian likelihood,
-Fisher matrix, MAP fit, HMC and chain diagnostics.
+"""Inference on top of the pipelines: theory map, likelihoods, Fisher
+matrix, MOPED, templates and scale cuts, MAP fit, HMC (fixed and
+self-tuning), the external-sampler bridge and chain diagnostics.
 
-PyTorch counterpart of the gradient core of the JAX package's
-``inference.py`` (``make_theory_fn``, ``GaussianLikelihood``,
-``fisher_matrix``, ``map_fit``, ``hmc``, ``split_rhat``,
-``effective_sample_size``).  A leading chain / cosmology axis takes the
-place of ``vmap``: a parameter batch ``p`` is ``(n, n_par)``, the theory
-map returns ``(n, n_data)`` and every likelihood method returns ``(n,)``.
-Rows are independent, so the gradient of a summed objective is the
-per-row gradient; that gives:
+PyTorch counterpart of the JAX package's ``inference.py``.  A leading
+chain / cosmology axis takes the place of ``vmap``: a parameter batch
+``p`` is ``(n, n_par)``, the theory map returns ``(n, n_data)`` and every
+likelihood method returns ``(n,)``.  Rows are independent, so the
+gradient of a summed objective is the per-row gradient; that gives:
 
 - :func:`jacobian`: reverse mode by replicas, in place of ``jax.jacfwd``:
   n_data copies of one parameter point and one backward pass of the
   diagonal sum give the whole (n_data, n_par) Jacobian (the kernels
   need no forward-mode rule);
-- :func:`hmc`: one ``torch.autograd.grad`` of the summed objective per
-  leapfrog step moves every chain.
+- :func:`hmc` and :func:`adaptive_hmc`: one ``torch.autograd.grad`` of
+  the summed objective per leapfrog step moves every chain.
 
-Random numbers come from an explicit ``torch.Generator``, so chains are
-held to the reference by their statistics, not their bits.  The rest of
-the JAX module (Poisson and composite likelihoods, MOPED, the template
-helpers, adaptive HMC, the ensemble sampler, ``external_loglike``) is
-ROADMAP queue 1, item 10.
+Random numbers come from an explicit ``torch.Generator`` (a numpy seed
+for the host-side :func:`ensemble_sample`), so chains are held to the
+reference by their statistics, not their bits.  Two documented defects
+of the reference are not copied: :func:`adaptive_hmc` evaluates the
+objective at ``p0`` and raises before any sweep, and
+:func:`ensemble_sample` refuses a start ensemble with a non-finite
+walker instead of freezing it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 
 import numpy as np
 import torch
@@ -125,7 +127,37 @@ def _as64(v, device):
         dtype=torch.float64, device=device)
 
 
-class GaussianLikelihood:
+class _PriorBox:
+    """Gaussian priors and a box on the parameters: ``prior_sigma``
+    entries that are inf/NaN (or <= 0) leave that parameter
+    unconstrained; outside ``lower``/``upper`` the negative log posterior
+    gains 1e6 per violated bound."""
+
+    def _set_prior(self, dev, prior_mean, prior_sigma, lower, upper):
+        self.prior_mean = _as64(prior_mean, dev)
+        self._prior_w = None
+        if prior_sigma is not None:
+            ps = np.asarray(prior_sigma, dtype=float)
+            self._prior_w = _as64(np.where(np.isfinite(ps) & (ps > 0),
+                                           1.0 / ps**2, 0.0), dev)
+        self.lower = _as64(lower, dev)
+        self.upper = _as64(upper, dev)
+
+    def _penalty(self, p):
+        p = torch.atleast_2d(p).to(torch.float64)
+        u = torch.zeros(p.shape[0], dtype=torch.float64, device=p.device)
+        if self._prior_w is not None:
+            d = p - (self.prior_mean if self.prior_mean is not None else 0.0)
+            u = u + 0.5 * (self._prior_w * d * d).sum(-1)
+        if self.lower is not None:
+            u = u + torch.where(p < self.lower, 1e6, 0.0).sum(-1)
+        if self.upper is not None:
+            u = u + torch.where(p > self.upper, 1e6, 0.0).sum(-1)
+        return u
+
+
+
+class GaussianLikelihood(_PriorBox):
     """-2 ln L = (t(p) - d)^T C^{-1} (t(p) - d) with a fixed covariance,
     optional Gaussian priors, a box and analytically marginalized linear
     templates: the JAX package's ``GaussianLikelihood``
@@ -177,14 +209,7 @@ class GaussianLikelihood:
                 a = a + np.diag(np.where(np.isfinite(ts), 1.0 / ts**2, 0.0))
             self._yt = _as64(yt, dev)
             self._a_chol = _as64(np.linalg.cholesky(a), dev)
-        self.prior_mean = _as64(prior_mean, dev)
-        self._prior_w = None
-        if prior_sigma is not None:
-            ps = np.asarray(prior_sigma, dtype=float)
-            self._prior_w = _as64(np.where(np.isfinite(ps) & (ps > 0),
-                                           1.0 / ps**2, 0.0), dev)
-        self.lower = _as64(lower, dev)
-        self.upper = _as64(upper, dev)
+        self._set_prior(dev, prior_mean, prior_sigma, lower, upper)
 
     def _whiten(self, x):
         """L^-1 x for x (..., n_data, k)."""
@@ -203,18 +228,6 @@ class GaussianLikelihood:
 
     def log_like(self, p):
         return -0.5 * self.chi2(p)
-
-    def _penalty(self, p):
-        p = torch.atleast_2d(p).to(torch.float64)
-        u = torch.zeros(p.shape[0], dtype=torch.float64, device=p.device)
-        if self._prior_w is not None:
-            d = p - (self.prior_mean if self.prior_mean is not None else 0.0)
-            u = u + 0.5 * (self._prior_w * d * d).sum(-1)
-        if self.lower is not None:
-            u = u + torch.where(p < self.lower, 1e6, 0.0).sum(-1)
-        if self.upper is not None:
-            u = u + torch.where(p > self.upper, 1e6, 0.0).sum(-1)
-        return u
 
     def neg_log_post(self, p):
         """(n,) 0.5 chi^2 + prior + box penalty."""
@@ -246,6 +259,217 @@ def fisher_matrix(theory_fn, cov, p0):
     y = torch.linalg.solve_triangular(torch.linalg.cholesky(cov), jac,
                                       upper=False)
     return y.transpose(-1, -2) @ y
+
+
+class PoissonLikelihood(_PriorBox):
+    """-ln L = sum [lambda(p) - N ln lambda(p)] (+ a data-only constant)
+    for counts data, with the Gaussian priors and box of
+    :class:`GaussianLikelihood`: the JAX package's ``PoissonLikelihood``
+    over a leading batch axis.  ``theory_fn(p)`` gives the expected
+    counts (n, n_data); a 1e-300 floor keeps the log finite."""
+
+    def __init__(self, theory_fn, data, prior_mean=None, prior_sigma=None,
+                 lower=None, upper=None):
+        self.theory_fn = theory_fn
+        dev = data.device if torch.is_tensor(data) else torch.device("cpu")
+        self.data = _as64(data, dev).reshape(-1)
+        self._set_prior(dev, prior_mean, prior_sigma, lower, upper)
+
+    def _lam(self, p):
+        return torch.clamp_min(self.theory_fn(p).to(torch.float64), 1e-300)
+
+    def log_like(self, p):
+        lam = self._lam(p)
+        return (self.data * torch.log(lam) - lam).sum(-1)
+
+    def neg_log_post(self, p):
+        return -self.log_like(p) + self._penalty(p)
+
+    def fisher(self, p0):
+        """Expected information J^T diag(1/lambda) J (+ the prior
+        curvature) at ``p0`` (n_par,), or (m, n_par) for (m, n_par,
+        n_par)."""
+        with torch.no_grad():
+            lam = self._lam(torch.atleast_2d(p0))
+        jac = jacobian(self.theory_fn, p0).to(torch.float64)
+        lam = lam[0] if p0.dim() == 1 else lam
+        f = (jac / lam[..., :, None]).transpose(-1, -2) @ jac
+        if self._prior_w is not None:
+            f = f + torch.diag(self._prior_w)
+        return f
+
+
+class CompositeLikelihood:
+    """The sum of independent likelihood blocks over one shared
+    parameter vector (for example a Gaussian 3x2pt block and a Poisson
+    counts block), with the same ``log_like`` / ``neg_log_post`` /
+    ``fisher`` surface."""
+
+    def __init__(self, likes):
+        self.likes = tuple(likes)
+        if not self.likes:
+            raise ValueError("CompositeLikelihood needs >= 1 block")
+
+    def log_like(self, p):
+        return sum(lk.log_like(p) for lk in self.likes)
+
+    def neg_log_post(self, p):
+        return sum(lk.neg_log_post(p) for lk in self.likes)
+
+    def fisher(self, p0):
+        return sum(lk.fisher(p0) for lk in self.likes)
+
+
+def moped_compression(theory_fn, cov, p0):
+    """MOPED (Heavens, Jimenez & Lahav 2000) lossless linear compression
+    at ``p0`` (n_par,): (b_matrix (n_par, n_data) float64, compress).
+    The rows are Gram-Schmidt over the Fisher metric, so y = B v carries
+    the whole Fisher information of the data vector and Cov(y) = I.
+    ``compress`` maps a data vector (n_data,) or a batch (n, n_data) (a
+    tensor or numpy) to (n_par,) / (n, n_par) in float64."""
+    jac = jacobian(theory_fn, p0).to(torch.float64).cpu().numpy()
+    cov = np.asarray(cov.cpu() if torch.is_tensor(cov) else cov,
+                     dtype=np.float64)
+    cinv_j = np.linalg.solve(cov, jac)                       # C^-1 J
+    rows = []
+    for a in range(jac.shape[1]):
+        b = cinv_j[:, a]
+        for r in rows:
+            b = b - (jac[:, a] @ r) * r
+        rows.append(b / np.sqrt(b @ cov @ b))
+    b_mat = torch.as_tensor(np.stack(rows), dtype=torch.float64,
+                            device=p0.device)
+
+    def compress(vec):
+        v = torch.as_tensor(vec, device=b_mat.device).to(torch.float64)
+        return v @ b_mat.T
+
+    return b_mat, compress
+
+
+def marginalized_covariance(cov, templates, sigmas):
+    """C + T^T diag(sigma^2) T (numpy float64): the matrix-level
+    equivalent of ``GaussianLikelihood(templates=, template_sigma=)``
+    for finite amplitude priors (Sherman-Morrison-Woodbury)."""
+    cov = np.asarray(cov, dtype=np.float64)
+    t = np.atleast_2d(np.asarray(templates, dtype=np.float64))
+    s2 = np.asarray(sigmas, dtype=float).reshape(-1) ** 2
+    if s2.size not in (1, t.shape[0]):
+        raise ValueError(f"sigmas length {s2.size} != n_templates "
+                         f"{t.shape[0]} (scalar broadcast is allowed)")
+    if not np.all(np.isfinite(s2)):
+        raise ValueError("marginalized_covariance needs finite sigmas; "
+                         "use GaussianLikelihood(templates=) for the "
+                         "improper flat prior")
+    return cov + (t.T * s2) @ t
+
+
+def _probe_names(n_lens: int, n_src: int, cmb_lensing: bool = False):
+    """The probe names of the tomographic data vector, in its order:
+    w_i, gt_ij, xip_jk and xim_jk (j <= k), then wgk_i with
+    ``cmb_lensing`` (the names of the JAX package's
+    ``covariance.tomographic_probes``)."""
+    pairs = [f"{j}{k}" for j in range(n_src) for k in range(j, n_src)]
+    return ([f"w_{i}" for i in range(n_lens)]
+            + [f"gt_{i}{j}" for i in range(n_lens) for j in range(n_src)]
+            + [f"xip_{q}" for q in pairs] + [f"xim_{q}" for q in pairs]
+            + ([f"wgk_{i}" for i in range(n_lens)] if cmb_lensing else []))
+
+
+def point_mass_templates(n_lens, n_src, theta_deg, mode: str = "pair",
+                         beta=None, cmb_lensing: bool = False,
+                         n_counts: int = 0):
+    """Point-mass templates 1/theta^2 on the gamma_t rows of the
+    tomographic data vector (:func:`_probe_names` order,
+    ``len(theta_deg)`` points a probe, ``n_counts`` zero entries after
+    it), (n_t, n_data) numpy.  ``mode="pair"``: one amplitude per (lens
+    i, source j) pair; ``mode="lens"``: one per lens bin, the source
+    scaling fixed by ``beta`` (n_lens, n_src)."""
+    theta = np.asarray(theta_deg, dtype=float).reshape(-1)
+    nb = theta.size
+    shape = 1.0 / theta**2
+    names = _probe_names(n_lens, n_src, cmb_lensing)
+    n_data = len(names) * nb + int(n_counts)
+
+    def gt_block(i, j):
+        return (n_lens + i * n_src + j) * nb
+
+    if mode == "pair":
+        out = np.zeros((n_lens * n_src, n_data))
+        for i in range(n_lens):
+            for j in range(n_src):
+                s = gt_block(i, j)
+                out[i * n_src + j, s:s + nb] = shape
+    elif mode == "lens":
+        if beta is None:
+            raise ValueError("mode='lens' needs beta (n_lens, n_src) "
+                             "∝ <Sigma_crit^-1> per pair")
+        beta = np.asarray(beta, dtype=float)
+        if beta.shape != (n_lens, n_src):
+            raise ValueError(f"beta shape {beta.shape} != "
+                             f"({n_lens}, {n_src})")
+        out = np.zeros((n_lens, n_data))
+        for i in range(n_lens):
+            for j in range(n_src):
+                s = gt_block(i, j)
+                out[i, s:s + nb] = beta[i, j] * shape
+    else:
+        raise ValueError(f"mode must be 'pair' or 'lens', got {mode!r}")
+    return out
+
+
+def theta_cut_mask(n_lens, n_src, theta_deg, cuts, cmb_lensing: bool = False,
+                   n_counts: int = 0, default=(0.0, np.inf)):
+    """Boolean keep-mask (n_data,) over the tomographic data vector from
+    per-probe angular cuts: ``cuts`` maps probe names ("gt_01") or
+    families ("w", "gt", "xip", "xim", "wgk") to (theta_min, theta_max)
+    in degrees (a name overrides its family, ``default`` applies
+    otherwise); points in the closed interval stay; the ``n_counts``
+    count bins after the probes always stay."""
+    theta = np.asarray(theta_deg, dtype=float).reshape(-1)
+    keep = []
+    for name in _probe_names(n_lens, n_src, cmb_lensing):
+        lo, hi = cuts.get(name, cuts.get(name.split("_")[0], default))
+        keep.append((theta >= lo) & (theta <= hi))
+    keep.append(np.ones(int(n_counts), dtype=bool))
+    return np.concatenate(keep)
+
+
+def apply_scale_cuts(keep, theory_fn, data, cov, templates=None,
+                     template_sigma=None):
+    """(theory_fn, data, cov [, templates [, template_sigma]]) restricted
+    to the kept entries of the boolean ``keep``: the cut theory map
+    gathers the kept columns of ``theory_fn(p)`` (n, n_data); templates
+    that are all zero after the cut are dropped, with their
+    ``template_sigma`` entries."""
+    keep = np.asarray(keep, dtype=bool).reshape(-1)
+    data = data.cpu().numpy() if torch.is_tensor(data) else np.asarray(data)
+    if keep.size != data.size:
+        raise ValueError(f"mask length {keep.size} != data {data.size}")
+    idx_np = np.nonzero(keep)[0]
+    idx = {}
+
+    def cut_fn(p):
+        out = theory_fn(p)
+        if out.device not in idx:
+            idx[out.device] = torch.as_tensor(idx_np, device=out.device)
+        return out.index_select(-1, idx[out.device])
+
+    cov = np.asarray(cov)[np.ix_(keep, keep)]
+    if templates is None:
+        if template_sigma is not None:
+            raise ValueError("template_sigma given without templates")
+        return cut_fn, data[keep], cov
+    t = np.atleast_2d(np.asarray(templates))[:, keep]
+    row_keep = np.any(t != 0.0, axis=1)
+    t = t[row_keep]
+    if template_sigma is None:
+        return cut_fn, data[keep], cov, t
+    ts = np.asarray(template_sigma, dtype=float).reshape(-1)
+    if ts.size != row_keep.size:
+        raise ValueError(f"template_sigma length {ts.size} != "
+                         f"n_templates {row_keep.size}")
+    return cut_fn, data[keep], cov, t, ts[row_keep]
 
 
 def map_fit(neg_log_post, p0, n_steps: int = 500, learning_rate=3e-3):
@@ -340,6 +564,174 @@ def hmc(neg_log_post, mass, p0, generator, n_steps: int = 200,
     return (samples[0], accept[0]) if single else (samples, accept)
 
 
+def adaptive_hmc(neg_log_post, p0, generator, n_warmup: int = 500,
+                 n_samples: int = 1000, n_chains: int = 4,
+                 target_accept: float = 0.8, n_leap: int = 16,
+                 jitter: float = 0.5, init_step: float = 0.1,
+                 init_jitter: float = 0.1, dense_mass: bool = False):
+    """Self-tuning Hamiltonian Monte Carlo over ``n_chains`` chains: the
+    JAX package's ``adaptive_hmc`` (dual-averaging step size, Hoffman &
+    Gelman 2014; a metric estimated in the warmup; jittered trajectory
+    lengths), with every chain moved by one ``torch.autograd.grad`` of the
+    summed objective per leapfrog step.
+
+    ``neg_log_post`` maps (n, dim) to (n,); ``p0`` (dim,) is the centre
+    the chains start from, scattered by N(0, init_jitter^2).  Warmup is
+    two dual-averaging windows of n_warmup / 2 sweeps: the first under
+    the identity metric, the second under the posterior covariance
+    estimated from the first window's second half (all chains pooled,
+    shrunk toward 1e-3 as Stan does; diagonal, or the full matrix with
+    ``dense_mass``).  Sampling then runs at the tuned step with
+    trajectories of L ~ Uniform{ceil((1 - jitter) n_leap), ..., n_leap}
+    steps, applied by masked leapfrog (every sweep takes n_leap steps;
+    a chain past its L keeps its state).  Each leapfrog step costs one
+    gradient evaluation (the gradient at the end of a step is the next
+    step's start).  A non-finite objective at ``p0`` raises before any
+    sweep; chains whose jittered start is non-finite restart at ``p0``
+    with a warning.
+
+    Returns a dict: ``samples`` (n_chains, n_samples, dim), ``accept``
+    (n_chains, n_samples) acceptance probabilities, ``step_size``,
+    ``mass_diag`` (or ``mass`` with ``dense_mass``) as numpy, and
+    ``warmup_accept`` (n_warmup, n_chains)."""
+    p0 = p0.detach().reshape(-1)
+    dev, dt = p0.device, p0.dtype
+    dim = p0.shape[0]
+    with torch.no_grad():
+        u_center = neg_log_post(p0[None, :])[0].to(torch.float64)
+    if not torch.isfinite(u_center):
+        raise ValueError(
+            "adaptive_hmc: neg_log_post(p0) is non-finite: the chain start "
+            "point itself is outside the posterior support.")
+
+    def randn(shape):
+        return torch.randn(shape, generator=generator, device=dev, dtype=dt)
+
+    def uniform(n):
+        return torch.rand(n, generator=generator, device=dev,
+                          dtype=torch.float64)
+
+    q = p0[None, :] + init_jitter * randn((n_chains, dim))
+    u_q, g_q = _value_and_grad(neg_log_post, q)
+    bad0 = ~torch.isfinite(u_q)
+    n_bad0 = int(bad0.sum())
+    if n_bad0:
+        warnings.warn(
+            f"adaptive_hmc: {n_bad0}/{n_chains} chains had a non-finite "
+            f"neg_log_post at their jittered start (outside a prior "
+            f"barrier?) and were re-initialized at p0.  Consider a smaller "
+            f"init_jitter.", stacklevel=2)
+        q = torch.where(bad0[:, None], p0[None, :], q)
+        u_q, g_q = _value_and_grad(neg_log_post, q)
+
+    def sweep(state, eps, m_inv_mul, m_chol_mul, n_active):
+        """One HMC transition of every chain: (new state, alpha (n,))."""
+        q, u_q, g_q = state
+        p = m_chol_mul(randn(q.shape))
+        qn, pn, un, gn = q, p, u_q, g_q
+        for i in range(n_leap):
+            live = (i < n_active)[:, None]
+            p_half = pn - 0.5 * eps * gn
+            q_new = qn + eps * m_inv_mul(p_half)
+            u_new, g_new = _value_and_grad(neg_log_post, q_new)
+            p_new = p_half - 0.5 * eps * g_new
+            qn = torch.where(live, q_new, qn)
+            pn = torch.where(live, p_new, pn)
+            gn = torch.where(live, g_new, gn)
+            un = torch.where(live[:, 0], u_new, un)
+        kin = (0.5 * (pn * m_inv_mul(pn)).sum(-1)
+               - 0.5 * (p * m_inv_mul(p)).sum(-1)).to(torch.float64)
+        dh = un - u_q + kin
+        alpha = torch.where(torch.isfinite(dh),
+                            torch.clamp_max(torch.exp(-dh), 1.0),
+                            torch.zeros_like(dh))
+        acc = uniform(q.shape[0]) < alpha
+        return ((torch.where(acc[:, None], qn, q),
+                 torch.where(acc, un, u_q),
+                 torch.where(acc[:, None], gn, g_q)), alpha)
+
+    gamma, t0, kappa = 0.05, 10.0, 0.75
+
+    def window(state, eps0, m_inv_mul, m_chol_mul, n_iter):
+        """Dual averaging of the step over ``n_iter`` sweeps: (state,
+        the averaged step, the positions (n_iter, n, dim), the
+        alphas (n_iter, n))."""
+        mu = math.log(10.0 * eps0)
+        ln_e = ln_eb = math.log(eps0)
+        h_bar, t = 0.0, 0.0
+        full = torch.full((n_chains,), n_leap, device=dev)
+        qs, alphas = [], []
+        for _ in range(n_iter):
+            state, alpha = sweep(state, math.exp(ln_e), m_inv_mul,
+                                 m_chol_mul, full)
+            t += 1.0
+            eta_h = 1.0 / (t + t0)
+            h_bar = ((1.0 - eta_h) * h_bar
+                     + eta_h * (target_accept - float(alpha.mean())))
+            ln_e = mu - math.sqrt(t) / gamma * h_bar
+            eta = t ** (-kappa)
+            ln_eb = eta * ln_e + (1.0 - eta) * ln_eb
+            qs.append(state[0])
+            alphas.append(alpha)
+        return state, math.exp(ln_eb), torch.stack(qs), torch.stack(alphas)
+
+    def ident(x):
+        return x
+
+    n_w1 = max(n_warmup // 2, 1)
+    n_w2 = max(n_warmup - n_w1, 1)
+    state = (q, u_q, g_q)
+    state, eps1, qs1, a1 = window(state, init_step, ident, ident, n_w1)
+    half = qs1[n_w1 // 2:].reshape(-1, dim).to(torch.float64)
+    n_est = half.shape[0]
+    cen = half - half.mean(0)
+    shrink = n_est / (n_est + 5.0)
+    if dense_mass:
+        cov = cen.T @ cen / (n_est - 1.0)
+        cov = shrink * cov + (1.0 - shrink) * 1e-3 * torch.eye(
+            dim, dtype=torch.float64, device=dev)
+        chol_t = torch.linalg.cholesky(cov).T.to(dt)
+        cov_t = cov.to(dt)
+
+        def m_inv_mul(p):
+            return p @ cov_t.T
+
+        def m_chol_mul(z):
+            # p ~ N(0, cov^-1): solve L^T p = z.
+            return torch.linalg.solve_triangular(chol_t, z.T,
+                                                 upper=True).T
+        metric = cov
+    else:
+        var = shrink * cen.var(0) + (1.0 - shrink) * 1e-3
+        var_t, sd_t = var.to(dt), var.sqrt().to(dt)
+
+        def m_inv_mul(p):
+            return p * var_t
+
+        def m_chol_mul(z):
+            return z / sd_t
+        metric = var
+    state, eps2, _, a2 = window(state, eps1, m_inv_mul, m_chol_mul, n_w2)
+
+    l_min = max(int(math.ceil((1.0 - jitter) * n_leap)), 1)
+    qs, alphas = [], []
+    for _ in range(n_samples):
+        n_act = torch.randint(l_min, n_leap + 1, (n_chains,),
+                              generator=generator, device=dev)
+        state, alpha = sweep(state, eps2, m_inv_mul, m_chol_mul, n_act)
+        qs.append(state[0])
+        alphas.append(alpha)
+    metric = metric.cpu().numpy()
+    out = {"samples": torch.stack(qs, dim=1),
+           "accept": torch.stack(alphas, dim=1), "step_size": eps2,
+           "warmup_accept": torch.cat([a1, a2])}
+    if dense_mass:
+        out["mass"] = np.linalg.inv(metric)
+    else:
+        out["mass_diag"] = 1.0 / metric
+    return out
+
+
 def split_rhat(chains):
     """Split potential-scale-reduction diagnostic (BDA3 / Vehtari et al.
     2021 without rank normalization): each chain split in half, R-hat =
@@ -383,6 +775,91 @@ def effective_sample_size(chains):
             t += 2
         ess[d] = m * n / max(tau, 1e-12)
     return ess
+
+
+def external_loglike(like, vectorized: bool = False,
+                     bad_value: float = -np.inf, *, device=None):
+    """A numpy-in / numpy-out ln-posterior for external samplers (emcee,
+    Cobaya, zeus, dynesty): ``like.neg_log_post`` (or a bare callable
+    giving the negative log posterior of an (n, n_par) batch) with the
+    sign flipped, evaluated without autograd, and non-finite values
+    mapped to ``bad_value`` (-inf, emcee's reject convention).
+
+    The scalar form maps (n_par,) to a float; ``vectorized=True`` maps
+    (n_walkers, n_par) to (n_walkers,) in ONE call of the objective
+    (one batched pipeline call over the walkers).  Points go to
+    ``device`` (default: that of ``like.data``, else the CPU) in
+    float64."""
+    nlp = like.neg_log_post if hasattr(like, "neg_log_post") else like
+    if device is None:
+        data = getattr(like, "data", None)
+        device = data.device if torch.is_tensor(data) else "cpu"
+
+    def batch(ps):
+        x = torch.as_tensor(np.atleast_2d(np.asarray(ps, dtype=np.float64)),
+                            device=device)
+        with torch.no_grad():
+            out = (-nlp(x)).to(torch.float64).cpu().numpy()
+        return np.where(np.isfinite(out), out, bad_value)
+
+    if vectorized:
+        return batch
+
+    def log_prob(p, *args):
+        return float(batch(np.asarray(p, dtype=np.float64)[None, :])[0])
+
+    return log_prob
+
+
+def ensemble_sample(log_prob, p0_walkers, n_steps: int, seed: int = 0,
+                    a: float = 2.0, vectorized: bool = False):
+    """Affine-invariant ensemble sampler (Goodman & Weare 2010 stretch
+    move, the emcee algorithm) over a numpy ``log_prob``, on the host:
+    the JAX package's ``ensemble_sample``.  ``vectorized=True`` takes a
+    ``log_prob`` of (n, n_dim) -> (n,) (:func:`external_loglike`'s batch
+    form) and calls it once per half-ensemble move.
+
+    Every start walker must have a finite ``log_prob``: one that has not
+    raises, where the reference would leave it frozen for the chain (its
+    -inf - -inf acceptance ratio is NaN).  Returns the samples (n_steps,
+    n_walkers, n_dim) and the acceptance fraction."""
+    rng = np.random.default_rng(seed)
+    walkers = np.array(p0_walkers, dtype=np.float64, copy=True)
+    n_w, n_dim = walkers.shape
+    if n_w < 2 * n_dim:
+        raise ValueError(f"need >= {2 * n_dim} walkers for {n_dim} "
+                         f"dims, got {n_w}")
+
+    def lp_of(ps):
+        if vectorized:
+            return np.asarray(log_prob(ps), dtype=np.float64).reshape(-1)
+        return np.array([log_prob(w) for w in ps], dtype=np.float64)
+
+    lp = lp_of(walkers)
+    bad = ~np.isfinite(lp)
+    if bad.any():
+        raise ValueError(
+            f"ensemble_sample: {int(bad.sum())}/{n_w} start walkers have a "
+            f"non-finite log_prob; start every walker inside the support")
+    chain = np.empty((n_steps, n_w, n_dim))
+    n_acc = 0
+    half = n_w // 2
+    for t in range(n_steps):
+        for sel, other in ((slice(0, half), slice(half, n_w)),
+                           (slice(half, n_w), slice(0, half))):
+            idx = np.arange(n_w)[sel]
+            comp = walkers[other]
+            z = ((a - 1.0) * rng.random(len(idx)) + 1.0) ** 2 / a
+            partners = comp[rng.integers(0, comp.shape[0], len(idx))]
+            prop = partners + z[:, None] * (walkers[idx] - partners)
+            lp_prop = lp_of(prop)
+            ln_ratio = (n_dim - 1.0) * np.log(z) + lp_prop - lp[idx]
+            acc = np.log(rng.random(len(idx))) < ln_ratio
+            walkers[idx[acc]] = prop[acc]
+            lp[idx[acc]] = lp_prop[acc]
+            n_acc += int(acc.sum())
+        chain[t] = walkers
+    return chain, n_acc / (n_steps * n_w)
 
 
 def _np64(x):

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from chomp_tpu_torch.cmblens import CMBLensingSpec
-from chomp_tpu_torch.hod import HODZheng
+from chomp_tpu_torch.hod import (HODKravtsov, HODMandelbaum, HODPoisson,
+                                 HODZheng)
 from chomp_tpu_torch.parallel.sweep import Nuisance3x2pt
 from chomp_tpu_torch.params import CosmoParams, HaloParams
 from chomp_tpu_torch.projection import (DNdzGaussian, DNdzInterpolation,
@@ -53,13 +54,28 @@ def hod_zheng(src, *, device, dtype) -> HODZheng:
     return _convert(HODZheng, src, device, dtype)
 
 
+_HODS = {cls.__name__: cls for cls in (HODZheng, HODPoisson, HODMandelbaum,
+                                       HODKravtsov)}
+
+
+def hod(src, *, device, dtype):
+    """Any of the JAX package's four HOD families, by its class name (a
+    mapping of Zheng's fields converts as Zheng)."""
+    cls = HODZheng if isinstance(src, dict) else _HODS.get(
+        type(src).__name__)
+    if cls is None:
+        raise TypeError(f"no converter for {type(src).__name__}")
+    return _convert(cls, src, device, dtype)
+
+
 def dndz_gaussian(src, *, device, dtype) -> DNdzGaussian:
     return _convert(DNdzGaussian, src, device, dtype)
 
 
-def hod_list(srcs, *, device, dtype) -> list[HODZheng]:
-    """Per-lens-bin HODs from a list of JAX-package HODZheng."""
-    return [hod_zheng(h, device=device, dtype=dtype) for h in srcs]
+def hod_list(srcs, *, device, dtype) -> list:
+    """Per-lens-bin HODs from a list of JAX-package HODs of any mix of
+    families (:func:`hod`)."""
+    return [hod(h, device=device, dtype=dtype) for h in srcs]
 
 
 def dndz_maglim(src, *, device, dtype) -> DNdzMagLim:
@@ -115,6 +131,21 @@ def cmb_spec(src) -> CMBLensingSpec:
     return CMBLensingSpec(src.z_star, src.z_support,
                           nl_ell=np.exp(np.asarray(src._ln_l)),
                           nl=np.exp(np.asarray(src._ln_n)))
+
+
+def emulator(src, *, device, dtype):
+    """An :class:`~chomp_tpu_torch.emulator.Emulator` with a JAX-package
+    ``Emulator``'s weights, scalings and basis: the two compute the same
+    ``emu(p)``."""
+    from chomp_tpu_torch.emulator import Emulator
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype,
+                               device=device)
+
+    return Emulator([(t(w), t(b)) for w, b in src.weights],
+                    *(t(getattr(src, name)) for name in
+                      ("x_mu", "x_sd", "y_mu", "basis", "c_sd")))
 
 
 def to_numpy(params) -> dict:

@@ -59,11 +59,17 @@ writes
   tests/test_torch_options.py, the same cells on the tomographic tests'
   tiny grid at TINY_THETA_DEG with the flat cell's jacfwd.
 
+- ``tests/data/torch_emulator_reference.json``: for
+  tests/test_torch_emulator.py, on that file's own numpy inputs: the JAX
+  package's ``Emulator`` of its seeded weights, its ``emu(p)`` and
+  ``jax.jacfwd(emu)`` at its points, and ``train_emulator``'s scalings,
+  basis and rank (one epoch) on each of its PCA cases.
+
 ``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
     python tools/torch_slice_reference.py [--seed N] [FILE ...]
 
-writes the named files (all six by default).
+writes the named files (all of them by default).
 """
 
 import dataclasses
@@ -983,10 +989,269 @@ def write_exactz_tomo_reference():
     print(f"wrote {path}")
 
 
+#: The HOD families of tests/data/torch_families_reference.json: the JAX
+#: class and its fields (those of the JAX package's tests/test_hod.py).
+HOD_FAMILIES = {
+    "poisson": ("HODPoisson", dict(log10_m_min=12.0, alpha=1.0)),
+    "mandelbaum": ("HODMandelbaum", dict(m0=1.0e12, w=1.5)),
+    "kravtsov": ("HODKravtsov", dict(log10_m_min=11.5, log10_m_1=12.5,
+                                     alpha=1.0)),
+}
+#: The per-bin HODs of the mixed-family tomographic cells: on the
+#: tomographic tests' grid (2 lens bins) and in chip_smoke.py phase 23
+#: (TOMO_CELL's 5 lens bins: Mandelbaum with M0 at the cell's M_min,
+#: Kravtsov with M_1 = 20 M_min, then the cell's Zheng HODs).
+MIXED_TINY_HODS = [HOD_FAMILIES["mandelbaum"], HOD_FAMILIES["kravtsov"]]
+
+
+def mixed_chip_hods():
+    c = TOMO_CELL
+    m = c["log10_m_min"]
+    zheng = [("HODZheng", dict(log10_m_min=v, sigma=0.15, log10_m_0=v,
+                               log10_m_1p=v + c["log10_m_1p_offset"],
+                               alpha=1.0)) for v in m[3:]]
+    return ([("HODMandelbaum", dict(m0=10.0 ** v, w=1.5)) for v in m[:2]]
+            + [("HODKravtsov", dict(log10_m_min=m[2],
+                                    log10_m_1=m[2] + c["log10_m_1p_offset"],
+                                    alpha=1.0))] + zheng)
+
+
+def jax_hod(spec):
+    """A JAX HOD from (class name, fields)."""
+    import jax.numpy as jnp
+
+    from chomp_tpu import hod
+
+    cls, fields = spec
+    return getattr(hod, cls)(**{k: jnp.asarray(float(v))
+                                for k, v in fields.items()})
+
+
+#: The float32 gate's grids (the JAX package's tests/test_f32_budget.py)
+#: and its cosmologies: the prior corners, then two near-fiducial points.
+def f32_budget_grids():
+    from chomp_tpu.params import GridSpec
+
+    return (GridSpec(n_mass=256, lattice_dln=0.016, n_ell=512, n_theta=16),
+            GridSpec(n_mass=256, lattice_dln=0.016, n_ell=512, n_theta=8,
+                     theta_min_deg=0.2, theta_max_deg=5.0))
+
+
+def corner_batch():
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo
+    from chomp_tpu.parallel.sweep import broadcast_cosmo
+    from chomp_tpu.utils.corners import corner_arrays
+
+    om, ol, s8, w0, wa = corner_arrays(
+        extra=[(0.25, 0.75, 0.811, -1.0, 0.0), (0.31, 0.69, 0.811, -1.0, 0.0)])
+    return broadcast_cosmo(default_cosmo(), omega_m0=jnp.asarray(om),
+                           omega_l0=jnp.asarray(ol), sigma_8=jnp.asarray(s8),
+                           w0=jnp.asarray(w0), wa=jnp.asarray(wa))
+
+
+def _outputs(out):
+    return {k: np.asarray(v).tolist() for k, v in out.items()
+            if k != "theta_deg"}
+
+
+def families_part(name):
+    """One block of tests/data/torch_families_reference.json (JAX
+    float64): "tiny" (each family through both routes of bench.py's
+    configuration A on the parity grid, Mandelbaum exact-z with J = 4,
+    and the mixed-family tomographic pipeline on the tomographic tests'
+    grid), "corners" (the float32 gate's pipelines on its grids at the
+    corners), "chip_families", "chip_tomo" and "chip_corners" (chip_smoke.py
+    phases 23-24 at DEFAULT_GRID)."""
+    import time
+
+    import jax
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_halo, projection
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.params import DEFAULT_GRID
+    from chomp_tpu.parallel.sweep import (Nuisance3x2pt, make_pipeline,
+                                          make_tomographic_pipeline)
+    from tests import torch_parity as tp
+
+    t0 = time.perf_counter()
+
+    def done(what):
+        print(f"[{time.perf_counter() - t0:7.1f} s] {name}: {what}",
+              flush=True)
+
+    def mapped(fn, batch, *args):
+        return jax.jit(lambda b: jax.lax.map(lambda c: fn(c, *args), b))(
+            batch)
+
+    def family_pipe(grid, fam, **options):
+        return make_pipeline(default_halo(), jax_hod(HOD_FAMILIES[fam]),
+                             tp.jax_dist(), power_spec="power_gg",
+                             grid=grid, include_lensing=True,
+                             **{"z_pivot": 1.0, **options})
+
+    block = {}
+    if name == "tiny":
+        from tests import test_torch_tomographic as tt
+
+        block["grid"] = dataclasses.asdict(tp.GRID)
+        for fam in HOD_FAMILIES:
+            for method in ("fft", "table"):
+                out = jax.jit(jax.vmap(family_pipe(tp.GRID, fam,
+                                                   method=method)))(
+                    tp.jax_batch())
+                block[f"{fam}_{method}"] = _outputs(out)
+                done(f"{fam} {method}")
+        out = jax.jit(jax.vmap(family_pipe(
+            tp.GRID, "mandelbaum", exact_z_anchors=TINY_J)))(tp.jax_batch())
+        block["mandelbaum_exact_z"] = _outputs(out)
+        done("mandelbaum exact-z")
+        fn = make_tomographic_pipeline(
+            default_halo(), [jax_hod(h) for h in MIXED_TINY_HODS], tt.LENS,
+            tt.SRC, grid=tt.GRID, z_pivot=tt.Z_PIVOT)
+        block["tomo_grid"] = dataclasses.asdict(tt.GRID)
+        block["tomo_mixed"] = _outputs(jax.jit(jax.vmap(fn))(
+            tt.jax_batch()))
+        done("mixed tomographic")
+    elif name == "corners":
+        grid, grid_c = f32_budget_grids()
+        dist = projection.DNdzGaussian(
+            z_min=jnp.asarray(0.0), z_max=jnp.asarray(2.0),
+            z0=jnp.asarray(1.0), sigma_z=jnp.asarray(0.2))
+        for key, g, geom in (("flat", grid, "flat"),
+                             ("curved", grid_c, "curved")):
+            fn = make_pipeline(default_halo(), default_hod(), dist,
+                               grid=g, geometry=geom)
+            out = jax.jit(jax.vmap(fn))(corner_batch())
+            block[key] = _outputs(out) | {"theta_deg": np.asarray(
+                out["theta_deg"][0]).tolist(), "grid": dataclasses.asdict(g)}
+            done(key)
+    elif name == "chip_families":
+        oms, s8s = cosmologies(INDICES)
+        block.update(indices=list(INDICES), omega_m0=oms.tolist(),
+                     sigma_8=s8s.tolist())
+        for fam in HOD_FAMILIES:
+            for method in ("fft", "table"):
+                out = mapped(family_pipe(DEFAULT_GRID, fam, method=method),
+                             jax_batch(oms, s8s))
+                block[f"{fam}_{method}"] = _outputs(out)
+                done(f"{fam} {method}")
+    elif name == "chip_tomo":
+        ref = json.loads((DATA / "torch_tomo_reference.json").read_text())
+        lens, src, _hods, z_pivot = tomo_layout(DEFAULT_GRID)
+        fn = make_tomographic_pipeline(
+            default_halo(), [jax_hod(h) for h in mixed_chip_hods()], lens,
+            src, grid=DEFAULT_GRID, z_pivot=z_pivot, with_nuisance=True,
+            include_magnification=True)
+        nu = Nuisance3x2pt(**{k: jnp.asarray(v)
+                              for k, v in ref["nuisance"].items()})
+        oms, s8s = cosmologies(INDICES)
+        out = mapped(fn, jax_batch(oms, s8s), nu)
+        block.update(indices=list(INDICES), omega_m0=oms.tolist(),
+                     sigma_8=s8s.tolist(), nuisance_seed=ref["seed"],
+                     hods=[list(h) for h in mixed_chip_hods()],
+                     outputs=_outputs(out))
+        done("outputs")
+    elif name == "chip_corners":
+        dist = projection.DNdzGaussian(
+            z_min=jnp.asarray(0.0), z_max=jnp.asarray(2.0),
+            z0=jnp.asarray(1.0), sigma_z=jnp.asarray(0.2))
+        grid_c = DEFAULT_GRID.replace(n_theta=8, theta_min_deg=0.2,
+                                      theta_max_deg=5.0)
+        for key, g, geom in (("flat", DEFAULT_GRID, "flat"),
+                             ("curved", grid_c, "curved")):
+            fn = make_pipeline(default_halo(), default_hod(), dist,
+                               grid=g, geometry=geom)
+            out = mapped(fn, corner_batch())
+            block[key] = _outputs(out) | {"theta_deg": np.asarray(
+                out["theta_deg"][0]).tolist(), "grid": dataclasses.asdict(g)}
+            done(key)
+    else:
+        raise SystemExit(f"unknown families part {name!r}")
+    return block
+
+
+FAMILIES_PARTS = ("tiny", "corners", "chip_families", "chip_tomo",
+                  "chip_corners")
+
+
+def write_families_reference():
+    """tests/data/torch_families_reference.json: each block in a process
+    of its own, one after another; a block whose part file
+    (``tests/data/.families_<name>.json``, written by ``--families-part
+    <name> <file>``) exists already is taken as it is."""
+    import subprocess
+
+    blocks = {}
+    for name in FAMILIES_PARTS:
+        part = DATA / f".families_{name}.json"
+        if not part.exists():
+            subprocess.run([sys.executable, __file__, "--families-part",
+                            name, str(part)], check=True)
+        blocks[name] = json.loads(part.read_text())
+    from chomp_tpu.utils.corners import PRIOR_CORNERS
+
+    data = {"config": "the other HOD families (Poisson, Mandelbaum, "
+                      "Kravtsov) through make_pipeline's routes and a "
+                      "mixed-family make_tomographic_pipeline, and the "
+                      "float32 gate's pipelines at the prior corners (the "
+                      "JAX package's tests/test_f32_budget.py), JAX float64 "
+                      "CPU; 'tiny' and 'corners' for tests/test_torch_hod.py "
+                      "and tests/test_torch_corners.py, 'chip_*' for "
+                      "chip_smoke.py phases 23-24 at DEFAULT_GRID",
+            "families": {k: list(v) for k, v in HOD_FAMILIES.items()},
+            "mixed_tiny_hods": [list(h) for h in MIXED_TINY_HODS],
+            "prior_corners": {k: list(v) for k, v in PRIOR_CORNERS.items()},
+            "near_fiducial": [[0.25, 0.75, 0.811, -1.0, 0.0],
+                              [0.31, 0.69, 0.811, -1.0, 0.0]],
+            "cell": TOMO_CELL, **blocks}
+    path = DATA / "torch_families_reference.json"
+    path.write_text(json.dumps(data, indent=1) + "\n")
+    for name in FAMILIES_PARTS:
+        (DATA / f".families_{name}.json").unlink()
+    print(f"wrote {path}")
+
+
+def write_emulator_reference():
+    """tests/data/torch_emulator_reference.json (float64)."""
+    import jax
+
+    from chomp_tpu import emulator as jemu
+    from tests import test_torch_emulator as te
+
+    jax_emu = te.jax_emulator()
+    p = te.converted_points()
+    data = {"config": "the JAX package's emulator on the inputs of "
+                      "tests/test_torch_emulator.py, JAX float64 CPU",
+            "converted": {
+                "p": p.tolist(),
+                "emu": np.asarray(jax.vmap(jax_emu)(p)).tolist(),
+                "jacfwd": np.asarray(jax.vmap(jax.jacfwd(jax_emu))(p)
+                                     ).tolist()},
+            "pca": []}
+    x, y = te.sweep_data()
+    for kw in te.PCA_CASES:
+        extra = ({"j_train": te.sweep_jacobians()} if "jac_weight" in kw
+                 else {})
+        emu, rep = jemu.train_emulator(None, te.BOUNDS, jax.random.PRNGKey(1),
+                                       x_train=x, y_train=y, n_epochs=1,
+                                       hidden=(8,), **kw, **extra)
+        data["pca"].append({"kw": kw, "n_pca": rep.n_pca,
+                            "n_train": rep.n_train, "n_val": rep.n_val,
+                            **{name: np.asarray(getattr(emu, name)).tolist()
+                               for name in te.TAIL}})
+    path = DATA / "torch_emulator_reference.json"
+    path.write_text(json.dumps(data) + "\n")
+    print(f"wrote {path}")
+
+
 FILES = ("torch_slice_reference.json", "torch_table_reference.json",
          "torch_grad_reference.json", "torch_exactz_reference.json",
          "torch_tomo_reference.json", "torch_options_reference.json",
-         "torch_exactz_tomo_reference.json")
+         "torch_exactz_tomo_reference.json",
+         "torch_families_reference.json", "torch_emulator_reference.json")
 
 
 def main():
@@ -1006,6 +1271,11 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
         Path(args[2]).write_text(json.dumps(exactz_tomo_part(args[1])))
+        return
+    if args[:1] == ["--families-part"]:
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+        Path(args[2]).write_text(json.dumps(families_part(args[1])))
         return
     seed = 0
     if "--seed" in args:
@@ -1032,6 +1302,10 @@ def main():
         write_options_reference()
     if FILES[6] in names:
         write_exactz_tomo_reference()
+    if FILES[7] in names:
+        write_families_reference()
+    if FILES[8] in names:
+        write_emulator_reference()
 
 
 def write_slice_and_table():
