@@ -234,19 +234,44 @@ order (any failure exits nonzero; nothing falls back):
    Sobolev run on the float64 Jacobians of a 128 + 32 node design with
    the box's vertices and faces (holdout max_rel < 5e-3 and jac_max_rel
    < 2e-2, the JAX tests' gates); walls of the sweep, the Jacobians and
-   training.
+   training;
+27. the flat-sky covariance stack, float64 (tests/data/
+   torch_cov_reference.json): the Morrison & Schneider joint w(theta) +
+   gamma_t matrix of examples/joint_covariance_example.py's survey on
+   DEFAULT_GRID at the JAX builders' defaults, Gaussian + connected +
+   super-sample + PSD clip, at 64 cosmologies in one call (kernel A
+   launched and counted): against the JAX float64 values at 3 of them
+   (each 8 x 8 block to 1e-9 of its peak; JAX's own jit(vmap)-vs-scalar
+   gap is printed beside it), its pieces at the first of them (Gaussian,
+   + connected, + super-sample, unclipped) likewise, symmetric, PSD, and
+   its Gaussian-only matrix on the card against the port's plain run on
+   the CPU (1e-12); wall (median of 3), per cosmology, peak memory and
+   (with the device times) the busy share;
+28. the DES Y3-like tomographic 3x2pt covariance: phase 13's cell (5 lens
+   x 4 source bins, per-bin HODs, nuisances, magnification) with DES
+   Y3's survey at its 20 bins as edges, 45 probes, a 900 x 900 matrix,
+   Gaussian + connected + SSC on every block + clip, at B = 1 and 8: the
+   2 x 2 run of bins 0-1 against JAX, raw to 1e-9 of each block's peak,
+   clipped to that or twice what JAX's own clip moves its raw matrix
+   where that is larger, every raw block of the 5 x 4 matrix over bins
+   0-1 equal to the 2 x 2 run's (1e-10 of its peak; what the clip, which
+   acts on the whole matrix, moves is reported), the clipped matrices
+   symmetric and PSD, B = 8's row against B = 1; walls, peak memory and
+   busy share.
 
 Each phase prints its seconds (``[time] phase N``).  Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
 over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
 taken in turns with the library call or plain version (other, kernel,
 kernel, other); after phase 10, each kernel's and library call's device
 time per call from torch.profiler's kernel records ("not measured" where
-it records none), and the device's busy share of one forward+backward
-per route, of configuration B's and of the tomographic cell's (and of
-its forward), and of each option cell's forward.  Each main path (phases 5, 7, each route's
-forward+backward in 9, and the forwards and forward+backwards of 11-19)
-runs with every launch count set to 0 just before it and read just
-after.  The last lines are the card
+it records none), and the device's busy share (the kineto device
+activity of one call, ``busy_ms``) of one forward+backward per route, of
+configuration B's and of the tomographic cell's (and of its forward) and
+of each option cell's forward; phase 28 ends with the busy shares of the
+covariance builds of 27-28.  Each main path (phases 5, 7, each route's
+forward+backward in 9, the forwards and forward+backwards of 11-19, and
+the covariance builds of 27-28) runs with every launch count set to 0
+just before it and read just after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
 FP32 / FP64 tensor-core rate and 3.35 TB/s) and ``{"ok": true,
@@ -328,6 +353,31 @@ def device_ms(fn, reps=20):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / reps / 1e3 if us > 0 else None
+
+
+def busy_ms(fn, warm=True):
+    """Device milliseconds of one call of ``fn()``, for the busy shares:
+    the sum of the device activity that torch.profiler's kineto results
+    record (kernels, copies, sets); None where it records none.  A
+    covariance build launches ~10^5 small kernels a call, where
+    ``key_averages`` (device_ms) takes over a minute to aggregate them:
+    on phase 27's and 28's builds the two read 234.3 / 234.6 ms and
+    551.6 / 545.9 ms and took 9.4 / 3.3 s and 72.3 / 19.3 s
+    (tools/torch_cov_diagnostics.py --card, NVIDIA H100 80GB HBM3, 700.00
+    W).  ``warm=False`` skips the warm-up call (``fn`` has run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda_type)
+    return ns / 1e6 if ns > 0 else None
 
 
 def fmt_ms(ms):
@@ -1512,6 +1562,352 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
     lap("26")
     return {"paths": paths, "bwd_paths": bwd_paths, "kernels": kern,
             "corners": corner, "families": fam_rows, "busy": busy}
+
+
+def cov_blocks_err(got, ref, nb):
+    """The worst max|got - ref| / max|ref| over the nb x nb blocks of two
+    (B, N, N) stacks (numpy)."""
+    n = ref.shape[-1] // nb
+    worst = 0.0
+    for i in range(n):
+        for j in range(n):
+            a = got[:, i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]
+            b = ref[:, i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]
+            worst = max(worst, float(np.max(
+                np.max(np.abs(a - b), axis=(1, 2))
+                / np.maximum(np.max(np.abs(b), axis=(1, 2)), 1e-300))))
+    return worst
+
+
+def survey_numbers(area_deg2, lens_n, src_n, sigma_e):
+    """(Omega_s in sr, lens galaxies per sr, shape noise per component)
+    from densities per arcmin^2 (tools/torch_slice_reference.py's)."""
+    per_sr = (180.0 * 60.0 / np.pi) ** 2
+    omega = area_deg2 * (np.pi / 180.0) ** 2
+    return (float(omega), np.asarray(lens_n, dtype=float) * per_sr,
+            np.asarray(sigma_e, dtype=float) ** 2
+            / (np.asarray(src_n, dtype=float) * per_sr))
+
+
+def phases_27_28(*, lap):
+    """Phases 27-28, the flat-sky covariance stack in float64: the
+    Morrison & Schneider joint w + gamma_t covariance at 64 cosmologies
+    and the DES Y3-like tomographic 3x2pt covariance at 1 and 8, against
+    tests/data/torch_cov_reference.json, with the builds' device busy
+    shares measured last.  Returns the launch counts by path."""
+    import torch
+
+    from chomp_tpu_torch import (DNdzGaussian, covariance, default_cosmo,
+                                 default_halo, default_hod, halo)
+    from chomp_tpu_torch.grids import Statics
+    from chomp_tpu_torch.params import DEFAULT_GRID
+    from chomp_tpu_torch.parallel.sweep import Nuisance3x2pt, broadcast_cosmo
+
+    dev, f64 = cuda(), torch.float64
+    ref = json.loads((REPO / "tests" / "data"
+                      / "torch_cov_reference.json").read_text())
+    paths, busy = {}, []
+    st = Statics(DEFAULT_GRID, device=dev, dtype=f64)
+    st_cpu = Statics(DEFAULT_GRID, device="cpu", dtype=f64)
+    n_b = 64
+    o_all = np.linspace(0.24, 0.32, n_b)
+    s_all = np.linspace(0.75, 0.88, n_b)
+
+    def batch_of(idx, device):
+        kw = dict(device=device, dtype=f64)
+        return broadcast_cosmo(default_cosmo(**kw), omega_m0=o_all[idx],
+                               omega_l0=1.0 - o_all[idx],
+                               sigma_8=s_all[idx])
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        counts_zero()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, counts()[0]
+
+    def timed(fn, reps=3):
+        """(the first call's output, its launch counts, the peak device
+        memory in GiB over the calls above what was allocated before them
+        (earlier phases keep tensors alive), the median wall of ``reps``
+        calls (the first one included), the no-grad runner for the busy
+        share)."""
+        def run():
+            with torch.no_grad():
+                return fn()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        walls = []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            if i == 0:
+                counts_zero()
+            t0 = time.perf_counter()
+            out_i = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                out, launches = out_i, counts()[0]
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        return out, launches, peak, float(np.median(walls)), run
+
+    # -- 27. the Morrison & Schneider joint w(theta) + gamma_t covariance --
+    rj, cell = ref["chip_joint"], ref["joint_cell"]
+    # Every matrix against eager JAX float64 at 1e-9 of each block's peak
+    # (psd_clip leaves a PSD matrix as it is); JAX's own jit(vmap)-vs-
+    # scalar gap is printed beside it.
+    gap = rj["batch_vs_scalar_gap"]
+    gate = 1e-9
+    omega, n2d, sn = survey_numbers(cell["area_deg2"],
+                                    cell["lens_n_arcmin2"],
+                                    cell["src_n_arcmin2"], cell["sigma_e"])
+    edges = np.asarray(cell["edges_deg"])
+    nb = len(edges) - 1
+
+    def joint_of(device, st_, idx, **opts):
+        kw = dict(device=device, dtype=f64)
+        dists = [DNdzGaussian(*(torch.tensor(float(d[k]), **kw) for k in
+                                ("z_min", "z_max", "z0", "sigma_z")))
+                 for d in (cell["lens"], cell["src"])]
+        b = batch_of(idx, device)
+        hp, hod = default_halo(**kw), default_hod(**kw)
+        z = torch.tensor([cell["z_model"]], **kw)
+        base = dict(include_nongaussian=True, include_ssc=True,
+                    psd_guard="clip")
+        base.update(opts)
+
+        def run():
+            model = halo.build_halo_model(b, hp, hod, z, st_)
+            return covariance.joint_wtheta_gammat_covariance(
+                b, hp, model, *dists, edges, omega, float(n2d), float(sn),
+                st=st_, **base)
+        return run
+
+    all_idx = np.arange(n_b)
+    cov_j, launches_j, peak_j, wall_j, run_j = timed(
+        joint_of(dev, st, all_idx))
+    cov_np = cov_j.cpu().numpy()
+    idx_j = np.asarray(rj["indices"])
+    if not np.allclose(rj["omega_m0"], o_all[idx_j]):
+        fail("covariance reference file does not match phase 27's "
+             "cosmologies")
+    err_j = cov_blocks_err(cov_np[idx_j], np.asarray(rj["cov"]), nb)
+    sym_j = float(np.max(np.abs(cov_np - cov_np.transpose(0, 2, 1)))
+                  / np.max(np.abs(cov_np)))
+    eig_j = float(np.min(np.linalg.eigvalsh(cov_np)
+                         / np.abs(cov_np).max(axis=(1, 2))[:, None]))
+    # The Gaussian-only matrix on the card against its plain run on the
+    # CPU (kernel A's plain version there), at the reference rows.
+    gauss_opts = dict(include_nongaussian=False, include_ssc=False,
+                      psd_guard=None)
+    g_card, launches_g = counted(joint_of(dev, st, idx_j, **gauss_opts))
+    with torch.no_grad():
+        g_cpu = joint_of("cpu", st_cpu, idx_j, **gauss_opts)()
+    err_g = cov_blocks_err(g_card.cpu().numpy(), g_cpu.numpy(), nb)
+    # The pieces at the first reference cosmology against JAX's: the
+    # Gaussian part, + cNG, + SSC (unclipped).
+    pieces = {"gaussian": g_card[:1]}
+    for key, opts in (("gaussian_cng", dict(include_ssc=False,
+                                            psd_guard=None)),
+                      ("unclipped", dict(psd_guard=None))):
+        pieces[key] = counted(joint_of(dev, st, idx_j[:1], **opts))[0]
+    err_pieces = {key: cov_blocks_err(
+        v.cpu().numpy(), np.asarray(rj["pieces_at_first"][key])[None], nb)
+        for key, v in pieces.items()}
+    busy.append(("joint covariance forward", run_j, wall_j * 1e3, n_b))
+    paths["joint_covariance"] = launches_j
+    print(f"[joint covariance] examples/joint_covariance_example.py's "
+          f"survey (1000 deg^2, 2 + 10 per arcmin^2, sigma_e 0.26, 8 bins "
+          f"0.01-1 deg, z 0.5) on DEFAULT_GRID at the JAX defaults (n_k_tri "
+          f"96, n_ell_cov_ng 96, n_ell_cov_g 4096, u_stride 4), Gaussian + "
+          f"cNG + SSC + clip, float64, B={n_b}: launches {launches_j} | "
+          f"against JAX (rows {idx_j.tolist()}): worst block "
+          f"{err_j:.3e} (gate {gate:.0e}; JAX's own jit(vmap)-vs-scalar "
+          f"gap {gap:.3e}); at row {idx_j[0]} "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err_pieces.items())
+          + f" (gate {gate:.0e}) | symmetry {sym_j:.1e}, least eigenvalue / "
+          f"peak {eig_j:.2e} | Gaussian-only card vs CPU plain {err_g:.3e} "
+          f"(gate 1e-12; launches {launches_g}) | wall {wall_j:.3f} s "
+          f"(median of 3) = {wall_j / n_b * 1e3:.2f} ms per cosmology, peak "
+          f"{peak_j:.2f} GiB above the earlier phases'", flush=True)
+    if not np.all(np.isfinite(cov_np)) or cov_np.shape != (n_b, 2 * nb,
+                                                           2 * nb):
+        fail(f"joint covariance: shape {cov_np.shape} or non-finite")
+    if launches_j != {"halo_contract": 2, "df_contract": 0,
+                      "hankel_matmul": 0}:
+        fail(f"joint covariance launches {launches_j}: want kernel A twice "
+             f"(the lattice C_ell, the SSC responses)")
+    for name, val, g in (("vs JAX", err_j, gate), ("symmetry", sym_j, 1e-12),
+                         ("least eigenvalue", -eig_j, 1e-10),
+                         ("Gaussian-only card vs CPU", err_g, 1e-12),
+                         *((f"{k} vs JAX", v, gate)
+                           for k, v in err_pieces.items())):
+        if not val <= g:
+            fail(f"joint covariance {name}: {val} (gate {g})")
+    lap("27")
+
+    # -- 28. the DES Y3-like tomographic 3x2pt covariance ------------------
+    rt, tc, sv = ref["chip_tomo"], ref["tomo_cell"], ref["des_y3_survey"]
+    nu_ref = json.loads((REPO / "tests" / "data"
+                         / "torch_tomo_reference.json").read_text())[
+        "nuisance"]
+    t_edges = np.asarray(ref["des_theta_edges_deg"])
+    nb_t = len(t_edges) - 1
+
+    def tomo_of(n_l, n_s, idx, **opts):
+        kw = dict(device=dev, dtype=f64)
+
+        def gauss(z0, sz, z_max):
+            return DNdzGaussian(*(torch.tensor(float(v), **kw)
+                                  for v in (0.0, z_max, z0, sz)))
+
+        lens = [gauss(z0, tc["lens_sigma_z"], tc["lens_z_max"])
+                for z0 in tc["lens_z0"][:n_l]]
+        src = [gauss(z0, sz, tc["src_z_max"]) for z0, sz in
+               list(zip(tc["src_z0"], tc["src_sigma_z"]))[:n_s]]
+        hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                            log10_m_1p=m + tc["log10_m_1p_offset"], **kw)
+                for m in tc["log10_m_min"][:n_l]]
+        om, n2d_t, sn_t = survey_numbers(
+            sv["area_deg2"], sv["lens_n_arcmin2"][:n_l],
+            sv["src_n_eff_arcmin2"][:n_s], sv["src_sigma_e"][:n_s])
+        per_bin = {"dz_lens": n_l, "alpha_lens": n_l, "dz_src": n_s,
+                   "m": n_s}
+        nu = Nuisance3x2pt(**{
+            k: torch.tensor(v[:per_bin[k]] if k in per_bin else v, **kw)
+            for k, v in nu_ref.items()})
+        b = batch_of(idx, dev)
+        hp = default_halo(**kw)
+        z = torch.tensor([tc["z_pivot"]], **kw)
+        base = dict(include_nongaussian=True, include_ssc=True,
+                    psd_guard="clip", nuisance=nu,
+                    include_magnification=True)
+        base.update(opts)
+
+        def run():
+            models = halo.build_halo_models(b, hp, hods, z, st)
+            return covariance.tomographic_3x2pt_covariance(
+                b, hp, models, lens, src, t_edges, om, n2d_t.tolist(),
+                sn_t.tolist(), st=st, **base)
+        return run
+
+    idx_t = np.asarray(rt["indices"])
+    if not np.allclose(rt["omega_m0"], o_all[idx_t]):
+        fail("covariance reference file does not match phase 28's "
+             "cosmologies")
+    n_l, n_s = rt["bins"]
+    # The builder's clip is psd_clip of its raw matrix (_apply_psd_guard):
+    # one raw run gives both.
+    sub_raw, launches_sub = counted(tomo_of(n_l, n_s, idx_t,
+                                            psd_guard=None))
+    sub = covariance.psd_clip(sub_raw).cpu().numpy()
+    sub_raw = sub_raw.cpu().numpy()
+    jax_raw, jax_clip = np.asarray(rt["cov_raw"]), np.asarray(rt["cov"])
+    err_raw_t = cov_blocks_err(sub_raw, jax_raw, nb_t)
+    err_t = cov_blocks_err(sub, jax_clip, nb_t)
+    # JAX's clip rebuilds the whole matrix (LAPACK's eigh): the clipped
+    # matrix's gate is twice what that moves, where it exceeds 1e-9.
+    jax_move = cov_blocks_err(jax_clip, jax_raw, nb_t)
+    gate_clip = max(gate, 2.0 * jax_move)
+    sub_raw = sub_raw[0]
+    # The full 5 x 4 matrix at B = 1, raw (its blocks over bins 0-1 must
+    # equal the 2 x 2 run's) and clipped as the builder clips it.
+    full_raw = counted(tomo_of(5, 4, idx_t[:1], psd_guard=None))[0]
+    full_clip = covariance.psd_clip(full_raw).cpu().numpy()[0]
+    full_raw = full_raw.cpu().numpy()[0]
+    probes = covariance.tomographic_probes(5, 4)
+    probes_sub = covariance.tomographic_probes(n_l, n_s)
+    name_sub = [p[0] for p in probes_sub]
+    names = [p[0] for p in probes]
+
+    def in_sub(name):
+        return name in name_sub
+
+    worst_sub, worst_clip = 0.0, 0.0
+    for a, pa in enumerate(names):
+        for c, pc in enumerate(names):
+            if not (in_sub(pa) and in_sub(pc)):
+                continue
+            ia, ic = name_sub.index(pa), name_sub.index(pc)
+            blk = full_raw[a * nb_t:(a + 1) * nb_t, c * nb_t:(c + 1) * nb_t]
+            want = sub_raw[ia * nb_t:(ia + 1) * nb_t,
+                           ic * nb_t:(ic + 1) * nb_t]
+            den = max(np.abs(want).max(), 1e-300)
+            worst_sub = max(worst_sub, float(np.abs(blk - want).max() / den))
+            clip = full_clip[a * nb_t:(a + 1) * nb_t,
+                             c * nb_t:(c + 1) * nb_t]
+            worst_clip = max(worst_clip, float(np.abs(clip - blk).max()
+                                               / den))
+    sym_t = float(np.max(np.abs(full_clip - full_clip.T))
+                  / np.abs(full_clip).max())
+    eig_raw = np.linalg.eigvalsh(0.5 * (full_raw + full_raw.T))
+    eig_t = float(np.linalg.eigvalsh(full_clip).min()
+                  / np.abs(full_clip).max())
+    idx8 = np.unique(np.linspace(0, n_b - 1, 8).round()).astype(int)
+    _, launches_1, peak1, wall1, run1_ng = timed(tomo_of(5, 4, idx_t[:1]))
+    cov8, launches_8, peak8, wall8, run8_ng = timed(tomo_of(5, 4, idx8))
+    cov8 = cov8.cpu().numpy()
+    eig8 = float(min(np.linalg.eigvalsh(c).min() / np.abs(c).max()
+                     for c in cov8))
+    row0 = int(np.nonzero(idx8 == idx_t[0])[0][0])
+    err_18 = float(np.abs(cov8[row0] - full_clip).max()
+                   / np.abs(full_clip).max())
+    busy.append(("tomographic covariance forward", run1_ng, wall1 * 1e3, 1))
+    busy.append(("tomographic covariance forward", run8_ng, wall8 * 1e3, 8))
+    paths["tomographic_covariance"] = launches_8
+    n_probe = len(probes)
+    print(f"[tomographic covariance] the cell of phase 13 (5 lens x 4 "
+          f"source bins, per-bin Zheng HODs, nuisances, magnification) with "
+          f"DES Y3's survey (4143 deg^2, n and sigma_e per bin) at its 20 "
+          f"bins as edges 2.5'-250': {n_probe} probes, a "
+          f"{n_probe * nb_t} x {n_probe * nb_t} matrix, Gaussian + cNG + "
+          f"SSC + clip, float64 | {n_l} x {n_s} run against JAX (row "
+          f"{idx_t.tolist()}), worst block: raw {err_raw_t:.3e} (gate "
+          f"{gate:.0e}), clipped {err_t:.3e} (gate {gate_clip:.1e}: JAX's "
+          f"clip moves its raw matrix {jax_move:.3e}), launches "
+          f"{launches_sub} | 5 x 4 raw blocks over bins 0-1 "
+          f"against the {n_l} x {n_s} raw run: {worst_sub:.3e} (gate "
+          f"1e-10); the clip moves them by {worst_clip:.3e} of their peak "
+          f"(the builder's PSD clip of the whole matrix is the one step "
+          f"that mixes every bin: raw least eigenvalue / peak "
+          f"{eig_raw.min() / np.abs(full_raw).max():.2e}) | clipped: "
+          f"symmetry {sym_t:.1e}, least eigenvalue / peak {eig_t:.2e}, B=8 "
+          f"{eig8:.2e}; B=8 row {row0} vs B=1 {err_18:.1e} | launches B=1 "
+          f"{launches_1}, B=8 {launches_8} | wall B=1 {wall1:.3f} s, B=8 "
+          f"{wall8:.3f} s (medians of 3) = {wall8 / len(idx8) * 1e3:.1f} ms "
+          f"per cosmology | peak above the earlier phases' B=1 {peak1:.2f} "
+          f"GiB, B=8 {peak8:.2f} GiB", flush=True)
+    if not (np.all(np.isfinite(cov8)) and np.all(np.isfinite(full_clip))):
+        fail("tomographic covariance: non-finite")
+    for launches_b in (launches_1, launches_8):
+        if launches_b != {"halo_contract": 2, "df_contract": 0,
+                          "hankel_matmul": 0}:
+            fail(f"tomographic covariance launches {launches_b}: want "
+                 f"kernel A twice (every pack's lattice spectra, every "
+                 f"sample's SSC responses)")
+    for name, val, g in (("2x2 raw vs JAX", err_raw_t, gate),
+                         ("2x2 clipped vs JAX", err_t, gate_clip),
+                         ("5x4 vs 2x2 blocks", worst_sub, 1e-10),
+                         ("symmetry", sym_t, 1e-12),
+                         ("least eigenvalue", -eig_t, 1e-10),
+                         ("B=8 least eigenvalue", -eig8, 1e-10),
+                         ("B=8 vs B=1", err_18, 1e-10)):
+        if not val <= g:
+            fail(f"tomographic covariance {name}: {val} (gate {g})")
+    lap("28")
+    # The device's busy share of each build: measured here, after every
+    # wall of 27-28 (a profiler session slows later launches).
+    for label, run, wall_b, n_run in busy:
+        dev_ms = busy_ms(run, warm=False)
+        print(f"[device time] {label}, B={n_run}: device busy "
+              f"{fmt_ms(dev_ms)} of a {wall_b:.1f} ms wall"
+              + (f" ({dev_ms / wall_b:.1%} busy)" if dev_ms else "")
+              + " (kineto device-activity sum)", flush=True)
+    lap("27-28 device busy")
+    return {"paths": paths}
 
 
 def once_ms(fn):
@@ -4365,6 +4761,10 @@ def main():
         cheb64=cheb64, pipe_a32=pipe, pipe_a64=pipe64, profiled=profiled,
         lap=lap)
 
+    # -- 27-28. the flat-sky covariance stack --------------------------------
+    cov_late = phases_27_28(lap=lap)
+    late["paths"].update(cov_late["paths"])
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -4417,7 +4817,7 @@ def main():
                                         ("tomographic forward",
                                          (fwd_tm, wall_tm * 1e3)),
                                         *runs_op]:
-        busy = device_ms(run, reps=1)
+        busy = busy_ms(run)
         what = "" if route.endswith("forward") else " forward+backward"
         n_r = n_r[0] if n_r else (n_x if route == "exact-z" else N_COSMO)
         print(f"[device time] {route}{what}, B={n_r}: "

@@ -20,12 +20,23 @@ each with a backward kernel, so both routes differentiate on the card;
 Jacobian, Gaussian / Poisson / composite likelihoods, Fisher, MOPED,
 templates and scale cuts, MAP fit, HMC and adaptive HMC, the
 external-sampler bridge and ensemble sampler) and ``emulator`` its MLP
-emulator.  The package imports torch, numpy and
+emulator.  The flat-sky, separable-growth covariance stack gives those
+likelihoods their matrices, float64 on the card: ``trispectrum`` (the
+halo-model T̄(k1, k2) with mixed tracers), ``mask`` (survey footprints
+and the masked Gaussian covariance), ``ssc`` (the super-sample term) and
+``covariance`` (Gaussian, connected and SSC blocks and the joint w +
+gamma_t, 3x2pt and tomographic builders), its C_ell from kernel A on the
+k lattice.  The package imports torch, numpy and
 scipy only; the JAX package beside it is its reference in the tests.
 """
 
+from chomp_tpu_torch import covariance, mask, ssc, trispectrum
+from chomp_tpu_torch.covariance import (joint_3x2pt_covariance,
+                                        joint_wtheta_gammat_covariance,
+                                        tomographic_3x2pt_covariance)
 from chomp_tpu_torch.hod import (HODKravtsov, HODMandelbaum, HODPoisson,
                                  HODZheng, default_hod)
+from chomp_tpu_torch.mask import DiscMask, PixelMask, UniformMask
 from chomp_tpu_torch.params import (DEFAULT_GRID, CosmoParams, GridSpec,
                                     HaloParams, default_cosmo, default_halo)
 from chomp_tpu_torch.parallel.sweep import (Nuisance3x2pt, broadcast_cosmo,
@@ -35,8 +46,11 @@ from chomp_tpu_torch.projection import (DNdzGaussian, DNdzInterpolation,
                                         DNdzMagLim, DNdzShifted)
 
 __all__ = ["CosmoParams", "DEFAULT_GRID", "DNdzGaussian",
-           "DNdzInterpolation", "DNdzMagLim", "DNdzShifted", "GridSpec",
-           "HODKravtsov", "HODMandelbaum", "HODPoisson", "HODZheng",
-           "HaloParams", "Nuisance3x2pt", "broadcast_cosmo",
-           "default_cosmo", "default_halo", "default_hod",
-           "default_nuisance", "make_pipeline", "make_tomographic_pipeline"]
+           "DNdzInterpolation", "DNdzMagLim", "DNdzShifted", "DiscMask",
+           "GridSpec", "HODKravtsov", "HODMandelbaum", "HODPoisson",
+           "HODZheng", "HaloParams", "Nuisance3x2pt", "PixelMask",
+           "UniformMask", "broadcast_cosmo", "covariance", "default_cosmo",
+           "default_halo", "default_hod", "default_nuisance",
+           "joint_3x2pt_covariance", "joint_wtheta_gammat_covariance",
+           "make_pipeline", "make_tomographic_pipeline", "mask", "ssc",
+           "tomographic_3x2pt_covariance", "trispectrum"]

@@ -387,3 +387,129 @@ def power_gg_cross(cosmo: CosmoParams, halo: HaloParams, model_a: HaloModel,
     three packs go through one kernel A launch."""
     return tomographic_powers(cosmo, halo, [model_a, model_b], k,
                               st)[("power_gg", 0, 1)]
+
+
+# ---------------------------------------------------------------------------
+# The plain mass integrals of the covariance stack.
+# ---------------------------------------------------------------------------
+
+def _k_col(k):
+    """A static k vector (nk,) or per-row (B, nk) as (B|1, nk, 1)."""
+    k = torch.atleast_1d(k)
+    return (k[None, :] if k.dim() == 1 else k)[..., None]
+
+
+def _y_matrix(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k):
+    """y(k_i, M_j) at the mass-table nodes, no feedback hooks: (B, nk,
+    nM)."""
+    return profiles.y_nfw(cosmo, halo, _k_col(k), model.mass.m[:, None, :],
+                          model.m_star, model.mass.z)
+
+
+def _y_gal(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k):
+    """y(k_i, M_j) at the galaxy-pack nodes: (B, nk, nG)."""
+    return profiles.y_nfw(cosmo, halo, _k_col(k), model.gal.m[:, None, :],
+                          model.m_star, model.mass.z)
+
+
+def _bary_scales(cosmo: CosmoParams, nu_sq):
+    """(c_scale (B,), k_scale (B, 1, N)): the matter profile's feedback
+    hooks at nodes of squared peak height ``nu_sq`` (B, N)."""
+    return cosmo.bary_c, torch.sqrt(nu_sq)[:, None, :] ** col(
+        cosmo.bary_eta, 2)
+
+
+def _y_matter(cosmo: CosmoParams, halo: HaloParams, model: HaloModel, k):
+    """Matter-profile y(k_i, M_j) at the mass-table nodes with the
+    feedback hooks: (B, nk, nM)."""
+    c_s, k_s = _bary_scales(cosmo, model.mass.nu)
+    return profiles.y_nfw(cosmo, halo, _k_col(k), model.mass.m[:, None, :],
+                          model.m_star, model.mass.z, c_scale=c_s,
+                          k_scale=k_s)
+
+
+def _y_gal_matter(cosmo: CosmoParams, halo: HaloParams, model: HaloModel,
+                  k):
+    """Matter-profile y at the galaxy-pack nodes with the feedback hooks
+    (the matter factor of the 1-halo gm integrand): (B, nk, nG)."""
+    c_s, k_s = _bary_scales(cosmo, model.gal.nu)
+    return profiles.y_nfw(cosmo, halo, _k_col(k), model.gal.m[:, None, :],
+                          model.m_star, model.mass.z, c_scale=c_s,
+                          k_scale=k_s)
+
+
+def _contract(y, w):
+    """sum_M y[b, k, M] w[b, M] -> (B, nk)."""
+    return torch.einsum("bkm,bm->bk", y, w)
+
+
+def two_halo_integrals(cosmo: CosmoParams, halo: HaloParams,
+                       model: HaloModel, k):
+    """(h_m, h_g)(k), (B, nk) each: the bias-weighted halo integrals, by
+    plain torch contractions (kernel A's first two outputs)."""
+    t, g = model.mass, model.gal
+    h_m = _contract(_y_matter(cosmo, halo, model, k),
+                    t.w_lnm * t.f_nu * t.dnu_dlnm * t.bias)
+    h_g = _contract(_y_gal(cosmo, halo, model, k),
+                    g.w_lnm * g.dndlnm * g.n_first * g.bias) / col(
+        model.n_g, 1)
+    return h_m, h_g
+
+
+def one_halo_integrals(cosmo: CosmoParams, halo: HaloParams,
+                       model: HaloModel, k, st=None):
+    """(pp_mm, pp_gg, pp_gm)(k), (B, nk) each: the 1-halo terms with the
+    Scranton y / y^2 selects at the switch masses, by plain torch
+    contractions (kernel A's last three outputs).  ``st`` is accepted for
+    the JAX signature's (with_bao, grid) and unused."""
+    t, g = model.mass, model.gal
+    y = _y_matter(cosmo, halo, model, k)
+    pp_mm = _contract(y * y, t.w_lnm * t.f_nu * t.dnu_dlnm * t.m
+                      / col(cosmo.rho_bar, 1))
+    y_g = _y_gal(cosmo, halo, model, k)
+    below2 = (g.ln_m < col(model.ln_m_sw2, 1))[:, None, :]
+    pp_gg = _contract(torch.where(below2, y_g, y_g * y_g),
+                      g.w_lnm * g.dndlnm * g.n_second) / col(
+        model.n_g, 1) ** 2
+    y_gm_m = _y_gal_matter(cosmo, halo, model, k)
+    below1 = (g.ln_m < col(model.ln_m_sw1, 1))[:, None, :]
+    pp_gm = _contract(torch.where(below1, y_gm_m, y_gm_m * y_g),
+                      g.w_lnm * g.dndlnm * g.m * g.n_first) / col(
+        model.n_g * cosmo.rho_bar, 1)
+    return pp_mm, pp_gg, pp_gm
+
+
+def linear_power(cosmo: CosmoParams, model: HaloModel, k, st):
+    """P_lin(k) of the halo sector (the cb spectrum at m_nu > 0) at the
+    model's redshift: ``k`` (nk,) or (B, nk) -> (B, nk)."""
+    k = torch.atleast_1d(k)
+    return linear.linear_power(cosmo, k[None, :] if k.dim() == 1 else k,
+                               model.mass.z, st, species="cb")
+
+
+def galaxy_bias_avg(model: HaloModel):
+    """Mean galaxy bias <b_g> = (1/n_g) ∫ dn/dlnM <N> b dlnM, (B,)."""
+    g = model.gal
+    return torch.sum(g.w_lnm * g.dndlnm * g.n_first * g.bias,
+                     dim=-1) / model.n_g
+
+
+def union_gal_pack(cosmo: CosmoParams, halo: HaloParams, models, st):
+    """(ln_m, w_lnm, m, dndlnm, bias), (B, nU) each: the GL pack with
+    panel edges at EVERY sample's HOD breakpoints (no Scranton edges),
+    the shared rule of mass integrals mixing several samples' occupation
+    moments.  The models share one mass-table build."""
+    t = models[0].mass
+    lo, hi = t.ln_m[:, 0], t.ln_m[:, -1]
+    bps = [b for mdl in models for b in mdl.hod.breakpoints()]
+    parts = [lo[:, None]]
+    if bps:
+        parts.append(torch.sort(torch.stack(
+            [torch.clamp(b.expand_as(lo), lo, hi) for b in bps], dim=-1),
+            dim=-1).values)
+    parts.append(hi[:, None])
+    edges = torch.cat(parts, dim=-1)
+    n_per = max(st.grid.n_mass // (edges.shape[-1] - 1), 64)
+    pack = node_pack(cosmo, halo, t, edges[:, :-1], edges[:, 1:], n_per, st)
+    return (pack.ln_m, pack.w_lnm, torch.exp(pack.ln_m), pack.dndlnm,
+            pack.bias)

@@ -72,6 +72,14 @@ def _fiducial_chi_table():
     return z_dense, chi_dense
 
 
+def fiducial_chi_np(z):
+    """Static fiducial chi(z) (numpy): sizes static lattice sub-ranges
+    from concrete window supports; the per-cosmology distances stay
+    exact."""
+    z_dense, chi_dense = _fiducial_chi_table()
+    return np.interp(np.asarray(z), z_dense, chi_dense)
+
+
 @lru_cache(maxsize=None)
 def _fiducial_z_seed(key, mid: bool = False):
     """Static Newton seed z_fid(chi) at the lattice nodes (or midpoints)."""

@@ -1,7 +1,8 @@
-"""Special functions for the NFW profile: Si/Ci auxiliary functions, erfc.
+"""Special functions: the NFW profile's Si/Ci auxiliary functions, erfc
+and the Bessel functions J0, J1, J2.
 
-PyTorch counterpart of the JAX package's ``special.py`` (the subset the NFW
-y(k, M) and the Zheng HOD need).  Same Chebyshev tables
+PyTorch counterpart of the JAX package's ``special.py`` (the NFW y(k, M),
+the Zheng HOD and the covariance stack's bin-averaged Bessel factors).  Same Chebyshev tables
 (``_special_coeffs``, copied verbatim), same branch structure, and the
 same float32 trimming: :func:`_trim` drops tail coefficients below 3e-9,
 the Si/Ci power series keeps 10 terms and the asymptotic g series 4
@@ -123,6 +124,55 @@ def nfw_n(x, c):
     b = (1.0 + c) * x
     cx = c * x
     return aux_g(x) + torch.sin(cx) * aux_fm(b) - torch.cos(cx) * aux_g(b)
+
+
+_SQRT_2_PI = math.sqrt(2.0 / math.pi)
+
+
+def _pq(p_coeffs, q_coeffs, x):
+    """The asymptotic P, Q of the Hankel expansion at x >= 8."""
+    u = torch.clamp((8.0 / x) ** 2, 0.0, 1.0)
+    return (_cheb_on(p_coeffs, 0.0, 1.0, u),
+            _cheb_on(q_coeffs, 0.0, 1.0, u) * torch.sqrt(u))
+
+
+def j0(x):
+    """Bessel J0: a Chebyshev table in x^2 below 8, the Hankel expansion
+    above."""
+    x = torch.abs(x)
+    t = torch.clamp(x * x, 0.0, 64.0)
+    small = _cheb_on(_cf.j0_small, 0.0, 64.0, t)
+    xl = torch.clamp_min(x, 8.0)
+    p, q = _pq(_cf.bessel_p0, _cf.bessel_q0, xl)
+    chi = xl - 0.25 * math.pi
+    large = _SQRT_2_PI / torch.sqrt(xl) * (p * torch.cos(chi)
+                                           - q * torch.sin(chi))
+    return torch.where(x <= 8.0, small, large)
+
+
+def j1(x):
+    """Bessel J1 (odd)."""
+    sign = torch.sign(x)
+    x = torch.abs(x)
+    t = torch.clamp(x * x, 0.0, 64.0)
+    small = _cheb_on(_cf.j1_small, 0.0, 64.0, t) * x
+    xl = torch.clamp_min(x, 8.0)
+    p, q = _pq(_cf.bessel_p1, _cf.bessel_q1, xl)
+    chi = xl - 0.75 * math.pi
+    large = _SQRT_2_PI / torch.sqrt(xl) * (p * torch.cos(chi)
+                                           - q * torch.sin(chi))
+    return sign * torch.where(x <= 8.0, small, large)
+
+
+def j2(x):
+    """Bessel J2: a J2/x^2 table below 8 (no 2 J1/x - J0 cancellation),
+    the recurrence above."""
+    x = torch.abs(x)
+    t = torch.clamp(x * x, 0.0, 64.0)
+    small = _cheb_on(_cf.j2_small, 0.0, 64.0, t) * t
+    xl = torch.clamp_min(x, 8.0)
+    large = 2.0 * j1(xl) / xl - j0(xl)
+    return torch.where(x <= 8.0, small, large)
 
 
 def erfc(x):

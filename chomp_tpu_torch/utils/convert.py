@@ -133,6 +133,42 @@ def cmb_spec(src) -> CMBLensingSpec:
                           nl=np.exp(np.asarray(src._ln_n)))
 
 
+def disc_mask(src):
+    """DiscMask from a JAX-package DiscMask (numpy geometry: no device)."""
+    from chomp_tpu_torch.mask import DiscMask
+
+    return DiscMask(float(src.radius))
+
+
+def uniform_mask(src):
+    """UniformMask from a JAX-package UniformMask."""
+    from chomp_tpu_torch.mask import UniformMask
+
+    return UniformMask(float(src.omega_s_sr))
+
+
+def pixel_mask(src):
+    """PixelMask from a JAX-package PixelMask: the FFT-derived areas,
+    pair functions, mask-power shells and the content hash are copied
+    (the map itself is not kept by either class)."""
+    from chomp_tpu_torch.mask import PixelMask
+
+    out = PixelMask.__new__(PixelMask)
+    out.__dict__.update({k: (np.array(v, dtype=np.float64)
+                             if isinstance(v, np.ndarray) else v)
+                         for k, v in vars(src).items()})
+    return out
+
+
+def mask(src):
+    """Any of the JAX package's flat-sky masks, by its class name."""
+    conv = {"DiscMask": disc_mask, "UniformMask": uniform_mask,
+            "PixelMask": pixel_mask}.get(type(src).__name__)
+    if conv is None:
+        raise TypeError(f"no converter for {type(src).__name__}")
+    return conv(src)
+
+
 def emulator(src, *, device, dtype):
     """An :class:`~chomp_tpu_torch.emulator.Emulator` with a JAX-package
     ``Emulator``'s weights, scalings and basis: the two compute the same

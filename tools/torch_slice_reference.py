@@ -65,6 +65,23 @@ writes
   ``jax.jacfwd(emu)`` at its points, and ``train_emulator``'s scalings,
   basis and rank (one epoch) on each of its PCA cases.
 
+- ``tests/data/torch_cov_reference.json``: the flat-sky covariance stack
+  (``covariance``, ``ssc``, ``mask``, ``trispectrum``), eager float64
+  JAX one cosmology at a time: ``tiny``, the cases of
+  tests/torch_cov_cases.py (the covariance tests' grid and cosmologies)
+  with the CPU seconds each took; ``chip_joint``, chip_smoke.py phase
+  27's joint w(theta) + gamma_t matrix (``JOINT_CELL``: the survey of
+  examples/joint_covariance_example.py on DEFAULT_GRID at the builders'
+  defaults, cNG + SSC + clip) at 3 cosmologies of the 64-point
+  linspaces, with the worst block gap of ``jax.jit(jax.vmap)`` to the
+  scalar program (the gap tests/test_covariance.py:506 measured); and
+  ``chip_tomo``, phase 28's gate, bins 0-1 of the tomographic cell with
+  DES Y3's survey (``DES_Y3_SURVEY``) at ``DES_THETA_EDGES_DEG``, raw
+  (``cov_raw``, ``psd_guard=None``) and clipped (``cov``).  Each
+  block is made in a process of its own (``--cov-part tiny|chip_joint|
+  chip_tomo <file>``; on an 8-core CPU 17 min, about 20 min and 57 min:
+  the 78 probe-pair blocks of the 2 x 2 run take eager JAX that long).
+
 ``chip_smoke.py`` holds the port's GPU runs against these numbers.
 
     python tools/torch_slice_reference.py [--seed N] [FILE ...]
@@ -552,6 +569,16 @@ def write_tomo_reference(seed: int):
     path = DATA / "torch_tomo_reference.json"
     path.write_text(json.dumps(tomo_reference(seed), indent=1) + "\n")
     print(f"wrote {path}")
+
+
+#: The survey of the tomographic cell's covariance (chip_smoke.py phase
+#: 28): DES Y3's footprint, 4143 deg^2, the redMaGiC lens densities per
+#: arcmin^2 and the source bins' n_eff per arcmin^2 and shape dispersion
+#: per component, as Abbott et al. 2022 (arXiv:2105.13549) report them.
+DES_Y3_SURVEY = dict(area_deg2=4143.0,
+                     lens_n_arcmin2=[0.022, 0.038, 0.058, 0.029, 0.025],
+                     src_n_eff_arcmin2=[1.476, 1.479, 1.484, 1.461],
+                     src_sigma_e=[0.243, 0.262, 0.259, 0.301])
 
 
 #: DES Y3's 20 log-spaced angular bins from 2.5' to 250' (Abbott et al.
@@ -1247,11 +1274,468 @@ def write_emulator_reference():
     print(f"wrote {path}")
 
 
+# ---------------------------------------------------------------------------
+# The covariance stack: tests/data/torch_cov_reference.json
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py phase 27, the Morrison & Schneider joint w(theta) + gamma_t
+#: covariance: the survey of examples/joint_covariance_example.py (1000
+#: deg^2, 2 lenses and 10 sources per arcmin^2, sigma_e 0.26 per component,
+#: 8 bins from 0.01 to 1 deg, the halo model at z = 0.5), on DEFAULT_GRID
+#: at the JAX builders' default knobs with the connected and super-sample
+#: terms and the PSD clip; cosmologies of bench.py's 64-point linspaces.
+JOINT_CELL = dict(area_deg2=1000.0, lens_n_arcmin2=2.0, src_n_arcmin2=10.0,
+                  sigma_e=0.26, lens=dict(z_min=0.0, z_max=1.2, z0=0.5,
+                                          sigma_z=0.15),
+                  src=dict(z_min=0.0, z_max=2.5, z0=1.2, sigma_z=0.3),
+                  z_model=0.5, edges_deg=np.logspace(-2, 0, 9).tolist())
+JOINT_INDICES = EXACT_INDICES
+#: chip_smoke.py phase 28: the tomographic cell (TOMO_CELL, its nuisance
+#: point and per-bin HODs) with DES_Y3_SURVEY, DES Y3's 20 bins used as
+#: bin edges from 2.5' to 250'; the JAX values are of its first
+#: TOMO_COV_BINS (lens, source) bins, at TOMO_COV_INDICES of the 64-point
+#: linspaces, by the scalar program only (an eager JAX run of its 78
+#: probe-pair blocks takes about an hour on the CPU; the gate takes phase
+#: 27's batch-vs-scalar gap).
+DES_THETA_EDGES_DEG = (2.5 * 10.0 ** (np.arange(21) / 10.0) / 60.0).tolist()
+TOMO_COV_BINS = (2, 2)
+TOMO_COV_INDICES = (0,)
+PER_SR = (180.0 * 60.0 / np.pi) ** 2
+
+
+def survey_numbers(area_deg2, lens_n, src_n, sigma_e):
+    """(omega_s in sr, lens n2d per sr, shape noise per component) of
+    densities per arcmin^2 (scalars or lists)."""
+    omega = area_deg2 * (np.pi / 180.0) ** 2
+    n2d = np.asarray(lens_n, dtype=float) * PER_SR
+    sn = np.asarray(sigma_e, dtype=float) ** 2 / (
+        np.asarray(src_n, dtype=float) * PER_SR)
+    return float(omega), n2d, sn
+
+
+def _jax_gauss(spec):
+    import jax.numpy as jnp
+
+    from chomp_tpu import projection
+
+    return projection.DNdzGaussian(**{k: jnp.asarray(float(v))
+                                      for k, v in spec.items()})
+
+
+def _cosmo_at(om, s8):
+    import jax.numpy as jnp
+
+    from chomp_tpu import default_cosmo
+
+    return dataclasses.replace(default_cosmo(), omega_m0=jnp.asarray(om),
+                               omega_l0=jnp.asarray(1.0 - om),
+                               sigma_8=jnp.asarray(s8))
+
+
+def _block_gap(batched, scalar, nb):
+    """max over cosmologies and nb x nb blocks of max|a - b| / max|b|."""
+    worst = 0.0
+    n = scalar.shape[-1] // nb
+    for c in range(scalar.shape[0]):
+        for i in range(n):
+            for j in range(n):
+                a = batched[c, i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]
+                b = scalar[c, i * nb:(i + 1) * nb, j * nb:(j + 1) * nb]
+                worst = max(worst, float(np.max(np.abs(a - b))
+                                         / max(np.max(np.abs(b)), 1e-300)))
+    return worst
+
+
+def joint_cov_fn(grid, **kw):
+    """The phase-27 builder of one JAX cosmology on ``grid``."""
+    from chomp_tpu import covariance, default_halo, halo
+    from chomp_tpu.hod import default_hod
+
+    c = JOINT_CELL
+    lens, src = _jax_gauss(c["lens"]), _jax_gauss(c["src"])
+    omega, n2d, sn = survey_numbers(c["area_deg2"], c["lens_n_arcmin2"],
+                                    c["src_n_arcmin2"], c["sigma_e"])
+    hp, hod = default_halo(), default_hod()
+    opts = dict(include_nongaussian=True, include_ssc=True,
+                psd_guard="clip")
+    opts.update(kw)
+
+    def f(cosmo):
+        m = halo.build_halo_model(cosmo, hp, hod, c["z_model"], False, grid)
+        return covariance.joint_wtheta_gammat_covariance(
+            cosmo, hp, m, lens, src, c["edges_deg"], omega, float(n2d),
+            float(sn), grid=grid, **opts)
+
+    return f
+
+
+def tomo_cov_fn(grid, n_lens, n_src, **kw):
+    """The phase-28 builder (first ``n_lens`` x ``n_src`` bins of the
+    cell) of one JAX cosmology on ``grid``."""
+    import jax.numpy as jnp
+
+    from chomp_tpu import covariance, default_halo, halo
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.parallel.sweep import Nuisance3x2pt
+
+    c = TOMO_CELL
+    nu = json.loads((DATA / "torch_tomo_reference.json").read_text())[
+        "nuisance"]
+    lens = [_jax_gauss(dict(z_min=0.0, z_max=c["lens_z_max"], z0=z0,
+                            sigma_z=c["lens_sigma_z"]))
+            for z0 in c["lens_z0"][:n_lens]]
+    src = [_jax_gauss(dict(z_min=0.0, z_max=c["src_z_max"], z0=z0,
+                           sigma_z=sz))
+           for z0, sz in list(zip(c["src_z0"], c["src_sigma_z"]))[:n_src]]
+    hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                        log10_m_1p=m + c["log10_m_1p_offset"])
+            for m in c["log10_m_min"][:n_lens]]
+    sv = DES_Y3_SURVEY
+    omega, n2d, sn = survey_numbers(
+        sv["area_deg2"], sv["lens_n_arcmin2"][:n_lens],
+        sv["src_n_eff_arcmin2"][:n_src], sv["src_sigma_e"][:n_src])
+    nuis = Nuisance3x2pt(
+        dz_lens=jnp.asarray(nu["dz_lens"][:n_lens]),
+        dz_src=jnp.asarray(nu["dz_src"][:n_src]),
+        m=jnp.asarray(nu["m"][:n_src]), a_ia=jnp.asarray(nu["a_ia"]),
+        eta_ia=jnp.asarray(nu["eta_ia"]), z0_ia=jnp.asarray(nu["z0_ia"]),
+        alpha_lens=jnp.asarray(nu["alpha_lens"][:n_lens]))
+    hp = default_halo()
+    opts = dict(include_nongaussian=True, include_ssc=True,
+                psd_guard="clip", nuisance=nuis,
+                include_magnification=True)
+    opts.update(kw)
+
+    def f(cosmo):
+        models = halo.build_halo_models(cosmo, hp, hods, c["z_pivot"],
+                                        False, grid)
+        return covariance.tomographic_3x2pt_covariance(
+            cosmo, hp, models, lens, src, DES_THETA_EDGES_DEG, omega,
+            n2d.tolist(), sn.tolist(), grid=grid, **opts)
+
+    return f
+
+
+def _scalar_and_batched(f, oms, s8s, nb):
+    """Each cosmology's matrix by the scalar program (eager), then all of
+    them by ``jax.jit(jax.vmap(f))`` (the batched program of the JAX
+    package's tests/test_covariance.py:506, which measured the gap this
+    reports), with the seconds and the worst block gap."""
+    import time
+
+    import jax
+
+    t0 = time.perf_counter()
+    scalar, secs = [], []
+    for om, s8 in zip(oms, s8s):
+        t1 = time.perf_counter()
+        scalar.append(np.asarray(f(_cosmo_at(om, s8))))
+        secs.append(time.perf_counter() - t1)
+        print(f"  scalar cosmology: {secs[-1]:.1f} s", flush=True)
+    scalar = np.stack(scalar)
+    t1 = time.perf_counter()
+    batched = np.asarray(jax.jit(jax.vmap(f))(jax_batch(oms, s8s)))
+    vm_s = time.perf_counter() - t1
+    gap = _block_gap(batched, scalar, nb)
+    print(f"  vmap: {vm_s:.1f} s, batch-vs-scalar gap {gap:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return scalar, dict(scalar_seconds=secs, vmap_seconds=vm_s,
+                        batch_vs_scalar_gap=gap)
+
+
+def cov_chip_part(name):
+    """One DEFAULT_GRID block of tests/data/torch_cov_reference.json:
+    "chip_joint" (phase 27) or "chip_tomo" (phase 28's 2 x 2 gate)."""
+    import time
+
+    from chomp_tpu.params import DEFAULT_GRID
+
+    if name == "chip_joint":
+        nb = len(JOINT_CELL["edges_deg"]) - 1
+        oms, s8s = cosmologies(JOINT_INDICES, N_COSMO_EXACT)
+        full, info = _scalar_and_batched(joint_cov_fn(DEFAULT_GRID), oms,
+                                         s8s, nb)
+        # The pieces at the first cosmology, each timed: the Gaussian
+        # part, then + cNG, then + SSC (no clip).
+        c0 = _cosmo_at(oms[0], s8s[0])
+        pieces, piece_s = {}, {}
+        for key, kw in (("gaussian", dict(include_nongaussian=False,
+                                          include_ssc=False,
+                                          psd_guard=None)),
+                        ("gaussian_cng", dict(include_ssc=False,
+                                              psd_guard=None)),
+                        ("unclipped", dict(psd_guard=None))):
+            t0 = time.perf_counter()
+            pieces[key] = np.asarray(
+                joint_cov_fn(DEFAULT_GRID, **kw)(c0)).tolist()
+            piece_s[key] = time.perf_counter() - t0
+            print(f"  {key}: {piece_s[key]:.1f} s", flush=True)
+        return {"n_cosmo": N_COSMO_EXACT, "indices": list(JOINT_INDICES),
+                "omega_m0": oms.tolist(), "sigma_8": s8s.tolist(),
+                "cov": full.tolist(), "pieces_at_first": pieces,
+                "piece_seconds": piece_s, **info}
+    if name == "chip_tomo":
+        from chomp_tpu.covariance import psd_clip
+
+        n_l, n_s = TOMO_COV_BINS
+        oms, s8s = cosmologies(TOMO_COV_INDICES, N_COSMO_EXACT)
+        # The raw matrix (psd_guard=None) and its clip: the builder's
+        # psd_guard="clip" is psd_clip of that raw matrix, eagerly.
+        f = tomo_cov_fn(DEFAULT_GRID, n_l, n_s, psd_guard=None)
+        raw, full, secs = [], [], []
+        for om, s8 in zip(oms, s8s):
+            t0 = time.perf_counter()
+            raw.append(np.asarray(f(_cosmo_at(om, s8))))
+            full.append(np.asarray(psd_clip(raw[-1])))
+            secs.append(time.perf_counter() - t0)
+            print(f"  scalar cosmology: {secs[-1]:.1f} s", flush=True)
+        return {"n_cosmo": N_COSMO_EXACT, "indices": list(TOMO_COV_INDICES),
+                "omega_m0": oms.tolist(), "sigma_8": s8s.tolist(),
+                "bins": list(TOMO_COV_BINS), "cov": np.stack(full).tolist(),
+                "cov_raw": np.stack(raw).tolist(), "scalar_seconds": secs}
+    raise SystemExit(f"unknown covariance part {name!r}")
+
+
+#: The rows of tests/torch_cov_cases.py's cosmologies that each tiny case
+#: is computed at (eager JAX, one cosmology at a time).
+COV_TINY_ROWS = dict(joint=(0, 1, 2), gaussian_masked=(2,), pixel=(2,),
+                     table=(2,), x3x2pt=(2,), tomo=(2,), pieces=(0, 2))
+
+
+def cov_tiny_part(name="tiny"):
+    """The ``tiny`` block of tests/data/torch_cov_reference.json: the JAX
+    values of the covariance tests' cases (tests/torch_cov_cases.py), each
+    at its cosmology rows, with the CPU seconds each took."""
+    import time
+
+    import jax.numpy as jnp
+
+    from chomp_tpu import covariance, halo, mask as jmask, projection
+    from chomp_tpu import ssc, trispectrum
+    from tests import torch_cov_cases as C
+
+    rows = COV_TINY_ROWS
+    out, secs = {}, {}
+
+    def put(case, row, fn):
+        t0 = time.perf_counter()
+        val = fn()
+        val = {k: np.asarray(v).tolist() for k, v in val.items()} \
+            if isinstance(val, dict) else np.asarray(val).tolist()
+        out.setdefault(case, {})[str(row)] = val
+        secs[f"{case}/{row}"] = time.perf_counter() - t0
+        print(f"  {case} row {row}: {secs[f'{case}/{row}']:.1f} s",
+              flush=True)
+
+    grid = C.GRID
+    kw = dict(grid=grid, **C.KW)
+    joint_cov = covariance.joint_wtheta_gammat_covariance
+    for row in sorted({r for v in rows.values() for r in v}):
+        J = C.jax_side(row)
+        win_g = projection.WindowGalaxy(dist=J.dist)
+        win_k = projection.WindowConvergence(dist=J.dist)
+        base = (J.cosmo, J.halo, J.model, J.dist, J.dist, C.EDGES,
+                C.OMEGA_S, C.N2D, C.SHAPE_NOISE)
+        if row in rows["joint"]:
+            put("joint", row, lambda: joint_cov(
+                *base, include_ssc=True, psd_guard="clip", **kw))
+        if row in rows["gaussian_masked"]:
+            put("gaussian_masked", row, lambda: {
+                "disc": covariance.joint_3x2pt_covariance(
+                    *base, include_nongaussian=False, mask=J.disc, **kw),
+                "beyond": covariance.joint_3x2pt_covariance(
+                    *base, include_nongaussian=False, mask=J.disc,
+                    beyond_nka=True, **kw),
+                "uniform": covariance.joint_wtheta_gammat_covariance(
+                    *base, include_nongaussian=False, mask=J.uniform,
+                    **kw)})
+        if row in rows["pixel"]:
+            put("pixel", row, lambda: joint_cov(
+                *base, include_ssc=True, mask=J.pixel, **kw))
+        if row in rows["table"]:
+            put("table", row, lambda: joint_cov(
+                *base, cl_method="table", tri_method="table", n_z_tri=24,
+                **kw))
+        if row in rows["x3x2pt"]:
+            put("x3x2pt", row, lambda: covariance.joint_3x2pt_covariance(
+                *base, include_ssc=True, psd_guard="clip", **kw))
+        if row in rows["tomo"]:
+            t = C.TOMO
+            put("tomo", row, lambda: covariance.tomographic_3x2pt_covariance(
+                J.cosmo, J.halo, J.models, J.lens, J.src, C.EDGES,
+                C.OMEGA_S, t["n2d"], t["shape_noise"], grid=grid,
+                n_ell_cov_g=C.KW["n_ell_cov_g"], include_nongaussian=True,
+                nuisance=J.nuisance, include_magnification=True,
+                include_ssc=True, psd_guard="clip",
+                ssc_kwargs=dict(n_ell_cov=C.KW["n_ell_cov_ng"],
+                                u_stride=C.KW["u_stride"]),
+                n_ell_cov=C.KW["n_ell_cov_ng"], n_k_tri=C.KW["n_k_tri"],
+                u_stride=C.KW["u_stride"]))
+        if row in rows["pieces"]:
+            k = jnp.asarray(C.K_TRI)
+            k1, k2 = np.meshgrid(C.K_TRI, C.K_TRI, indexing="ij")
+            k1, k2 = jnp.asarray(k1.ravel()), jnp.asarray(k2.ravel())
+            leg = (J.models[0], J.models[1], J.models[1], J.models[0])
+
+            def pieces():
+                m = J.model
+                res = {}
+                for i, v in enumerate(halo.two_halo_integrals(
+                        J.cosmo, J.halo, m, k)
+                        + halo.one_halo_integrals(J.cosmo, J.halo, m, k,
+                                                  grid=grid)):
+                    res[f"integrals.{i}"] = v
+                res["y_matrix"] = halo._y_matrix(J.cosmo, J.halo, m, k)
+                res["y_gal"] = halo._y_gal(J.cosmo, J.halo, m, k)
+                res["y_matter"] = halo._y_matter(J.cosmo, J.halo, m, k)
+                res["y_gal_matter"] = halo._y_gal_matter(J.cosmo, J.halo,
+                                                         m, k)
+                res["linear_power"] = halo.linear_power(J.cosmo, m, k,
+                                                        grid=grid)
+                res["bias_avg"] = halo.galaxy_bias_avg(m)
+                for j, v in enumerate(halo.union_gal_pack(
+                        J.cosmo, J.halo, J.models, grid=grid)):
+                    res[f"union.{j}"] = v
+                for trs in ("gggg", "gggm", "gmgm", "ggmm", "mmmm"):
+                    res[f"tri.{trs}"] = \
+                        trispectrum.trispectrum_parallelogram_tracers(
+                            J.cosmo, J.halo, m, k1, k2, tuple(trs),
+                            grid=grid)
+                    res[f"tri_legs.{trs}"] = \
+                        trispectrum.trispectrum_parallelogram_tracers(
+                            J.cosmo, J.halo, leg, k1, k2, tuple(trs),
+                            grid=grid)
+                res["tri.matter"] = trispectrum.trispectrum_parallelogram(
+                    J.cosmo, J.halo, m, k1, k2, grid=grid)
+                res["tri.galaxy"] = \
+                    trispectrum.trispectrum_parallelogram_galaxy(
+                        J.cosmo, J.halo, m, k1, k2, grid=grid)
+                res["t_pt"] = trispectrum.t_pt_parallelogram(
+                    J.cosmo, k1, k2, grid=grid, z=0.4)
+                res["b_pt"] = trispectrum.b_pt_avg(J.cosmo, k1, k2,
+                                                   grid=grid, z=0.4)
+                pos, cnt = ssc.power_response_parts(J.cosmo, J.halo, m, k,
+                                                    grid=grid)
+                for key in ("mm", "gm", "gg"):
+                    res[f"pos.{key}"] = pos[key]
+                    res[f"cnt.{key}"] = cnt[key]
+                for key, v in ssc.power_responses(
+                        J.cosmo, J.halo, m, k, grid=grid,
+                        local_counts=False).items():
+                    res[f"resp_nolocal.{key}"] = v
+                for j, v in enumerate(ssc.response_one_halo_integrals(
+                        J.cosmo, J.halo, m, k)):
+                    res[f"resp_1h.{j}"] = v
+                res["dlnk3p"] = ssc._dln_k3p_dlnk(J.cosmo, k)
+                chi = jnp.asarray(np.geomspace(200.0, 3000.0, 5))
+                g = jnp.asarray(np.linspace(0.9, 0.5, 5))
+                for mname in ("disc", "pixel", "uniform"):
+                    res[f"sigma_b2.{mname}"] = ssc.sigma_b2_flat(
+                        J.cosmo, getattr(J, mname), chi, g, grid=grid)
+                res["sigma_b2.omega"] = ssc.sigma_b2_fn(
+                    J.cosmo, C.OMEGA_S, grid=grid)(chi, g)
+                for case, (ws, ts, mi, mj) in {
+                        "gggg": ((win_g,) * 4, ("g",) * 4, 0, 0),
+                        "gggm": ((win_g, win_g, win_g, win_k),
+                                 ("g", "g", "g", "m"), 0, 2),
+                        "mmmm": ((win_k,) * 4, ("m",) * 4, 4, 4)}.items():
+                    res[f"ssc.{case}"] = ssc.ssc_covariance(
+                        J.cosmo, J.halo, m, J.dist, C.EDGES, J.disc,
+                        windows=ws, tracers=ts, mu_i=mi, mu_j=mj,
+                        grid=grid, n_ell_cov=12, u_stride=2)
+                    res[f"cng.{case}"] = covariance.nongaussian_covariance(
+                        J.cosmo, J.halo, m, J.dist, C.EDGES, C.OMEGA_S,
+                        windows=ws, tracers=ts, mu_i=mi, mu_j=mj,
+                        grid=grid, n_ell_cov=12, n_k_tri=16, u_stride=2)
+                res["ssc.pair"] = ssc.projected_ssc(
+                    J.cosmo, J.halo, (J.models[0], J.models[1]), C.ELLS,
+                    C.ELLS[:5], (win_g, win_g, win_g, win_k),
+                    ("g", "g", "g", "m"),
+                    ssc.sigma_b2_fn(J.cosmo, C.OMEGA_S, grid=grid),
+                    grid=grid, n_k_ssc=32, u_stride=2)
+                for meth in ("lattice", "table"):
+                    for trs, mdl in (("gggg", m), ("gmgm", leg)):
+                        res[f"proj.{meth}.{trs}"] = \
+                            covariance.projected_trispectrum(
+                                J.cosmo, J.halo, mdl, J.dist, C.ELLS,
+                                grid=grid, n_k_tri=16, n_z_tri=24,
+                                windows=(win_g, win_k, win_g, win_k)
+                                if trs == "gmgm" else None,
+                                tracers=tuple(trs), method=meth,
+                                u_stride=2)
+                res["wtheta_cov"] = covariance.wtheta_covariance(
+                    J.cosmo, J.halo, m, J.dist,
+                    covariance.lattice_cl_callables(
+                        J.cosmo, J.halo, m, J.dist, J.dist,
+                        grid=grid)[0], C.EDGES, C.OMEGA_S, C.N2D,
+                    grid=grid, n_k_tri=16, n_z_tri=8)
+                cl_gg, cl_gk, cl_kk = covariance.lattice_cl_callables(
+                    J.cosmo, J.halo, m, J.dist, J.dist, grid=grid)
+                res["cl.gg"] = cl_gg(C.ELLS)
+                res["cl.gk"] = cl_gk(C.ELLS)
+                res["cl.kk"] = cl_kk(C.ELLS)
+                return res
+
+            put("pieces", row, pieces)
+    return {"grid": dataclasses.asdict(grid), "rows": rows, "cases": out,
+            "seconds": secs}
+
+
+
+
+def cov_part(name):
+    """The block ``name`` of tests/data/torch_cov_reference.json."""
+    if name.startswith("chip_"):
+        return cov_chip_part(name)
+    return cov_tiny_part(name)
+
+
+COV_PARTS = ("tiny", "chip_joint", "chip_tomo")
+
+
+def write_cov_reference():
+    """tests/data/torch_cov_reference.json: each block in a process of
+    its own, one after another; a block whose part file
+    (``tests/data/.cov_<name>.json``, written by ``--cov-part <name>
+    <file>``) exists already is taken as it is, so the parts may be made
+    in parallel first (on an 8-core CPU: 17 min; about 20 min, of which
+    jit(vmap) 5 min; 57 min)."""
+    import subprocess
+
+    blocks = {}
+    for name in COV_PARTS:
+        part = DATA / f".cov_{name}.json"
+        if not part.exists():
+            subprocess.run([sys.executable, __file__, "--cov-part", name,
+                            str(part)], check=True)
+        blocks[name] = json.loads(part.read_text())
+    data = {"config": "the flat-sky covariance stack, JAX float64 CPU; "
+                      "'tiny': tests/torch_cov_cases.py's cases (eager, "
+                      "one cosmology at a time); 'chip_joint': "
+                      "chip_smoke.py phase 27 (JOINT_CELL on DEFAULT_GRID "
+                      "at the builders' default knobs, cNG + SSC + clip), "
+                      "with the worst block gap of jax.jit(jax.vmap) to "
+                      "the scalar program; 'chip_tomo': phase 28's gate, "
+                      "the first TOMO_COV_BINS lens x source bins of the "
+                      "tomographic cell with DES_Y3_SURVEY at "
+                      "DES_THETA_EDGES_DEG (cNG + SSC on every block; "
+                      "cov_raw unclipped, cov clipped)",
+            "joint_cell": JOINT_CELL, "tomo_cell": TOMO_CELL,
+            "des_y3_survey": DES_Y3_SURVEY,
+            "des_theta_edges_deg": DES_THETA_EDGES_DEG, **blocks}
+    path = DATA / "torch_cov_reference.json"
+    path.write_text(json.dumps(data) + "\n")
+    for name in COV_PARTS:
+        (DATA / f".cov_{name}.json").unlink()
+    print(f"wrote {path}")
+
+
 FILES = ("torch_slice_reference.json", "torch_table_reference.json",
          "torch_grad_reference.json", "torch_exactz_reference.json",
          "torch_tomo_reference.json", "torch_options_reference.json",
          "torch_exactz_tomo_reference.json",
-         "torch_families_reference.json", "torch_emulator_reference.json")
+         "torch_families_reference.json", "torch_emulator_reference.json",
+         "torch_cov_reference.json")
 
 
 def main():
@@ -1271,6 +1755,11 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
         Path(args[2]).write_text(json.dumps(exactz_tomo_part(args[1])))
+        return
+    if args[:1] == ["--cov-part"]:
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+        Path(args[2]).write_text(json.dumps(cov_part(args[1])))
         return
     if args[:1] == ["--families-part"]:
         jax.config.update("jax_platforms", "cpu")
@@ -1306,6 +1795,8 @@ def main():
         write_families_reference()
     if FILES[8] in names:
         write_emulator_reference()
+    if FILES[9] in names:
+        write_cov_reference()
 
 
 def write_slice_and_table():
