@@ -71,7 +71,7 @@ order (any failure exits nonzero; nothing falls back):
    and backward, set to 0 just before and read just after (lattice A 1,
    C 2; table A 1, B 2; the same in the backward); finiteness, peak
    device memory, forward+backward against forward-only walls (medians
-   of 5), the float64 grouped conv1d's forward+backward time; the
+   of 3), the float64 grouped conv1d's forward+backward time; the
    Jacobians at the 3 reference cosmologies through
    ``inference.jacobian`` against the card's float64 plain path (float32
    < 1e-3 of each column's peak over theta; float64 kernels < 1e-10) and
@@ -177,7 +177,7 @@ order (any failure exits nonzero; nothing falls back):
    their times over all rows and bounds; C and C' on the forward's own
    J-channel convolution rows of each operator (phase 3's and 8's gates,
    the float64 torch.matmul beside them); forward and forward+backward
-   walls (medians of 3) and peak memory; the Jacobian over (omega_m0,
+   walls (one call each) and peak memory; the Jacobian over (omega_m0,
    sigma_8) at 180 of the 2880 data entries, float32 against float64
    (1e-3 of each probe row's column peak);
 21. the same cell curved at the 20 DES theta with halofit at the anchor
@@ -227,7 +227,9 @@ order (any failure exits nonzero; nothing falls back):
    full one in float64 to 1e-8 of its largest entry);
    ``external_loglike(vectorized=True)`` over 64 walkers in one call and
    a short ``ensemble_sample``; walls per leapfrog, warmup window and
-   ensemble step;
+   ensemble step; likelihoods built from numpy data hold their tensors
+   on the card (the Cholesky factor there, chi^2 equal to the tensor
+   data's);
 26. the emulator on configuration A's lattice w and gamma_t over an
    (omega_m0, sigma_8) box: a design sweep of 256 + 64 nodes in one
    batched float32 call, value training (holdout max_rel < 4e-2), and a
@@ -257,20 +259,49 @@ order (any failure exits nonzero; nothing falls back):
    0-1 equal to the 2 x 2 run's (1e-10 of its peak; what the clip, which
    acts on the whole matrix, moves is reported), the clipped matrices
    symmetric and PSD, B = 8's row against B = 1; walls, peak memory and
-   busy share.
+   busy share;
+29. the curved-sky joint covariances on a footprint no azimuthal profile
+   can represent: examples/curved_sky_example.py's two 20-degree caps (a
+   256 x 512 PixelSphereMask), its dN/dz, edges and noise on
+   DEFAULT_GRID at ell_max 4096 with cNG, curved SSC and the clip, the
+   joint w + gamma_t and the 3x2pt builders at B = 64 in one call each:
+   the raw matrices at 3 cosmologies against
+   tests/data/torch_cov_more_reference.json (1e-9 of each block's peak;
+   JAX's own jit(vmap)-vs-scalar gap is printed beside it), the 3x2pt
+   [w, gamma_t] corner equal to the joint matrix (1e-10), the
+   UniformSphereMask Gaussian-only matrix on the card against the plain
+   CPU run (1e-12), symmetric and PSD after the clip; walls, peak memory,
+   kernel A's launches and the host seconds of the mask and Ξ;
+30. exact-z covariance on phase 27's survey: exact_z_anchors=6 on the
+   connected and super-sample terms at B = 64 (the anchors' responses in
+   one kernel A launch over B x J rows) and exact_z=True (the table
+   route's per-node rebuilds, in chunks) at B = 8, each against JAX
+   (1e-9), the anchors against the per-node route (connected blocks,
+   5e-3 of each block's peak, the JAX package's own gate), kernel A at
+   the anchors' response rows against its plain version (float64,
+   1e-12) with its time and bound;
+31. the kappa_CMB probes on phase 28's cell (50 probes, 1000 x 1000),
+   flat at B = 1 and 8 and on a SphericalCapMask of DES Y3's area at B =
+   1, Gaussian + cNG + SSC + clip: the 2 x 2 + kappa runs of both
+   builders against JAX (raw, 1e-9), the flat raw matrix without its wgk
+   rows equal to phase 28's raw matrix (1e-10), symmetric and PSD; the
+   flat 2 x 2 + kappa run with exact_z_anchors=6 on cNG and SSC launches
+   kernel A twice (every block's anchor span primed at once), finite and
+   symmetric; walls, peak memory and busy shares (measured after every
+   covariance wall of 27-31).
 
 Each phase prints its seconds (``[time] phase N``).  Kernel times: CUDA events around 100 back-to-back calls of the wrapper,
-over 100 (kernel A's plain version: 2 calls, A's plain backward: 1),
-taken in turns with the library call or plain version (other, kernel,
-kernel, other); after phase 10, each kernel's and library call's device
+over 100, taken in turns with the library call or plain version (other,
+kernel, kernel, other; a plain version of kernel A or A' that takes
+seconds a call: one call, before the kernel's two turns); after phase 10, each kernel's and library call's device
 time per call from torch.profiler's kernel records ("not measured" where
 it records none), and the device's busy share (the kineto device
 activity of one call, ``busy_ms``) of one forward+backward per route, of
 configuration B's and of the tomographic cell's (and of its forward) and
-of each option cell's forward; phase 28 ends with the busy shares of the
-covariance builds of 27-28.  Each main path (phases 5, 7, each route's
+of each option cell's forward; phase 31 ends with the busy shares of the
+covariance builds of 27-31.  Each main path (phases 5, 7, each route's
 forward+backward in 9, the forwards and forward+backwards of 11-19, and
-the covariance builds of 27-28) runs with every launch count set to 0
+the covariance builds of 27-31) runs with every launch count set to 0
 just before it and read just after.  The last lines are the card
 (``nvidia-smi``), the kernels' JSON record (times, launches, and the
 least time the card could take, from the H100 SXM's published 67 TFLOP/s
@@ -324,13 +355,15 @@ def events_ms(fn, reps=100):
     return a.elapsed_time(b) / reps
 
 
-def in_turns_ms(kernel, other, reps=100, other_reps=100):
+def in_turns_ms(kernel, other, reps=100, other_reps=100, other_turns=2):
     """(kernel ms, other ms): :func:`events_ms` in the order other, kernel,
-    kernel, other, each the mean of its two turns."""
-    o1 = events_ms(other, other_reps)
+    kernel, other, each the mean of its two turns; ``other_turns=1`` drops
+    the last turn (a plain version that takes seconds a call)."""
+    o = [events_ms(other, other_reps)]
     k1, k2 = events_ms(kernel, reps), events_ms(kernel, reps)
-    o2 = events_ms(other, other_reps)
-    return (k1 + k2) / 2, (o1 + o2) / 2
+    if other_turns > 1:
+        o.append(events_ms(other, other_reps))
+    return (k1 + k2) / 2, sum(o) / len(o)
 
 
 def device_ms(fn, reps=20):
@@ -1067,7 +1100,7 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
     ms_am, plain_ms_am = in_turns_ms(
         lambda: hc.halo_contract(k32, mat_m32, gal_m32, cheb32),
         lambda: hc.halo_contract_ref(k32, mat_m32, gal_m32),
-        other_reps=1)
+        other_reps=1, other_turns=1)
     bound_am = bound_a_of(k32, mat_m32, gal_m32)
     # A' on 64 rows for the float32 gate (the plain backward in float64
     # over all 512 would take tens of seconds); its time covers 512.
@@ -1078,7 +1111,7 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
     ms_abm, plain_ms_abm = in_turns_ms(
         lambda: hc.halo_contract_bwd(k32, mat_m32, gal_m32, cheb32, g_m),
         lambda: hc.halo_contract_bwd_ref(k32, mat_m32, gal_m32, cheb32,
-                                         g_m), other_reps=1)
+                                         g_m), other_reps=1, other_turns=1)
     bound_abm = bound_abwd_of(k32, mat_m32, gal_m32, g_m)
     profiled["halo_contract NG=320"] = (lambda: hc.halo_contract(
         k32, mat_m32, gal_m32, cheb32), None, 5)
@@ -1158,7 +1191,7 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
             plain_x = {k: plain_x[k].cpu().numpy() for k in keys_tm}
         kern_x = pipe_x64(batch64, nu_x64)
         kern_x = {k: kern_x[k].cpu().numpy() for k in keys_tm}
-        wall_x = median_wall(lambda: pipe_x(batch32, nu_x), reps=3)
+        wall_x = median_wall(lambda: pipe_x(batch32, nu_x), 1)
     jref_x = {k: np.asarray(rt["outputs"][k]) for k in keys_tm}
     err_x = {"vs_plain": tomo_err({k: v[check] for k, v in got_x.items()},
                                   {k: v[pos_chk] for k, v in
@@ -1184,7 +1217,7 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
     peak_x_fb = torch.cuda.max_memory_allocated() / 1e9
     finite_gx = all(bool(torch.isfinite(g).all()) for g in g_x)
     del g_x
-    wall_x_fb = median_wall(grad_run_x, reps=3)
+    wall_x_fb = median_wall(grad_run_x, 1)
     paths["tomographic_mixed"] = launches_x
     busy.append(("tomographic mixed forward",
                  no_grad(lambda: pipe_x(batch32, nu_x)), wall_x * 1e3,
@@ -1203,8 +1236,8 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
           f"{err_x['k64']:.3e} (gate 1e-12) | f64 plain vs JAX "
           f"{err_x['plain_vs_jax']:.3e} (gate 1e-10) | forward wall "
           f"{wall_x * 1e3:.1f} ms, peak {peak_x:.2f} GB | forward+backward "
-          f"wall {wall_x_fb * 1e3:.1f} ms, peak {peak_x_fb:.2f} GB (medians "
-          f"of 3)", flush=True)
+          f"wall {wall_x_fb * 1e3:.1f} ms, peak {peak_x_fb:.2f} GB (one call"
+          f" each)", flush=True)
     if launches_x != want_x or len(set(ngs)) != 2:
         fail(f"mixed tomographic launches {launches_x} (node counts {ngs}); "
              f"want {want_x}, two node counts")
@@ -1487,6 +1520,23 @@ def phases_23_26(*, oms, s8s, check, k32, k64, cheb32, cheb64,
         fail(f"external_loglike launches {launches_ext}; want one forward")
     if not (np.all(np.isfinite(chain)) and 0.0 < acc_e < 1.0):
         fail(f"ensemble_sample: acceptance {acc_e}")
+    # A likelihood built from numpy data and covariance, as a script
+    # ported from the JAX API builds it: its tensors land on the card.
+    like_np = inference.GaussianLikelihood(th32, data.cpu().numpy(),
+                                           cov.cpu().numpy())
+    pois_np = inference.PoissonLikelihood(th32, data.abs().cpu().numpy())
+    with torch.no_grad():
+        chi_np = float(like_np.chi2(fid[None])[0])
+        chi_t = float(like.chi2(fid[None])[0])
+    print(f"[inference+] GaussianLikelihood / PoissonLikelihood of numpy "
+          f"data: Cholesky factor on {like_np._chol.device}, data on "
+          f"{pois_np.data.device}; chi2 at the fiducial {chi_np:.6e} (tensor "
+          f"data {chi_t:.6e})", flush=True)
+    if (like_np._chol.device.type != "cuda"
+            or pois_np.data.device.type != "cuda" or chi_np != chi_t):
+        fail(f"likelihood of numpy data: Cholesky factor on "
+             f"{like_np._chol.device}, Poisson data on "
+             f"{pois_np.data.device}, chi2 {chi_np} vs {chi_t}")
     lap("25")
 
     # -- 26. the emulator on the pipeline -----------------------------------
@@ -1589,12 +1639,68 @@ def survey_numbers(area_deg2, lens_n, src_n, sigma_e):
             / (np.asarray(src_n, dtype=float) * per_sr))
 
 
+def cov_counted(fn):
+    """(fn()'s output without autograd, the launch counts of that call,
+    set to 0 just before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    counts_zero()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, counts()[0]
+
+
+def cov_timed(fn, reps=3):
+    """(the first call's output, its launch counts, the peak device memory
+    in GiB over the calls above what was allocated before them (earlier
+    phases keep tensors alive), the median wall of ``reps`` calls (the
+    first one included), the no-grad runner for the busy share)."""
+    import torch
+
+    def run():
+        with torch.no_grad():
+            return fn()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    walls = []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        if i == 0:
+            counts_zero()
+        t0 = time.perf_counter()
+        out_i = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            out, launches = out_i, counts()[0]
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    return out, launches, peak, float(np.median(walls)), run
+
+
+def cov_busy(busy):
+    """Print the device's busy share of each covariance build of ``busy``
+    [(label, runner, wall ms, B)]: measured after every covariance wall
+    (a profiler session slows later launches)."""
+    for label, run, wall_b, n_run in busy:
+        dev_ms = busy_ms(run, warm=False)
+        print(f"[device time] {label}, B={n_run}: device busy "
+              f"{fmt_ms(dev_ms)} of a {wall_b:.1f} ms wall"
+              + (f" ({dev_ms / wall_b:.1%} busy)" if dev_ms else "")
+              + " (kineto device-activity sum)", flush=True)
+
+
 def phases_27_28(*, lap):
     """Phases 27-28, the flat-sky covariance stack in float64: the
     Morrison & Schneider joint w + gamma_t covariance at 64 cosmologies
     and the DES Y3-like tomographic 3x2pt covariance at 1 and 8, against
     tests/data/torch_cov_reference.json, with the builds' device busy
-    shares measured last.  Returns the launch counts by path."""
+    shares measured after phase 31 (:func:`cov_busy`).  Returns the launch
+    counts by path, the builds to profile and phase 28's raw 5 x 4
+    matrix (phase 31 holds its kappa_CMB extension to it)."""
     import torch
 
     from chomp_tpu_torch import (DNdzGaussian, covariance, default_cosmo,
@@ -1619,40 +1725,7 @@ def phases_27_28(*, lap):
                                omega_l0=1.0 - o_all[idx],
                                sigma_8=s_all[idx])
 
-    def counted(fn):
-        torch.cuda.synchronize()
-        counts_zero()
-        with torch.no_grad():
-            out = fn()
-        torch.cuda.synchronize()
-        return out, counts()[0]
-
-    def timed(fn, reps=3):
-        """(the first call's output, its launch counts, the peak device
-        memory in GiB over the calls above what was allocated before them
-        (earlier phases keep tensors alive), the median wall of ``reps``
-        calls (the first one included), the no-grad runner for the busy
-        share)."""
-        def run():
-            with torch.no_grad():
-                return fn()
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        walls = []
-        for i in range(reps):
-            torch.cuda.synchronize()
-            if i == 0:
-                counts_zero()
-            t0 = time.perf_counter()
-            out_i = run()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if i == 0:
-                out, launches = out_i, counts()[0]
-        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-        return out, launches, peak, float(np.median(walls)), run
+    counted, timed = cov_counted, cov_timed
 
     # -- 27. the Morrison & Schneider joint w(theta) + gamma_t covariance --
     rj, cell = ref["chip_joint"], ref["joint_cell"]
@@ -1847,8 +1920,10 @@ def phases_27_28(*, lap):
     eig_t = float(np.linalg.eigvalsh(full_clip).min()
                   / np.abs(full_clip).max())
     idx8 = np.unique(np.linspace(0, n_b - 1, 8).round()).astype(int)
-    _, launches_1, peak1, wall1, run1_ng = timed(tomo_of(5, 4, idx_t[:1]))
-    cov8, launches_8, peak8, wall8, run8_ng = timed(tomo_of(5, 4, idx8))
+    _, launches_1, peak1, wall1, run1_ng = timed(tomo_of(5, 4, idx_t[:1]),
+                                                 reps=1)
+    cov8, launches_8, peak8, wall8, run8_ng = timed(tomo_of(5, 4, idx8),
+                                                    reps=1)
     cov8 = cov8.cpu().numpy()
     eig8 = float(min(np.linalg.eigvalsh(c).min() / np.abs(c).max()
                      for c in cov8))
@@ -1877,7 +1952,7 @@ def phases_27_28(*, lap):
           f"symmetry {sym_t:.1e}, least eigenvalue / peak {eig_t:.2e}, B=8 "
           f"{eig8:.2e}; B=8 row {row0} vs B=1 {err_18:.1e} | launches B=1 "
           f"{launches_1}, B=8 {launches_8} | wall B=1 {wall1:.3f} s, B=8 "
-          f"{wall8:.3f} s (medians of 3) = {wall8 / len(idx8) * 1e3:.1f} ms "
+          f"{wall8:.3f} s (one call each) = {wall8 / len(idx8) * 1e3:.1f} ms "
           f"per cosmology | peak above the earlier phases' B=1 {peak1:.2f} "
           f"GiB, B=8 {peak8:.2f} GiB", flush=True)
     if not (np.all(np.isfinite(cov8)) and np.all(np.isfinite(full_clip))):
@@ -1898,16 +1973,451 @@ def phases_27_28(*, lap):
         if not val <= g:
             fail(f"tomographic covariance {name}: {val} (gate {g})")
     lap("28")
-    # The device's busy share of each build: measured here, after every
-    # wall of 27-28 (a profiler session slows later launches).
-    for label, run, wall_b, n_run in busy:
-        dev_ms = busy_ms(run, warm=False)
-        print(f"[device time] {label}, B={n_run}: device busy "
-              f"{fmt_ms(dev_ms)} of a {wall_b:.1f} ms wall"
-              + (f" ({dev_ms / wall_b:.1%} busy)" if dev_ms else "")
-              + " (kineto device-activity sum)", flush=True)
-    lap("27-28 device busy")
-    return {"paths": paths}
+    return {"paths": paths, "busy": busy, "tomo_raw": full_raw}
+
+
+def two_cap_weight_map(n_ring=256, n_phi=512, radius_deg=20.0,
+                       center2=(2.0, 1.0)):
+    """Binary two-cap footprint on the iso-latitude grid (the map of
+    examples/curved_sky_example.py, which imports jax)."""
+    th = (np.arange(n_ring) + 0.5) * np.pi / n_ring
+    ph = np.arange(n_phi) * 2 * np.pi / n_phi
+    rad = np.radians(radius_deg)
+
+    def cap(center):
+        ct0, st0 = np.cos(center[0]), np.sin(center[0])
+        mu = (ct0 * np.cos(th)[:, None] + st0 * np.sin(th)[:, None]
+              * np.cos(ph[None, :] - center[1]))
+        return mu >= np.cos(rad)
+
+    return (cap((0.0, 0.0)) | cap(center2)).astype(float)
+
+
+def sym_and_eig(cov):
+    """(max asymmetry / peak, least eigenvalue / peak over the batch) of
+    (B, N, N) numpy matrices."""
+    peak = np.abs(cov).max()
+    sym = float(np.max(np.abs(cov - cov.transpose(0, 2, 1))) / peak)
+    eig = float(min(np.linalg.eigvalsh(c).min() / np.abs(c).max()
+                    for c in cov))
+    return sym, eig
+
+
+def phases_29_31(*, lap, tomo_raw):
+    """Phases 29-31, the rest of the covariance stack in float64: the
+    curved-sky joint matrices on the two-cap pixel footprint, exact-z
+    covariance (anchors and per-node rebuilds), and the kappa_CMB probes
+    of the DES Y3-like cell flat and curved, against
+    tests/data/torch_cov_more_reference.json.  Returns the launch counts
+    by path, the builds to profile and kernel A's record at the anchors'
+    response rows."""
+    import torch
+
+    from chomp_tpu_torch import (DNdzGaussian, covariance, curved,
+                                 default_cosmo, default_halo, default_hod,
+                                 halo, projection, ssc)
+    from chomp_tpu_torch.grids import Statics
+    from chomp_tpu_torch.ops import halo_contract as hc
+    from chomp_tpu_torch.params import DEFAULT_GRID
+    from chomp_tpu_torch.parallel.sweep import Nuisance3x2pt, broadcast_cosmo
+
+    dev, f64 = cuda(), torch.float64
+    ref = json.loads((REPO / "tests" / "data"
+                      / "torch_cov_more_reference.json").read_text())
+    paths, busy = {}, []
+    st = Statics(DEFAULT_GRID, device=dev, dtype=f64)
+    st_cpu = Statics(DEFAULT_GRID, device="cpu", dtype=f64)
+    n_b = 64
+    o_all = np.linspace(0.24, 0.32, n_b)
+    s_all = np.linspace(0.75, 0.88, n_b)
+    gate = 1e-9
+    gap27 = json.loads((REPO / "tests" / "data" / "torch_cov_reference.json")
+                       .read_text())["chip_joint"]["batch_vs_scalar_gap"]
+    two_a = {"halo_contract": 2, "df_contract": 0, "hankel_matmul": 0}
+
+    def batch_of(idx, device):
+        kw = dict(device=device, dtype=f64)
+        return broadcast_cosmo(default_cosmo(**kw), omega_m0=o_all[idx],
+                               omega_l0=1.0 - o_all[idx],
+                               sigma_8=s_all[idx])
+
+    def check_rows(block, idx):
+        if not np.allclose(block["omega_m0"], o_all[np.asarray(idx)]):
+            fail("covariance reference file does not match the phase's "
+                 "cosmologies")
+
+    def gauss_of(spec, kw):
+        return DNdzGaussian(*(torch.tensor(float(spec[k]), **kw) for k in
+                              ("z_min", "z_max", "z0", "sigma_z")))
+
+    def gated(label, checks):
+        for name, val, g in checks:
+            if not val <= g:
+                fail(f"{label} {name}: {val} (gate {g})")
+
+    # -- 29. the curved-sky joint covariances on the two-cap footprint ----
+    cc = ref["curved_cell"]
+    t0 = time.perf_counter()
+    mask = curved.PixelSphereMask(two_cap_weight_map(
+        cc["n_ring"], cc["n_phi"], cc["cap_radius_deg"], cc["cap2_center"]))
+    mask_s = time.perf_counter() - t0
+    ell_max = cc["ell_max"]
+    split = curved._auto_ell_split(mask, ell_max)
+    t0 = time.perf_counter()
+    curved._xi_matrices(mask, split, curved._XI_KINDS)
+    xi_s = time.perf_counter() - t0
+    edges_c = np.asarray(cc["edges_deg"])
+    nb_c = len(edges_c) - 1
+
+    def curved_of(builder, device, st_, idx, mask_=mask, **opts):
+        kw = dict(device=device, dtype=f64)
+        lens, src = gauss_of(cc["lens"], kw), gauss_of(cc["src"], kw)
+        b = batch_of(idx, device)
+        hp, hod = default_halo(**kw), default_hod(**kw)
+        z = torch.tensor([cc["z_model"]], **kw)
+        base = dict(include_nongaussian=True, include_ssc=True,
+                    psd_guard="clip", ell_max=ell_max)
+        base.update(opts)
+        fn = getattr(curved, builder)
+
+        def run():
+            model = halo.build_halo_model(b, hp, hod, z, st_)
+            return fn(b, hp, model, lens, src, edges_c, cc["n2d"],
+                      cc["shape_noise"], mask_, st=st_, **base)
+        return run
+
+    joint_b, x3_b = ("curved_joint_wtheta_gammat_covariance",
+                     "curved_joint_3x2pt_covariance")
+    all_idx = np.arange(n_b)
+    cov_jc, launch_jc, peak_jc, wall_jc, run_jc = cov_timed(
+        curved_of(joint_b, dev, st, all_idx))
+    cov_xc, launch_xc, peak_xc, wall_xc, run_xc = cov_timed(
+        curved_of(x3_b, dev, st, all_idx))
+    rj, rx = ref["chip_curved_joint"], ref["chip_curved_3x2pt"]
+    idx_c = np.asarray(rj["indices"])
+    check_rows(rj, idx_c)
+    check_rows(rx, idx_c)
+    raw_jc = cov_counted(curved_of(joint_b, dev, st, idx_c,
+                                   psd_guard=None))[0].cpu().numpy()
+    raw_xc = cov_counted(curved_of(x3_b, dev, st, idx_c,
+                                   psd_guard=None))[0].cpu().numpy()
+    # The committed values are eager scalar JAX: the raw matrices are held
+    # to them at 1e-9; JAX's own jit(vmap)-vs-scalar gap is information.
+    gap_c = rj["batch_vs_scalar_gap"]
+    err_jc = cov_blocks_err(raw_jc, np.asarray(rj["cov_raw"]), nb_c)
+    err_xc = cov_blocks_err(raw_xc, np.asarray(rx["cov_raw"]), nb_c)
+    corner = cov_blocks_err(raw_xc[:, :2 * nb_c, :2 * nb_c], raw_jc, nb_c)
+    uni = curved.UniformSphereMask()
+    g_opts = dict(include_nongaussian=False, include_ssc=False,
+                  psd_guard=None)
+    g_card = cov_counted(curved_of(joint_b, dev, st, idx_c, uni,
+                                   **g_opts))[0].cpu().numpy()
+    with torch.no_grad():
+        g_cpu = curved_of(joint_b, "cpu", st_cpu, idx_c, uni,
+                          **g_opts)().numpy()
+    err_gc = cov_blocks_err(g_card, g_cpu, nb_c)
+    cj, cx = cov_jc.cpu().numpy(), cov_xc.cpu().numpy()
+    sym_jc, eig_jc = sym_and_eig(cj)
+    sym_xc, eig_xc = sym_and_eig(cx)
+    busy += [("curved joint w + gamma_t covariance", run_jc, wall_jc * 1e3,
+              n_b),
+             ("curved 3x2pt covariance", run_xc, wall_xc * 1e3, n_b)]
+    paths["curved_joint_covariance"] = launch_jc
+    paths["curved_3x2pt_covariance"] = launch_xc
+    print(f"[curved covariance] examples/curved_sky_example.py's two 20-deg "
+          f"caps ({cc['n_ring']} x {cc['n_phi']} PixelSphereMask, fsky "
+          f"{mask.area2 / (4 * np.pi):.3f}), its dN/dz, edges "
+          f"{edges_c.tolist()} deg, n2d {cc['n2d']:g}, shape noise "
+          f"{cc['shape_noise']:g}, DEFAULT_GRID, ell_max {ell_max} "
+          f"(ell_split {split}), cNG + curved SSC + clip, float64, B={n_b} "
+          f"| static geometry on the host: mask {mask_s:.2f} s, Xi "
+          f"{xi_s:.2f} s | against JAX raw (rows {idx_c.tolist()}): joint "
+          f"{err_jc:.3e}, 3x2pt {err_xc:.3e} (gate {gate:.0e}; JAX's own "
+          f"jit(vmap)-vs-scalar gap {gap_c:.3e}) | 3x2pt "
+          f"[w, gt] corner vs joint {corner:.3e} (gate 1e-10) | "
+          f"UniformSphereMask Gaussian-only card vs CPU plain {err_gc:.3e} "
+          f"(gate 1e-12) | clipped: symmetry {sym_jc:.1e} / {sym_xc:.1e}, "
+          f"least eigenvalue / peak {eig_jc:.2e} / {eig_xc:.2e} | launches "
+          f"{launch_jc} / {launch_xc} | wall {wall_jc:.3f} / {wall_xc:.3f} s "
+          f"(median of 3) = {wall_jc / n_b * 1e3:.2f} / "
+          f"{wall_xc / n_b * 1e3:.2f} ms per cosmology, peak {peak_jc:.2f} "
+          f"/ {peak_xc:.2f} GiB above the earlier phases'", flush=True)
+    for c, n in ((cj, 2), (cx, 4)):
+        if not np.all(np.isfinite(c)) or c.shape != (n_b, n * nb_c,
+                                                     n * nb_c):
+            fail(f"curved covariance: shape {c.shape} or non-finite")
+    for launches_b in (launch_jc, launch_xc):
+        if launches_b != two_a:
+            fail(f"curved covariance launches {launches_b}: want kernel A "
+                 f"twice (the lattice C_ell, the SSC responses)")
+    gated("curved covariance", (
+        ("joint vs JAX", err_jc, gate), ("3x2pt vs JAX", err_xc, gate),
+        ("3x2pt corner vs joint", corner, 1e-10),
+        ("Gaussian-only card vs CPU", err_gc, 1e-12),
+        ("joint symmetry", sym_jc, 1e-12), ("3x2pt symmetry", sym_xc, 1e-12),
+        ("joint least eigenvalue", -eig_jc, 1e-10),
+        ("3x2pt least eigenvalue", -eig_xc, 1e-10)))
+    lap("29")
+
+    # -- 30. exact-z covariance ----------------------------------------------
+    jc_ = ref["joint_cell"]
+    ra, rp = ref["chip_exactz_anchors"], ref["chip_exactz_pernode"]
+    n_anchor = ra["j"]
+    per_sr = (180.0 * 60.0 / np.pi) ** 2
+    omega = jc_["area_deg2"] * (np.pi / 180.0) ** 2
+    n2d_j = jc_["lens_n_arcmin2"] * per_sr
+    sn_j = jc_["sigma_e"] ** 2 / (jc_["src_n_arcmin2"] * per_sr)
+    edges_j = np.asarray(jc_["edges_deg"])
+    nb_j = len(edges_j) - 1
+
+    def exact_of(device, st_, idx, **opts):
+        kw = dict(device=device, dtype=f64)
+        lens, src = gauss_of(jc_["lens"], kw), gauss_of(jc_["src"], kw)
+        b = batch_of(idx, device)
+        hp, hod = default_halo(**kw), default_hod(**kw)
+        z = torch.tensor([jc_["z_model"]], **kw)
+        base = dict(include_nongaussian=True, include_ssc=True,
+                    psd_guard="clip")
+        base.update(opts)
+
+        def run():
+            model = halo.build_halo_model(b, hp, hod, z, st_)
+            return covariance.joint_wtheta_gammat_covariance(
+                b, hp, model, lens, src, edges_j, omega, float(n2d_j),
+                float(sn_j), st=st_, **base)
+        return run
+
+    anchors = dict(exact_z_anchors=n_anchor)
+    cov_a, launch_a, peak_a, wall_a, run_a = cov_timed(
+        exact_of(dev, st, all_idx, **anchors))
+    idx_a = np.asarray(ra["indices"])
+    check_rows(ra, idx_a)
+    raw_a = cov_counted(exact_of(dev, st, idx_a, psd_guard=None,
+                                 **anchors))[0].cpu().numpy()
+    err_a = cov_blocks_err(raw_a, np.asarray(ra["cov_raw"]), nb_j)
+    idx8 = np.unique(np.linspace(0, n_b - 1, 8).round()).astype(int)
+    pernode = dict(exact_z=True, include_ssc=False, psd_guard=None)
+    cov_p, launch_p, peak_p, wall_p, run_p = cov_timed(
+        exact_of(dev, st, idx8, **pernode), reps=1)
+    cov_p = cov_p.cpu().numpy()
+    gauss8 = cov_counted(exact_of(
+        dev, st, idx8, include_nongaussian=False, include_ssc=False,
+        psd_guard=None))[0].cpu().numpy()
+    anc8 = cov_counted(exact_of(dev, st, idx8, include_ssc=False,
+                                psd_guard=None, **anchors))[0].cpu().numpy()
+    # The anchors against the per-node rebuilds: the connected parts,
+    # each block relative to the per-node block's peak.
+    err_ap = cov_blocks_err(anc8 - gauss8, cov_p - gauss8, nb_j)
+    idx_p = np.asarray(rp["indices"])
+    check_rows(rp, idx_p)
+    row_p = [int(np.nonzero(idx8 == i)[0][0]) for i in idx_p]
+    err_p = cov_blocks_err(cov_p[row_p], np.asarray(rp["cov_raw"]), nb_j)
+    ca = cov_a.cpu().numpy()
+    sym_a, eig_a = sym_and_eig(ca)
+    busy += [("exact-z anchors covariance", run_a, wall_a * 1e3, n_b),
+             ("exact-z per-node covariance", run_p, wall_p * 1e3,
+              len(idx8))]
+    paths["exact_z_covariance"] = launch_a
+    paths["exact_z_pernode_covariance"] = launch_p
+
+    # Kernel A at the anchors' response rows (B x J at the 128 k of
+    # n_k_ssc), float64 against its plain version; A's time there.
+    kw = dict(device=dev, dtype=f64)
+    b_all = batch_of(all_idx, dev)
+    hp64 = default_halo(**kw)
+    model64 = halo.build_halo_model(b_all, hp64, default_hod(**kw),
+                                    torch.tensor([jc_["z_model"]], **kw), st)
+    win = [projection.WindowGalaxy(dist=gauss_of(jc_["lens"], kw))]
+    span = covariance._anchor_span(win)
+    memo = covariance._Memo()
+    rows, hp_rows, rebuilt = covariance._anchor_models(
+        b_all, hp64, [model64], (span,), n_anchor, st, memo)
+    mat_r, gal_r = halo.contraction_nodes(rows, hp_rows, rebuilt[0])
+    k_ssc = ssc._k_ssc(128, st)[2]
+    got_r = hc.halo_contract(k_ssc, mat_r, gal_r, st.cheb)
+    sub = slice(0, 8)
+    err_r = rel_to_peak(got_r[sub], hc.halo_contract_ref(
+        k_ssc, mat_r[sub], gal_r[sub]))
+    abs_r = float((got_r[sub] - hc.halo_contract_ref(
+        k_ssc, mat_r[sub], gal_r[sub])).abs().max())
+    ms_r, plain_ms_r = in_turns_ms(
+        lambda: hc.halo_contract(k_ssc, mat_r, gal_r, st.cheb),
+        lambda: hc.halo_contract_ref(k_ssc, mat_r[sub], gal_r[sub]),
+        reps=20, other_reps=1)
+    bound_r = bound(halo_contract_flops(k_ssc, mat_r, gal_r,
+                                        hc._lens(f64), hc.n_moments(f64)),
+                    8 * (k_ssc.numel() + mat_r.numel() + gal_r.numel()
+                         + st.cheb.numel() + hc.N_OUT * mat_r.shape[0]
+                         * k_ssc.numel()))
+    a_rows = {"rows": int(mat_r.shape[0]), "nk": int(k_ssc.numel()),
+              "dtype": "float64", "max_abs_err": abs_r, "ms": ms_r,
+              "plain_ms": plain_ms_r, "plain_rows": 8,
+              "bound_ms": bound_r[0], "bound_by": bound_r[1],
+              "device_ms": device_ms(lambda: hc.halo_contract(
+                  k_ssc, mat_r, gal_r, st.cheb), 20)}
+    print(f"[exact-z covariance] phase 27's survey with exact_z_anchors="
+          f"{n_anchor} on the connected and super-sample terms, B={n_b}: "
+          f"launches {launch_a} | against JAX raw (rows {idx_a.tolist()}): "
+          f"{err_a:.3e} (gate {gate:.0e}; phase 27's JAX jit(vmap)-vs-scalar "
+          f"gap {gap27:.3e}) | clipped: symmetry {sym_a:.1e}, "
+          f"least eigenvalue / peak {eig_a:.2e} | wall {wall_a:.3f} s "
+          f"(median of 3) = {wall_a / n_b * 1e3:.2f} ms per cosmology, peak "
+          f"{peak_a:.2f} GiB | exact_z=True (the table route's 24 GL nodes "
+          f"rebuilt in chunks of {covariance._NODE_ROWS} rows, no SSC), "
+          f"B={len(idx8)}: launches {launch_p}, wall {wall_p:.3f} s (one "
+          f"call), peak {peak_p:.2f} GiB, against JAX {err_p:.3e} (gate "
+          f"{gate:.0e}, rows {idx_p.tolist()}) | anchors vs per-node, "
+          f"connected blocks: {err_ap:.3e} of each block's peak "
+          f"(gate 5e-3) | kernel A at the anchors' {a_rows['rows']} "
+          f"response rows x {a_rows['nk']} k, float64: vs plain (8 rows) "
+          f"{err_r:.2e} of peak (gate 1e-12), {ms_r:.4f} ms (events), "
+          f"device {fmt_ms(a_rows['device_ms'])}, bound "
+          f"{bound_r[0]:.4f} ms ({bound_r[1]}), plain {plain_ms_r:.1f} ms "
+          f"(8 rows)", flush=True)
+    if not (np.all(np.isfinite(ca)) and np.all(np.isfinite(cov_p))):
+        fail("exact-z covariance: non-finite")
+    if launch_a != two_a:
+        fail(f"exact-z covariance launches {launch_a}: want kernel A twice "
+             f"(the lattice C_ell, the anchors' responses in one launch)")
+    if launch_p != {"halo_contract": 1, "df_contract": 0,
+                    "hankel_matmul": 0}:
+        fail(f"exact-z per-node launches {launch_p}: want kernel A once")
+    gated("exact-z covariance", (
+        ("anchors vs JAX", err_a, gate),
+        ("per-node vs JAX", err_p, gate),
+        ("anchors vs per-node", err_ap, 5e-3), ("symmetry", sym_a, 1e-12),
+        ("least eigenvalue", -eig_a, 1e-10),
+        ("kernel A at the anchor rows vs plain", err_r, 1e-12)))
+    lap("30")
+
+    # -- 31. kappa_CMB on the DES Y3-like cell, flat and curved --------------
+    tc, sv = ref["tomo_cell"], ref["des_y3_survey"]
+    nu_ref = json.loads((REPO / "tests" / "data"
+                         / "torch_tomo_reference.json").read_text())[
+        "nuisance"]
+    t_edges = np.asarray(ref["des_theta_edges_deg"])
+    nb_t = len(t_edges) - 1
+    cap = curved.SphericalCapMask(float(np.arccos(
+        1.0 - sv["area_deg2"] * (np.pi / 180.0) ** 2 / (2.0 * np.pi))))
+
+    def cmb_of(n_l, n_s, idx, curved_sky=False, **opts):
+        kw = dict(device=dev, dtype=f64)
+
+        def gauss(z0, sz, z_max):
+            return DNdzGaussian(*(torch.tensor(float(v), **kw)
+                                  for v in (0.0, z_max, z0, sz)))
+
+        lens = [gauss(z0, tc["lens_sigma_z"], tc["lens_z_max"])
+                for z0 in tc["lens_z0"][:n_l]]
+        src = [gauss(z0, sz, tc["src_z_max"]) for z0, sz in
+               list(zip(tc["src_z0"], tc["src_sigma_z"]))[:n_s]]
+        hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                            log10_m_1p=m + tc["log10_m_1p_offset"], **kw)
+                for m in tc["log10_m_min"][:n_l]]
+        om, n2d_t, sn_t = survey_numbers(
+            sv["area_deg2"], sv["lens_n_arcmin2"][:n_l],
+            sv["src_n_eff_arcmin2"][:n_s], sv["src_sigma_e"][:n_s])
+        per_bin = {"dz_lens": n_l, "alpha_lens": n_l, "dz_src": n_s,
+                   "m": n_s}
+        nu = Nuisance3x2pt(**{
+            k: torch.tensor(v[:per_bin[k]] if k in per_bin else v, **kw)
+            for k, v in nu_ref.items()})
+        b = batch_of(idx, dev)
+        hp = default_halo(**kw)
+        z = torch.tensor([tc["z_pivot"]], **kw)
+        base = dict(include_nongaussian=True, include_ssc=True,
+                    psd_guard="clip", nuisance=nu,
+                    include_magnification=True, cmb_lensing=True)
+        base.update(opts)
+
+        def run():
+            models = halo.build_halo_models(b, hp, hods, z, st)
+            if curved_sky:
+                return curved.curved_tomographic_3x2pt_covariance(
+                    b, hp, models, lens, src, t_edges, n2d_t.tolist(),
+                    sn_t.tolist(), cap, st=st, **base)
+            return covariance.tomographic_3x2pt_covariance(
+                b, hp, models, lens, src, t_edges, om, n2d_t.tolist(),
+                sn_t.tolist(), st=st, **base)
+        return run
+
+    rf, rcv = ref["chip_cmb_flat"], ref["chip_cmb_curved"]
+    idx_k = np.asarray(rf["indices"])
+    check_rows(rf, idx_k)
+    check_rows(rcv, idx_k)
+    n_l, n_s = rf["bins"]
+    sub_f = cov_counted(cmb_of(n_l, n_s, idx_k, psd_guard=None))[0]
+    sub_c = cov_counted(cmb_of(n_l, n_s, idx_k, True, psd_guard=None))[0]
+    err_kf = cov_blocks_err(sub_f.cpu().numpy(), np.asarray(rf["cov_raw"]),
+                            nb_t)
+    err_kc = cov_blocks_err(sub_c.cpu().numpy(), np.asarray(rcv["cov_raw"]),
+                            nb_t)
+    # The tomographic builders' anchored route on the same runs: every
+    # super-sample block's anchor span is primed at once, so kernel A runs
+    # twice (the lattice C_ell, every span's and sample's responses).
+    anc_k, launch_ak = cov_counted(cmb_of(
+        n_l, n_s, idx_k, psd_guard=None, exact_z_anchors=6,
+        ssc_kwargs=dict(exact_z_anchors=6)))
+    anc_k = anc_k.cpu().numpy()
+    sym_ak = sym_and_eig(anc_k)[0]
+    sub_np = sub_f.cpu().numpy()
+    move_ak = float(np.abs(anc_k - sub_np).max() / np.abs(sub_np).max())
+    full_f = cov_counted(cmb_of(5, 4, idx_k[:1], psd_guard=None))[0]
+    full_f = full_f.cpu().numpy()[0]
+    n_old = tomo_raw.shape[-1]
+    ext = cov_blocks_err(full_f[None, :n_old, :n_old], tomo_raw[None], nb_t)
+    cf1, launch_f1, peak_f1, wall_f1, run_f1 = cov_timed(
+        cmb_of(5, 4, idx_k[:1]))
+    cf8, launch_f8, peak_f8, wall_f8, run_f8 = cov_timed(
+        cmb_of(5, 4, idx8))
+    ccv, launch_c1, peak_c1, wall_c1, run_c1 = cov_timed(
+        cmb_of(5, 4, idx_k[:1], True))
+    n_probe = len(covariance.tomographic_probes(5, 4, cmb_lensing=True))
+    sym_f, eig_f = sym_and_eig(cf8.cpu().numpy())
+    sym_c, eig_c = sym_and_eig(ccv.cpu().numpy())
+    busy += [("kappa_CMB tomographic covariance", run_f1, wall_f1 * 1e3, 1),
+             ("kappa_CMB tomographic covariance", run_f8, wall_f8 * 1e3,
+              len(idx8)),
+             ("kappa_CMB curved tomographic covariance", run_c1,
+              wall_c1 * 1e3, 1)]
+    paths["cmb_tomographic_covariance"] = launch_f8
+    paths["cmb_curved_tomographic_covariance"] = launch_c1
+    print(f"[kappa_CMB covariance] phase 28's cell with cmb_lensing=True: "
+          f"{n_probe} probes, a {n_probe * nb_t} x {n_probe * nb_t} matrix, "
+          f"Gaussian + cNG + SSC + clip, flat and on a SphericalCapMask of "
+          f"{sv['area_deg2']:g} deg^2 | {n_l} x {n_s} + kappa runs against "
+          f"JAX raw (row {idx_k.tolist()}): flat {err_kf:.3e}, curved "
+          f"{err_kc:.3e} (gate {gate:.0e}; phase 27's JAX jit(vmap)-vs-"
+          f"scalar gap {gap27:.3e}) | flat raw without its wgk rows "
+          f"vs phase 28's raw: {ext:.3e} (gate 1e-10) | {n_l} x {n_s} + "
+          f"kappa flat with exact_z_anchors=6 on cNG and SSC: launches "
+          f"{launch_ak}, symmetry {sym_ak:.1e}, moves the separable matrix "
+          f"by {move_ak:.3e} of its peak | clipped: symmetry "
+          f"{sym_f:.1e} / {sym_c:.1e}, least eigenvalue / peak {eig_f:.2e} "
+          f"(flat B=8) / {eig_c:.2e} (curved) | launches flat B=1 "
+          f"{launch_f1}, B=8 {launch_f8}, curved {launch_c1} | wall flat "
+          f"B=1 {wall_f1:.3f} s, B=8 {wall_f8:.3f} s "
+          f"({wall_f8 / len(idx8) * 1e3:.1f} ms per cosmology), curved B=1 "
+          f"{wall_c1:.3f} s (medians of 3) | peak flat {peak_f1:.2f} / "
+          f"{peak_f8:.2f} GiB, curved {peak_c1:.2f} GiB", flush=True)
+    for c in (cf8, ccv, torch.from_numpy(anc_k)):
+        if not torch.all(torch.isfinite(c)):
+            fail("kappa_CMB covariance: non-finite")
+    for launches_b in (launch_f1, launch_f8, launch_c1, launch_ak):
+        if launches_b != two_a:
+            fail(f"kappa_CMB covariance launches {launches_b}: want kernel "
+                 f"A twice (every pack's lattice spectra, every sample's "
+                 f"SSC responses)")
+    gated("kappa_CMB covariance", (
+        ("flat 2x2 + kappa vs JAX", err_kf, gate),
+        ("curved 2x2 + kappa vs JAX", err_kc, gate),
+        ("flat without wgk vs phase 28", ext, 1e-10),
+        ("flat symmetry", sym_f, 1e-12), ("curved symmetry", sym_c, 1e-12),
+        ("anchored flat symmetry", sym_ak, 1e-12),
+        ("flat least eigenvalue", -eig_f, 1e-10),
+        ("curved least eigenvalue", -eig_c, 1e-10)))
+    lap("31")
+    return {"paths": paths, "busy": busy, "anchor_rows": a_rows}
 
 
 def once_ms(fn):
@@ -1921,7 +2431,7 @@ def once_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def median_wall(fn, reps=5):
+def median_wall(fn, reps=3):
     """Median host-clock seconds of ``fn()`` between synchronizations."""
     import torch
 
@@ -2017,11 +2527,12 @@ def main():
         kr32, mat32[:, ::7].contiguous(), gal32[:, 25::50].contiguous(),
         kr64, mat64[:, ::7].contiguous(), gal64[:, 25::50].contiguous(),
         cheb32, cheb64)
-    # 100 back-to-back launches of the kernel; 2 of its plain version
-    # (2.2 s a call), in turns.
+    # 100 back-to-back launches of the kernel, twice; 1 of its plain
+    # version (2.2 s a call) before them.
     ms_a, plain_ms_a = in_turns_ms(
         lambda: hc.halo_contract(k32, mat32, gal32, cheb32),
-        lambda: hc.halo_contract_ref(k32, mat32, gal32), other_reps=2)
+        lambda: hc.halo_contract_ref(k32, mat32, gal32), other_reps=1,
+        other_turns=1)
     ms_a_fb = events_ms(lambda: hc.halo_contract(k32, matf32, galf32,
                                                  cheb32))
     # Device times (torch.profiler) are taken after phase 7: a profiler
@@ -2481,7 +2992,7 @@ def main():
     ms_abwd, plain_ms_abwd = in_turns_ms(
         lambda: hc.halo_contract_bwd(k32, mat32, gal32, cheb32, ga32),
         lambda: hc.halo_contract_bwd_ref(k32, mat32, gal32, cheb32, ga32),
-        other_reps=1)
+        other_reps=1, other_turns=1)
     ga32_tab = seeded((N_COSMO, hc.N_OUT, st32.k_table.numel()), 13, f32)
     ms_abwd_fb = events_ms(lambda: hc.halo_contract_bwd(
         k32, matf32, galf32, cheb32, ga32))
@@ -2508,7 +3019,7 @@ def main():
           f"{mat32.shape[1]} NG={gal32.shape[1]} float32 | kernel "
           f"{ms_abwd:.3f} ms (feedback set {ms_abwd_fb:.3f} ms, table k "
           f"{ms_abwd_tab:.3f} ms), plain {plain_ms_abwd:.3f} ms (CUDA "
-          f"events; plain 1 call a turn) | bound {bound_abwd[0]:.4f} ms by "
+          f"events; plain 1 call) | bound {bound_abwd[0]:.4f} ms by "
           f"{bound_abwd[1]} (feedback set {bound_abwd_fb[0]:.4f} ms, table k "
           f"{bound_abwd_tab[0]:.4f} ms)", flush=True)
     # A''s launch geometry: the built library's own report, held to the
@@ -2757,7 +3268,7 @@ def main():
               f"autograd.grad of a seeded linear functional of (w, gamma_t)"
               f" wrt (omega_m0, sigma_8) | finite={gi['finite']} | forward "
               f"launches {fw}, backward launches {bw} | peak device memory "
-              f"{gi['peak_gb']:.2f} GB | forward+backward wall median of 5 "
+              f"{gi['peak_gb']:.2f} GB | forward+backward wall median of 3 "
               f"= {gi['fwd_bwd_wall'] * 1e3:.1f} ms against forward-only "
               f"{gi['fwd_wall'] * 1e3:.1f} / {gi['fwd_wall_2'] * 1e3:.1f} ms"
               f" (before / after) | Jacobian at the 3 reference cosmologies "
@@ -3090,12 +3601,12 @@ def main():
           f"JAX limber_cl_exact_z {err_cl_tab:.3e} (gate 1e-4; JAX's own "
           f"lattice route {rc['jax_lattice_vs_table_worst']:.3e}), vs JAX "
           f"lattice route {err_cl_lat:.3e} of peak (gate 1e-10) | forward "
-          f"wall median of 5 = {wall_x * 1e3:.1f} ms ({wall_x / n_x * 1e3:.3f}"
+          f"wall median of 3 = {wall_x * 1e3:.1f} ms ({wall_x / n_x * 1e3:.3f}"
           f" ms/cosmology), peak device memory {peak_x:.2f} GB", flush=True)
     print(f"[exact-z] forward+backward (autograd.grad of a seeded linear "
           f"functional of (w, gamma_t) wrt (omega_m0, sigma_8)), B={n_x}: "
           f"launches forward {grad_launches_x[0]}, backward "
-          f"{grad_launches_x[1]} | finite={finite_gx} | wall median of 5 = "
+          f"{grad_launches_x[1]} | finite={finite_gx} | wall median of 3 = "
           f"{wall_x_fb * 1e3:.1f} ms | peak device memory {peak_x_fb:.2f} GB"
           f" | Jacobian at the 3 reference cosmologies (inference.jacobian, "
           f"chunks of 128 replicas, the plain path at the first in 64): "
@@ -3269,8 +3780,8 @@ def main():
               f"(gate 1e-4) | f64 kernels vs plain {gated(q['k64']):.3e} "
               f"(gate 1e-12) | f64 plain vs JAX "
               f"{gated(q['plain_vs_jax']):.3e} (gate 1e-10) | forward wall "
-              f"median of 5 = {q['wall'] * 1e3:.1f} ms, peak {q['peak']:.2f} "
-              f"GB | forward+backward wall median of 5 = "
+              f"median of 3 = {q['wall'] * 1e3:.1f} ms, peak {q['peak']:.2f} "
+              f"GB | forward+backward wall median of 3 = "
               f"{q['wall_fb'] * 1e3:.1f} ms, peak {q['peak_fb']:.2f} GB",
               flush=True)
     print(f"[shear] f64 table vs lattice route (8 cosmologies): xi+ "
@@ -3420,7 +3931,7 @@ def main():
           + f" (gate 1e-4) | f64 kernels vs plain "
           f"{gated_tm(err_tm['k64']):.3e} (gate 1e-12) | f64 plain vs "
           f"JAX {gated_tm(err_tm['plain_vs_jax']):.3e} (gate 1e-10) | "
-          f"forward wall median of 5 = {wall_tm * 1e3:.1f} ms "
+          f"forward wall median of 3 = {wall_tm * 1e3:.1f} ms "
           f"({wall_tm / N_COSMO * 1e3:.3f} ms/cosmology), peak device "
           f"memory {peak_tm:.2f} GB", flush=True)
     if launches_tm != want_tm:
@@ -3715,7 +4226,7 @@ def main():
           f"functional of the vector wrt (omega_m0, sigma_8) per cosmology "
           f"and (dz_src, m, a_ia)), B={N_COSMO}, float32: launches forward "
           f"{grad_launches_tm[0]}, backward {grad_launches_tm[1]} | "
-          f"finite={finite_gtm} | wall median of 5 = {wall_tm_fb * 1e3:.1f} "
+          f"finite={finite_gtm} | wall median of 3 = {wall_tm_fb * 1e3:.1f} "
           f"ms | peak device memory {peak_tm_fb:.2f} GB", flush=True)
     print(f"[tomo grad] Jacobian of the vector ({data_tm.numel()} entries) "
           f"over {list(rj['cosmo_names']) + list(rj['nuisance_names'])} "
@@ -3850,7 +4361,7 @@ def main():
                "k64": op_err(kern, plain),
                "plain_vs_jax": op_err(sub(plain, pos_ref), ref_out)}
         with torch.no_grad():
-            wall = median_wall(lambda: pipe_(*args), 3)
+            wall = median_wall(lambda: pipe_(*args), 1)
         q = dict(pipe=pipe_, pipe64=pipe64, args=args, args64=args64,
                  chk=chk, pos_chk=pos_chk, launches=fw, peak=peak,
                  wall=wall, err=err, finite=finite, shape_ok=shape_ok,
@@ -3888,7 +4399,7 @@ def main():
             q["peak_fb"] = torch.cuda.max_memory_allocated() / 1e9
             q["finite_grad"] = all(bool(torch.isfinite(x).all()) for x in g)
             del g
-            q["wall_fb"] = median_wall(grad_run, 3)
+            q["wall_fb"] = median_wall(grad_run, 1)
         return q
 
     def report_cell(label, q, want):
@@ -3904,12 +4415,12 @@ def main():
               + f" (gate 1e-4) | f64 kernels vs plain "
               f"{max(e['k64'].values()):.3e} (gate 1e-12) | f64 plain vs JAX "
               f"{max(e['plain_vs_jax'].values()):.3e} (gate 1e-10) | forward "
-              f"wall median of 3 = {q['wall'] * 1e3:.1f} ms "
+              f"wall one call = {q['wall'] * 1e3:.1f} ms "
               f"({q['wall'] / q['n'] * 1e3:.3f} ms/cosmology), peak "
               f"{q['peak']:.2f} GB"
               + (f" | forward+backward launches {q['grad_launches'][0]} / "
                  f"{q['grad_launches'][1]}, finite={q['finite_grad']}, wall "
-                 f"median of 3 = {q['wall_fb'] * 1e3:.1f} ms, peak "
+                 f"one call = {q['wall_fb'] * 1e3:.1f} ms, peak "
                  f"{q['peak_fb']:.2f} GB" if "wall_fb" in q else ""),
               flush=True)
         if q["launches"] != want:
@@ -4363,7 +4874,7 @@ def main():
     # Walls, forward+backward, peak memory (launch counts zeroed just
     # before and read just after).
     with torch.no_grad():
-        wall_xt = median_wall(lambda: pipe_xt(batch_xt), 3)
+        wall_xt = median_wall(lambda: pipe_xt(batch_xt), 1)
     weights_xt = seeded((n_x, 45 * n_th), 72, f32)
 
     def grad_run_xt():
@@ -4386,7 +4897,7 @@ def main():
     peak_xt_fb = torch.cuda.max_memory_allocated() / 1e9
     finite_gxt = all(bool(torch.isfinite(g).all()) for g in g_xt)
     del g_xt
-    wall_xt_fb = median_wall(grad_run_xt, 3)
+    wall_xt_fb = median_wall(grad_run_xt, 1)
 
     # The Jacobian over (omega_m0, sigma_8) at the middle reference
     # cosmology, float32 against float64 on the card: the 180 entries at
@@ -4423,10 +4934,10 @@ def main():
           + f" (gate 1e-4) | f64 kernels vs plain "
           f"{gated_tm(err_xt['k64']):.3e} (gate 1e-12) | f64 plain vs JAX "
           f"{gated_tm(err_xt['plain_vs_jax']):.3e} (gate 1e-10) | forward "
-          f"wall median of 3 = {wall_xt * 1e3:.1f} ms "
+          f"wall one call = {wall_xt * 1e3:.1f} ms "
           f"({wall_xt / n_x * 1e3:.3f} ms/cosmology), peak {peak_xt:.2f} GB "
           f"| forward+backward launches {grad_launches_xt[0]} / "
-          f"{grad_launches_xt[1]}, finite={finite_gxt}, wall median of 3 = "
+          f"{grad_launches_xt[1]}, finite={finite_gxt}, wall one call = "
           f"{wall_xt_fb * 1e3:.1f} ms, peak {peak_xt_fb:.2f} GB | Jacobian "
           f"(180 entries x 2, {jac_wall_xt:.1f} s): f32 vs card f64 "
           f"{je_xt:.3e} (gate 1e-3 of each probe row's column peak)",
@@ -4485,7 +4996,7 @@ def main():
     err_xc = {"vs_plain": op_err(sub(got_xc, check_x), plain_xc),
               "k64": op_err(kern_xc, plain_xc)}
     with torch.no_grad():
-        wall_xc = median_wall(lambda: pipe_xc(batch_xt), 3)
+        wall_xc = median_wall(lambda: pipe_xc(batch_xt), 1)
     want_xc = {"halo_contract": 2, "df_contract": 4, "hankel_matmul": 0}
     print(f"[exact-z tomo curved] the cell of phase 20 curved at the 20 DES "
           f"theta, halofit at the {n_x * j_xt} anchor rows, BAO, kappa_CMB, "
@@ -4496,7 +5007,7 @@ def main():
               f"{k} {v:.3e}" for k, v in err_xc["vs_plain"].items())
           + f" (gate 1e-4) | f64 kernels vs plain "
           f"{max(err_xc['k64'].values()):.3e} (gate 1e-12) | forward wall "
-          f"median of 3 = {wall_xc * 1e3:.1f} ms ({wall_xc / n_x * 1e3:.3f} "
+          f"one call = {wall_xc * 1e3:.1f} ms ({wall_xc / n_x * 1e3:.3f} "
           f"ms/cosmology), peak {peak_xc:.2f} GB", flush=True)
     if launches_xc != want_xc:
         fail(f"exact-z tomographic curved forward launches {launches_xc}; "
@@ -4557,7 +5068,7 @@ def main():
     shape_gl = tuple(cl_gl32.shape) == (n_x, len(ells_gl))
     cl_gl32 = cl_gl32.double().cpu().numpy()
     with torch.no_grad():
-        wall_gl = median_wall(lambda: gl_cl(gl32), 3)
+        wall_gl = median_wall(lambda: gl_cl(gl32), 1)
     weights_gl = seeded((n_x, len(ells_gl)), 80, f32)
 
     def grad_run_gl():
@@ -4579,7 +5090,7 @@ def main():
     peak_gl_fb = torch.cuda.max_memory_allocated() / 1e9
     finite_ggl = all(bool(torch.isfinite(g).all()) for g in g_gl)
     del g_gl
-    wall_gl_fb = median_wall(grad_run_gl, 3)
+    wall_gl_fb = median_wall(grad_run_gl, 1)
 
     gl64 = gl_of(f64)
     cl_gl64 = gl_cl(gl64).cpu().numpy()
@@ -4692,9 +5203,9 @@ def main():
           f"1e-4), all ells {err_gl['lattice_vs_gl']:.3e} (gate 2x the JAX "
           f"package's own {gap_gl:.3e}; median over cosmologies "
           f"{np.median(lat_gl_rows):.3e}) | forward "
-          f"wall median of 3 = {wall_gl * 1e3:.1f} ms, peak {peak_gl:.2f} GB "
+          f"wall one call = {wall_gl * 1e3:.1f} ms, peak {peak_gl:.2f} GB "
           f"| forward+backward launches {grad_launches_gl[0]} / "
-          f"{grad_launches_gl[1]}, finite={finite_ggl}, wall median of 3 = "
+          f"{grad_launches_gl[1]}, finite={finite_ggl}, wall one call = "
           f"{wall_gl_fb * 1e3:.1f} ms, peak {peak_gl_fb:.2f} GB", flush=True)
     print(f"[GL exact-z A] k row per row: ({rows_gl}, {len(ells_gl)}) k, "
           f"NM={mat_gl32.shape[1]} NG={gal_gl32.shape[1]} | f64 rel_to_peak="
@@ -4765,6 +5276,12 @@ def main():
     cov_late = phases_27_28(lap=lap)
     late["paths"].update(cov_late["paths"])
 
+    # -- 29-31. curved sky, exact z, kappa_CMB --------------------------------
+    cov_more = phases_29_31(lap=lap, tomo_raw=cov_late["tomo_raw"])
+    late["paths"].update(cov_more["paths"])
+    cov_busy(cov_late["busy"] + cov_more["busy"])
+    lap("27-31 device busy")
+
     # -- device time of each kernel and its library call ----------------
     dtimes = {}
     for name, (kernel, library, reps) in profiled.items():
@@ -4817,7 +5334,8 @@ def main():
                                         ("tomographic forward",
                                          (fwd_tm, wall_tm * 1e3)),
                                         *runs_op]:
-        busy = busy_ms(run)
+        # Every run here has run before (its walls): no warm-up call.
+        busy = busy_ms(run, warm=False)
         what = "" if route.endswith("forward") else " forward+backward"
         n_r = n_r[0] if n_r else (n_x if route == "exact-z" else N_COSMO)
         print(f"[device time] {route}{what}, B={n_r}: "
@@ -4909,7 +5427,8 @@ def main():
                {k: v for k, v in q.items() if not k.startswith("bwd_")}
                | {"device_ms": dtimes[
                    f"halo_contract mixed NG={q['ng']}"][0]}
-               for q in late["kernels"]["mixed_fold"]]},
+               for q in late["kernels"]["mixed_fold"]],
+           "covariance_anchor_rows": cov_more["anchor_rows"]},
         record("df_contract", "chomp_tpu_torch/csrc/df_contract.cu",
                "chomp_tpu/ops/df32.py:94", main_c["abs"], ms_c, plain_ms_c,
                bound_c, lib_ms_c, *dtimes["df_contract"])

@@ -25,15 +25,24 @@ likelihoods their matrices, float64 on the card: ``trispectrum`` (the
 halo-model T̄(k1, k2) with mixed tracers), ``mask`` (survey footprints
 and the masked Gaussian covariance), ``ssc`` (the super-sample term) and
 ``covariance`` (Gaussian, connected and SSC blocks and the joint w +
-gamma_t, 3x2pt and tomographic builders), its C_ell from kernel A on the
-k lattice.  The package imports torch, numpy and
-scipy only; the JAX package beside it is its reference in the tests.
+gamma_t, 3x2pt and tomographic builders, with exact-z connected and
+super-sample terms and the kappa_CMB probes), and ``curved`` (the same
+builders on a masked sphere, with ``healpix`` to ingest survey maps), its
+C_ell from kernel A on the k lattice.  The package imports torch, numpy
+and scipy only; the JAX package beside it is its reference in the tests.
 """
 
-from chomp_tpu_torch import covariance, mask, ssc, trispectrum
+from chomp_tpu_torch import (covariance, curved, healpix, mask, ssc,
+                             trispectrum)
+from chomp_tpu_torch.cmblens import CMBLensingSpec
 from chomp_tpu_torch.covariance import (joint_3x2pt_covariance,
                                         joint_wtheta_gammat_covariance,
                                         tomographic_3x2pt_covariance)
+from chomp_tpu_torch.curved import (PixelSphereMask, ProfileCurvedMask,
+                                    SphericalCapMask, UniformSphereMask,
+                                    curved_joint_3x2pt_covariance,
+                                    curved_joint_wtheta_gammat_covariance,
+                                    curved_tomographic_3x2pt_covariance)
 from chomp_tpu_torch.hod import (HODKravtsov, HODMandelbaum, HODPoisson,
                                  HODZheng, default_hod)
 from chomp_tpu_torch.mask import DiscMask, PixelMask, UniformMask
@@ -45,12 +54,16 @@ from chomp_tpu_torch.parallel.sweep import (Nuisance3x2pt, broadcast_cosmo,
 from chomp_tpu_torch.projection import (DNdzGaussian, DNdzInterpolation,
                                         DNdzMagLim, DNdzShifted)
 
-__all__ = ["CosmoParams", "DEFAULT_GRID", "DNdzGaussian",
+__all__ = ["CMBLensingSpec", "CosmoParams", "DEFAULT_GRID", "DNdzGaussian",
            "DNdzInterpolation", "DNdzMagLim", "DNdzShifted", "DiscMask",
            "GridSpec", "HODKravtsov", "HODMandelbaum", "HODPoisson",
            "HODZheng", "HaloParams", "Nuisance3x2pt", "PixelMask",
-           "UniformMask", "broadcast_cosmo", "covariance", "default_cosmo",
-           "default_halo", "default_hod", "default_nuisance",
+           "PixelSphereMask", "ProfileCurvedMask", "SphericalCapMask",
+           "UniformMask", "UniformSphereMask", "broadcast_cosmo",
+           "covariance", "curved", "curved_joint_3x2pt_covariance",
+           "curved_joint_wtheta_gammat_covariance",
+           "curved_tomographic_3x2pt_covariance", "default_cosmo",
+           "default_halo", "default_hod", "default_nuisance", "healpix",
            "joint_3x2pt_covariance", "joint_wtheta_gammat_covariance",
            "make_pipeline", "make_tomographic_pipeline", "mask", "ssc",
            "tomographic_3x2pt_covariance", "trispectrum"]

@@ -19,6 +19,17 @@ on the card as the JAX package runs it.
   sign-aware log-bilinear interpolation of T̄ is a static 2-tap weight
   tensor W[m, a, i] and the projection is three einsums (the table route,
   ``method="table"``, is kept as the referee).
+- Exact redshift evolution: ``exact_z=True`` rebuilds the halo model and
+  T̄ at every projection node (the table route's GL nodes, or the
+  lattice nodes with ``method="lattice"``), the nodes folded into the
+  batch as rows and taken in chunks of ``_NODE_ROWS`` rows;
+  ``exact_z_anchors`` = J expands T̄/D^6 over J Chebyshev anchors in z
+  (one halo build over B x J rows for every sample of the builder) and
+  mixes them per lattice node.
+- The kappa_CMB probes ride the tomographic builders: gK, kK and KK
+  callables (KK with the reconstruction noise's decaying part), the
+  white N_L floor in the noise closure, and a matter leg through the
+  single-plane window in the connected and super-sample blocks.
 - :func:`psd_clip` projects an assembled matrix onto the PSD cone with a
   detached correction (gradients flow through the raw matrix).
 
@@ -29,14 +40,14 @@ The builders take the JAX signatures' arguments; ``with_bao`` and
 Each builder call keeps a :class:`_Memo` that its blocks share (the
 C_ell, the lattice windows, the T̄ tables, the responses and sigma_b^2
 that the JAX package leaves to XLA's common-subexpression elimination);
-a public block function called on its own makes its own.  Exact-z
-(``exact_z``, ``exact_z_anchors``), the kappa_CMB blocks and the curved
-sky raise :class:`NotImplementedError`: they are the next covariance
-slice (ROADMAP item 11).
+a public block function called on its own makes its own.  The curved
+sky's blocks and builders are in :mod:`curved` (they share the engines
+here).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import math
 from functools import lru_cache
@@ -48,14 +59,10 @@ from chomp_tpu_torch import background, limber_fft, special, trispectrum
 from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.params import DEFAULT_GRID, GridSpec, col
 
-#: Where the routes that are not ported yet are listed.
-DEFERRED = "ROADMAP item 11, the covariance stack's next slice"
-
-
-def deferred(what: str):
-    """The NotImplementedError of a route that waits for the next
-    covariance slice."""
-    return NotImplementedError(f"{what} is not ported yet ({DEFERRED})")
+#: Rows (cosmology x projection node) of one chunk of the per-node
+#: exact-z rebuilds: each row carries its own halo model and T̄ table
+#: (a few MB in float64 at n_k_tri 96).
+_NODE_ROWS = 512
 
 
 class _Memo:
@@ -69,6 +76,9 @@ class _Memo:
         if key not in self._d:
             self._d[key] = make()
         return self._d[key]
+
+    def __contains__(self, key):
+        return key in self._d
 
 
 def _own_memo(impl):
@@ -110,7 +120,7 @@ def _mask_key(mask):
     if isinstance(mask, (int, float)):
         return ("omega", float(mask))
     try:
-        return ("mask", hash(mask))
+        return ("mask", type(mask).__name__, hash(mask))
     except TypeError:
         return ("mask_id", id(mask))
 
@@ -751,6 +761,182 @@ def _tri_table(cosmo, halo_p, model, tracers, n_k_tri: int, st,
                      n_k_tri), make)
 
 
+def _tri_model_at(cosmo, halo_p, model, z, st):
+    """``model`` rebuilt at per-row redshifts ``z`` (R,) for the row
+    cosmologies ``cosmo`` / ``halo_p`` (R rows): a single HaloModel
+    directly; a per-leg sequence rebuilds each DISTINCT sample once on ONE
+    shared mass-table build and keeps the leg -> sample identity."""
+    from chomp_tpu_torch import halo as halo_mod
+    from chomp_tpu_torch.mass import build_mass_tables
+
+    if not _is_seq(model):
+        return halo_mod.build_halo_model(cosmo, halo_p, _hod_rows(model, z),
+                                         z, st)
+    t = build_mass_tables(cosmo, halo_p, z, st)
+    rebuilt, out = [], []
+    for m in model:
+        for m_old, m_new in rebuilt:
+            if m is m_old:
+                out.append(m_new)
+                break
+        else:
+            m_new = halo_mod.build_halo_model(cosmo, halo_p,
+                                              _hod_rows(m, z), z, st,
+                                              mass_tables=t)
+            rebuilt.append((m, m_new))
+            out.append(m_new)
+    return tuple(out)
+
+
+def _hod_rows(model, z):
+    """``model``'s HOD with every per-cosmology field (B,) repeated for
+    the R = B J rows of ``z`` (row b J + j); shared fields as they are."""
+    from chomp_tpu_torch.limber_fft import _repeat_rows
+
+    hod = model.hod
+    b = model.n_g.shape[0]
+    return _repeat_rows(hod, b, z.shape[0] // b) if b > 1 else hod
+
+
+def _node_rows(cosmo, halo_p, z):
+    """(row cosmologies, row halo parameters, row z (B J,)) of per-row
+    redshifts ``z`` (B, J): row b J + j is cosmology b at z[b, j].  The
+    cosmology has B J rows also at B = 1: its batch sizes what is built on
+    the rows."""
+    from chomp_tpu_torch.limber_fft import _repeat_rows
+
+    cb = cosmo.batched()
+    b, j = cb.batch, z.shape[-1]
+    z = z.expand(b, j)
+    rows = dataclasses.replace(cb, **{
+        k: v.repeat_interleave(j, dim=0) for k, v in cb.fields().items()})
+    return rows, _repeat_rows(halo_p, b, j), z.reshape(-1)
+
+
+def _anchor_span(windows):
+    """(z_lo, z_hi) floats of the static Chebyshev anchor span: [max(lower
+    ends, 1e-3), max(min(upper ends), z_lo + 0.05)], the supports read
+    once, detached.  A support that differs between cosmology rows has no
+    static value: ValueError, as the JAX code raises for a traced one."""
+    los, his = [], []
+    for w in windows:
+        ends = []
+        for x in w.support():
+            v = torch.as_tensor(x).detach().reshape(-1).double().cpu()
+            if v.numel() > 1 and not bool(torch.all(v == v[0])):
+                raise ValueError(
+                    "exact_z_anchors needs concrete window supports for "
+                    "the static Chebyshev anchor span (one value for every "
+                    "cosmology row)")
+            ends.append(float(v[0]))
+        los.append(ends[0])
+        his.append(ends[1])
+    z_lo = max(max(los), 1e-3)
+    return z_lo, max(min(his), z_lo + 0.05)
+
+
+def _distinct(model):
+    """The distinct samples of ``model`` (one HaloModel or a sequence), in
+    order of first appearance, by identity."""
+    out = []
+    for m in (model if _is_seq(model) else [model]):
+        if not any(m is d for d in out):
+            out.append(m)
+    return out
+
+
+def _share_anchor_samples(model, memo: _Memo):
+    """Register every sample of a builder's ``model`` in ``memo``: each
+    block's anchors at one span are then built on ONE set of B x J rows
+    for all of them (:func:`_anchor_samples`)."""
+    memo.get(("anchor_samples",), lambda: _distinct(model))
+
+
+def _anchor_samples(model, memo: _Memo):
+    """The samples to rebuild at the anchors for ``model``: the builder's
+    registered samples where they hold every one of ``model``'s (so every
+    block at a span shares one anchor build and one kernel A launch of its
+    responses), else ``model``'s own."""
+    own = _distinct(model)
+    if ("anchor_samples",) in memo:
+        every = memo.get(("anchor_samples",), None)
+        if all(any(m is d for d in every) for m in own):
+            return every
+    return own
+
+
+def _anchor_models(cosmo, halo_p, models, spans, n_anchor: int, st,
+                   memo: _Memo):
+    """(row cosmologies, row halo parameters, [each of ``models`` rebuilt
+    at the J Chebyshev anchors of each span of ``spans``]) over B x S x J
+    rows (row (b S + s) J + j: cosmology b at anchor j of span s) on one
+    mass-table build, memoized per model set and spans (the connected and
+    super-sample terms share it)."""
+    from chomp_tpu_torch.limber_fft import _cheb_nodes
+
+    def make():
+        z_nodes = np.concatenate([_cheb_nodes(lo, hi, int(n_anchor))[0]
+                                  for lo, hi in spans])
+        z = torch.as_tensor(z_nodes, dtype=st.dtype, device=st.device)
+        rows, hp, z_rows = _node_rows(cosmo, halo_p, z[None, :])
+        rebuilt = _tri_model_at(rows, hp, tuple(models), z_rows, st)
+        return models, rows, hp, list(rebuilt)
+
+    got = memo.get(("anchor_models", id(cosmo), tuple(map(id, models)),
+                    tuple(spans), int(n_anchor)), make)
+    return got[1], got[2], got[3]
+
+
+def _tri_rows(cosmo, halo_p, model, tracers, kk, st):
+    """T̄ on the (n_k_tri)^2 grid of every row's own model, (R, n, n)."""
+    return trispectrum._parallelogram_tracers(
+        cosmo, halo_p, model, kk[:, None], kk[None, :], tracers, st,
+        ("1h", "2h", "3h", "4h"), shared={})
+
+
+def _sign_ln(t):
+    """(sign, ln max(|t|, tiny)) of T̄ tables, the dtype's smallest normal
+    the floor, as in the JAX package."""
+    sgn = torch.where(t < 0.0, -1.0, 1.0).to(t.dtype)
+    return sgn, torch.log(torch.clamp_min(torch.abs(t),
+                                          torch.finfo(t.dtype).tiny))
+
+
+def _node_sandwich(w_q, tables, weight):
+    """sum_m weight[b, m] sign exp(W[m] ln|T_bm| W[m]^T) with a table per
+    row and node: ``w_q`` (m, a, n), ``tables`` (B, m, n, n), ``weight``
+    (B, m) -> (B, a, a)."""
+    sgn, ln_t = _sign_ln(tables)
+    ln_q = w_q @ ln_t @ w_q.mT
+    sg_q = w_q @ sgn @ w_q.mT
+    mag = torch.exp(ln_q)
+    t_q = torch.where(sg_q >= 0.0, mag, -mag)
+    return torch.einsum("bm,bmac->bac", weight, t_q)
+
+
+def _kk_tri(n_k_tri, st, memo):
+    return memo.get(("k_tri", n_k_tri, str(st.device), st.dtype),
+                    lambda: torch.as_tensor(np.exp(_k_tri(n_k_tri, st)[0]),
+                                            dtype=st.dtype,
+                                            device=st.device))
+
+
+def _per_node_tables(cosmo, halo_p, model, tracers, z, n_k_tri, st, memo):
+    """T̄ at every (row, node) of ``z`` (B, m) from a halo model rebuilt
+    there, in chunks of nodes of at most ``_NODE_ROWS`` rows: yields (m0,
+    m1, tables (B, m1 - m0, n, n)) for each chunk."""
+    kk = _kk_tri(n_k_tri, st, memo)
+    b, m = cosmo.batch, z.shape[-1]
+    z = z.expand(b, m)
+    step = max(1, _NODE_ROWS // b)
+    for m0 in range(0, m, step):
+        m1 = min(m, m0 + step)
+        rows, hp, z_rows = _node_rows(cosmo, halo_p, z[:, m0:m1])
+        model_z = _tri_model_at(rows, hp, model, z_rows, st)
+        tb = _tri_rows(rows, hp, model_z, tracers, kk, st)
+        yield m0, m1, tb.reshape(b, m1 - m0, n_k_tri, n_k_tri)
+
+
 def _default_windows(dist, galaxy, windows, tracers):
     from chomp_tpu_torch.projection import WindowGalaxy
 
@@ -779,29 +965,30 @@ def _projected_trispectrum(cosmo, halo_p, model, dist, ells_cov,
     ``method="lattice"`` (default) projects on the strided ln-chi lattice
     (:func:`_projected_trispectrum_lattice`); ``method="table"`` on
     ``n_z_tri`` Gauss-Legendre z nodes with gathered bilinear lookups (the
-    referee)."""
+    referee).  ``exact_z=True`` rebuilds the halo model and T̄ at every
+    projection node (default route: the table's); ``exact_z_anchors`` = J
+    (lattice route) expands T̄/D^6 over J Chebyshev anchors in z."""
     if exact_z and exact_z_anchors:
         raise ValueError("pass either exact_z=True (per-node rebuilds) "
                          "or exact_z_anchors=J (Chebyshev), not both")
     if exact_z_anchors and method == "table":
         raise ValueError("exact_z_anchors is a lattice-route feature; "
                          "the table route uses exact_z=True instead")
-    if exact_z or exact_z_anchors:
-        raise deferred("the exact-z connected term (exact_z, "
-                       "exact_z_anchors)")
     st = resolve_statics(cosmo, st, grid, with_bao)
     if method is None:
-        method = "lattice"
+        # The table route for the per-node rebuilds (its n_z_tri GL
+        # nodes, not ~200 lattice nodes), the lattice route otherwise.
+        method = "table" if exact_z and not exact_z_anchors else "lattice"
     if method == "lattice":
         return _projected_trispectrum_lattice(
             cosmo, halo_p, model, dist, ells_cov, galaxy, n_k_tri, windows,
-            tracers, u_stride, st, memo)
+            tracers, u_stride, st, memo, exact_z, exact_z_anchors)
     if method != "table":
         raise ValueError(f"method must be 'lattice' or 'table', got "
                          f"{method!r}")
     return _projected_trispectrum_table(cosmo, halo_p, model, dist,
                                         ells_cov, galaxy, n_k_tri, n_z_tri,
-                                        windows, tracers, st, memo)
+                                        windows, tracers, st, memo, exact_z)
 
 
 projected_trispectrum = _own_memo(_projected_trispectrum)
@@ -809,17 +996,16 @@ projected_trispectrum = _own_memo(_projected_trispectrum)
 
 def _projected_trispectrum_table(cosmo, halo_p, model, dist, ells_cov,
                                  galaxy, n_k_tri, n_z_tri, windows,
-                                 tracers, st, memo):
+                                 tracers, st, memo, exact_z=False):
     """The Gauss-Legendre route of :func:`projected_trispectrum`: per z
     node, per-cosmology bilinear lookups of (sign, ln|T̄|) gathered from
-    the table at ln k = ln((l + 1/2)/chi)."""
+    the table at ln k = ln((l + 1/2)/chi); ``exact_z`` takes each node's
+    lookups from its own T̄ (no D^6 factor)."""
     from chomp_tpu_torch.params import C_OVER_H0
 
     t = dict(dtype=st.dtype, device=st.device)
     ells = torch.as_tensor(np.asarray(ells_cov, dtype=np.float64), **t)
     windows, tracers = _default_windows(dist, galaxy, windows, tracers)
-    sgn_tb, ln_tb = _tri_table(cosmo, halo_p, model, tracers, n_k_tri, st,
-                               memo)
     ln_k_np, dln = _k_tri(n_k_tri, st)
     z_lo, z_hi = _z_cuts(windows, st)
     x, w = st.gl_unit(n_z_tri)
@@ -833,12 +1019,12 @@ def _projected_trispectrum_table(cosmo, halo_p, model, dist, ells_cov,
     for w_ in windows:
         v = w_.window_z(cosmo, z, st)
         w_prod = v if w_prod is None else w_prod * v
-    weight = (w_prod / chi**6 * d**6 * (C_OVER_H0 / background.ez(cosmo, z))
-              * wz)                                           # (B, nz)
+    base = w_prod / chi**6 * (C_OVER_H0 / background.ez(cosmo, z)) * wz
+    weight = base if exact_z else base * d**6                 # (B, nz)
     lnk1 = torch.log((ells[None, :, None] + 0.5) / chi[:, None, :])
     b = weight.shape[0]
     rows = torch.arange(b, device=st.device)[:, None, None]
-    n = ln_tb.shape[-1]
+    n = n_k_tri
 
     def bilinear(tbl, lnk):
         tt = torch.clamp((lnk - ln_k_np[0]) / dln, 0.0, n - 1.001)
@@ -851,40 +1037,58 @@ def _projected_trispectrum_table(cosmo, halo_p, model, dist, ells_cov,
                 + (1 - fa) * fb * tbl[rows, ia, ib + 1]
                 + fa * fb * tbl[rows, ia + 1, ib + 1])
 
-    sgn_b = sgn_tb.expand(b, n, n)
-    ln_b = ln_tb.expand(b, n, n)
-    out = torch.zeros(b, len(ells), len(ells), **t)
-    for iz in range(n_z_tri):
+    def node_term(iz, sgn_b, ln_b):
         lnk_z = lnk1[:, :, iz].expand(b, -1)
         mag = torch.exp(bilinear(ln_b, lnk_z))
         t_ab = torch.where(bilinear(sgn_b, lnk_z) >= 0.0, mag, -mag)
-        out = out + weight[:, iz, None, None] * t_ab
+        return weight[:, iz, None, None] * t_ab
+
+    out = torch.zeros(b, len(ells), len(ells), **t)
+    if exact_z:
+        for m0, m1, tables in _per_node_tables(cosmo, halo_p, model, tracers,
+                                               z, n_k_tri, st, memo):
+            for iz in range(m0, m1):
+                out = out + node_term(iz, *_sign_ln(tables[:, iz - m0]))
+        return out
+    sgn_tb, ln_tb = _tri_table(cosmo, halo_p, model, tracers, n_k_tri, st,
+                               memo)
+    sgn_b = sgn_tb.expand(b, n, n)
+    ln_b = ln_tb.expand(b, n, n)
+    for iz in range(n_z_tri):
+        out = out + node_term(iz, sgn_b, ln_b)
     return out
 
 
 def _projected_trispectrum_lattice(cosmo, halo_p, model, dist, ells_cov,
                                    galaxy, n_k_tri: int, windows, tracers,
-                                   u_stride: int, st, memo):
+                                   u_stride: int, st, memo, exact_z=False,
+                                   exact_z_anchors=None):
     """The lattice route: with W[m, a, i] the static 2-tap rows,
 
         lnT_q[b, m, a, c] = W[m, a, :] ln|T̄_b| W[m, c, :]^T
         T_proj[b, a, c]   = sum_m wgt_bm sign_q exp(lnT_q)
 
-    (the sign sandwich likewise), separable D^6(z) in the weights."""
+    (the sign sandwich likewise), separable D^6(z) in the weights;
+    ``exact_z`` a T̄ of its own at every (row, node), ``exact_z_anchors``
+    the Chebyshev mix of the anchors' T̄/D^6 times D^6(z)."""
     ells_np = np.asarray(ells_cov, dtype=np.float64)
     windows, tracers = _default_windows(dist, galaxy, windows, tracers)
     ln_k_np, dln = _k_tri(n_k_tri, st)
-    rng, u_np, base, _, growth = _lattice_projection_weights(
+    rng, u_np, base, z_nodes, growth = _lattice_projection_weights(
         cosmo, windows, st, u_stride, memo, power=6)
+    w_q = memo.get(("w_q", rng, tuple(ells_np.tolist()), n_k_tri),
+                   lambda: torch.as_tensor(_tri_query_weights(
+                       ells_np, u_np, ln_k_np[0], dln, n_k_tri),
+                       dtype=st.dtype, device=st.device))
+    if exact_z or exact_z_anchors:
+        return _lattice_exact_z(cosmo, halo_p, model, windows, tracers,
+                                n_k_tri, st, memo, w_q, base, z_nodes,
+                                growth, exact_z_anchors)
     model0 = model[0] if _is_seq(model) else model
     weight = memo.get(
         ("cng_weight", id(cosmo), tuple(map(id, windows)), u_stride,
          id(model0.mass.growth)),
         lambda: base * (growth / col(model0.mass.growth, 1)) ** 6)
-    w_q = memo.get(("w_q", rng, tuple(ells_np.tolist()), n_k_tri),
-                   lambda: torch.as_tensor(_tri_query_weights(
-                       ells_np, u_np, ln_k_np[0], dln, n_k_tri),
-                       dtype=st.dtype, device=st.device))
     sgn_tbar, ln_tbar = _tri_table(cosmo, halo_p, model, tracers, n_k_tri,
                                    st, memo)
     ln_q = _sandwich(w_q, ln_tbar)
@@ -893,6 +1097,52 @@ def _projected_trispectrum_lattice(cosmo, halo_p, model, dist, ells_cov,
     t_q = torch.where(sg_q >= 0.0, mag, -mag)
     b, m, n = t_q.shape[:3]
     return (weight[:, None, :] @ t_q.reshape(b, m, n * n)).reshape(b, n, n)
+
+
+def _lattice_exact_z(cosmo, halo_p, model, windows, tracers, n_k_tri, st,
+                     memo, w_q, base, z, growth, exact_z_anchors):
+    """The exact-z lattice projections, (B, a, a): per-node rebuilds
+    (``exact_z_anchors`` None) or the J-anchor Chebyshev mix, both summed
+    over the nodes in chunks (:func:`_node_sandwich`)."""
+    b = cosmo.batch
+    n_a = w_q.shape[1]
+    out = torch.zeros(b, n_a, n_a, dtype=st.dtype, device=st.device)
+    if not exact_z_anchors:
+        for m0, m1, tables in _per_node_tables(cosmo, halo_p, model, tracers,
+                                               z, n_k_tri, st, memo):
+            out = out + _node_sandwich(w_q[m0:m1], tables, base[:, m0:m1])
+        return out
+    from chomp_tpu_torch.limber_fft import _barycentric_rows, _cheb_nodes
+
+    span = _anchor_span(windows)
+    j = int(exact_z_anchors)
+
+    def make_t_j():
+        models = _anchor_samples(model, memo)
+        rows, hp, rebuilt = _anchor_models(cosmo, halo_p, models, (span,),
+                                           j, st, memo)
+        by_id = {id(m): r for m, r in zip(models, rebuilt)}
+        model_j = (tuple(by_id[id(m)] for m in model) if _is_seq(model)
+                   else rebuilt[0])
+        t = _tri_rows(rows, hp, model_j, tracers, _kk_tri(n_k_tri, st, memo),
+                      st)
+        d_j = rebuilt[0].mass.growth.reshape(b, j)
+        return t.reshape(b, j, n_k_tri, n_k_tri) / (d_j**6)[..., None, None]
+
+    t_j = memo.get(("tri_anchor", tuple(tracers), _model_key(model, tracers),
+                    n_k_tri, span, j), make_t_j)
+    z_nodes, w_bary = _cheb_nodes(span[0], span[1], j)
+    lag = _barycentric_rows(torch.clamp(z.expand(b, -1), span[0], span[1]),
+                            z_nodes, w_bary)                # (B, m, J)
+    d6 = growth.expand(b, -1) ** 6
+    m = lag.shape[1]
+    step = max(1, _NODE_ROWS // b)
+    for m0 in range(0, m, step):
+        m1 = min(m, m0 + step)
+        t_m = (torch.einsum("bmj,bjpq->bmpq", lag[:, m0:m1], t_j)
+               * d6[:, m0:m1, None, None])
+        out = out + _node_sandwich(w_q[m0:m1], t_m, base[:, m0:m1])
+    return out
 
 
 def _sandwich(w_q, tbl):
@@ -1115,8 +1365,6 @@ def joint_wtheta_gammat_covariance(cosmo, halo_p, model, dist_lens,
 
     st = resolve_statics(cosmo, st, grid, with_bao)
     memo = _Memo()
-    if exact_z or exact_z_anchors:
-        raise deferred("the exact-z covariance (exact_z, exact_z_anchors)")
     win_g = WindowGalaxy(dist=dist_lens)
     win_k = WindowConvergence(dist=dist_src)
     if cl_method == "lattice":
@@ -1159,7 +1407,7 @@ def joint_wtheta_gammat_covariance(cosmo, halo_p, model, dist_lens,
     for add in _adders(cosmo, halo_p, model, dist_lens, edges, omega_s_sr,
                        st, memo, include_nongaussian, include_ssc,
                        n_ell_cov_ng, n_k_tri, n_z_tri, tri_method, u_stride,
-                       mask, ssc_kwargs):
+                       mask, ssc_kwargs, exact_z, exact_z_anchors):
         blocks = [blk + add(*combo) for blk, combo in zip(blocks, combos)]
     cov_ww, cov_wg, cov_gg = blocks
     return _apply_psd_guard(_stack_blocks(
@@ -1168,22 +1416,26 @@ def joint_wtheta_gammat_covariance(cosmo, halo_p, model, dist_lens,
 
 def _adders(cosmo, halo_p, model, dist_lens, edges, omega_s_sr, st, memo,
             include_nongaussian, include_ssc, n_ell_cov_ng, n_k_tri,
-            n_z_tri, tri_method, u_stride, mask, ssc_kwargs):
+            n_z_tri, tri_method, u_stride, mask, ssc_kwargs, exact_z=False,
+            exact_z_anchors=None):
     """The connected and super-sample block engines of the joint
-    builders: (windows, tracers, mu_i, mu_j) -> (B, nb, nb)."""
+    builders: (windows, tracers, mu_i, mu_j) -> (B, nb, nb); the anchors
+    ride both terms, the per-node rebuilds the connected one, as in the
+    JAX builders."""
     adders = []
     if include_nongaussian:
         common = dict(n_ell_cov=n_ell_cov_ng, n_k_tri=n_k_tri,
                       n_z_tri=n_z_tri, method=tri_method,
-                      u_stride=u_stride, mask=mask, st=st, memo=memo)
+                      u_stride=u_stride, mask=mask, exact_z=exact_z,
+                      exact_z_anchors=exact_z_anchors, st=st, memo=memo)
         adders.append(lambda ws, ts, mi, mj: _nongaussian_covariance(
             cosmo, halo_p, model, dist_lens, edges, omega_s_sr,
             windows=ws, tracers=ts, mu_i=mi, mu_j=mj, **common))
     if include_ssc:
         from chomp_tpu_torch.ssc import _ssc_covariance
 
-        skw = dict(u_stride=u_stride, st=st, memo=memo,
-                   **(ssc_kwargs or {}))
+        skw = dict(u_stride=u_stride, exact_z_anchors=exact_z_anchors,
+                   st=st, memo=memo, **(ssc_kwargs or {}))
         fp = mask if mask is not None else omega_s_sr
         adders.append(lambda ws, ts, mi, mj: _ssc_covariance(
             cosmo, halo_p, model, dist_lens, edges, fp, windows=ws,
@@ -1223,8 +1475,6 @@ def joint_3x2pt_covariance(cosmo, halo_p, model, dist_lens, dist_src,
         raise ValueError("joint_3x2pt_covariance is lattice-only (the "
                          "table referee route lives in "
                          "joint_wtheta_gammat_covariance)")
-    if exact_z or exact_z_anchors:
-        raise deferred("the exact-z covariance (exact_z, exact_z_anchors)")
     win_g = WindowGalaxy(dist=dist_lens)
     win_k = WindowConvergence(dist=dist_src)
     cl_gg, cl_gk, cl_kk = _lattice_cl_callables(
@@ -1280,7 +1530,7 @@ def joint_3x2pt_covariance(cosmo, halo_p, model, dist_lens, dist_src,
     for add in _adders(cosmo, halo_p, model, dist_lens, edges, omega_s_sr,
                        st, memo, include_nongaussian, include_ssc,
                        n_ell_cov_ng, n_k_tri, n_z_tri, tri_method, u_stride,
-                       mask, ssc_kwargs):
+                       mask, ssc_kwargs, exact_z, exact_z_anchors):
         for key, combo in combos.items():
             blocks[key] = blocks[key] + add(*combo)
     c = blocks
@@ -1351,10 +1601,11 @@ def _tomographic_lattice_cl_callables(cosmo, halo_p, model, lens_dists,
     evaluates them at a fiducial systematics point (shifted windows, NLA,
     gk x (1+m_j), kk x (1+m_j)(1+m_k)); ``include_magnification`` adds the
     lens magnification terms with c_i = 2(alpha_i - 1);
-    ``matter_power`` "halofit" / "linear" swaps the mm lattice row."""
+    ``matter_power`` "halofit" / "linear" swaps the mm lattice row;
+    ``cmb`` (a :class:`cmblens.CMBLensingSpec`) adds ("gK", i), ("kK", j)
+    (one (1 + m_j)) and ("KK",), the last with the static decaying part of
+    the reconstruction noise N_L - N_inf."""
     st = resolve_statics(cosmo, st, grid, with_bao)
-    if cmb is not None:
-        raise deferred("the kappa_CMB covariance blocks")
     if include_magnification and nuisance is None:
         raise ValueError("include_magnification needs nuisance= (the "
                          "slopes live in Nuisance3x2pt.alpha_lens)")
@@ -1442,7 +1693,42 @@ def _tomographic_lattice_cl_callables(cosmo, halo_p, model, lens_dists,
                 make(wins_k[j], wins_k[k], "power_mm"),
                 None if cal is None
                 else _per_bin(cal, j) * _per_bin(cal, k))
+    if cmb is not None:
+        win_kcmb = _cmb_window(cmb, st, memo)
+        for i in range(len(wins_g)):
+            base = make(wins_g[i], win_kcmb, key_gm(i))
+            if c_mag is not None:
+                base = summed([
+                    (1.0, base),
+                    (_per_bin(c_mag, i),
+                     make(wk_lens[i], win_kcmb, "power_mm")),
+                ])
+            out[("gK", i)] = base
+        for j in range(len(wins_k)):
+            out[("kK", j)] = scaled(
+                make(wins_k[j], win_kcmb, "power_mm"),
+                None if cal is None else _per_bin(cal, j))
+        kk_base = make(win_kcmb, win_kcmb, "power_mm")
+        t = dict(dtype=st.dtype, device=st.device)
+
+        def cl_kk_cmb(ells_np):
+            e = np.asarray(ells_np, dtype=np.float64)
+            return memo.get(
+                ("cl_kk_cmb", id(cmb), len(e), float(e[0]), float(e[-1])),
+                lambda: kk_base(e) + _const(
+                    memo, ("nl_resid", id(cmb), len(e), float(e[0]),
+                           float(e[-1])), lambda: cmb.nl_resid(e), t))
+
+        out[("KK",)] = cl_kk_cmb
     return out
+
+
+def _cmb_window(cmb, st, memo: _Memo):
+    """The kappa_CMB window of ``cmb`` on the call's device and dtype, one
+    object per call (windows are memoized by identity)."""
+    return memo.get(("cmb_window", id(cmb)),
+                    lambda: (cmb, cmb.window(device=st.device,
+                                             dtype=st.dtype)))[1]
 
 
 tomographic_lattice_cl_callables = _own_memo(
@@ -1530,11 +1816,11 @@ def _tomographic_ng_block_fn(cosmo, halo_p, model, lens_dists, src_dists,
     super-sample (``"ssc"``) block of their non-B channel pairs, or None:
     g legs bind their lens bin's window and model, E legs the source
     window (with NLA at a nuisance point) and the shared matter sector,
-    one (1 + m_j) per E leg."""
-    if curved_mask is not None:
-        raise deferred("the curved-sky connected and super-sample blocks")
-    if cmb is not None:
-        raise deferred("the kappa_CMB covariance blocks")
+    one (1 + m_j) per E leg, K legs (``cmb``) the matter field through
+    the kappa_CMB window with no calibration factor.  ``curved_mask``
+    swaps in the curved engines (:func:`curved.curved_nongaussian_
+    covariance`, :func:`ssc.curved_ssc_covariance`) with the probes'
+    curved estimator codes; ``ng_kwargs`` then carries their ell_max."""
     per_bin = _is_seq(model)
     wins_g, wins_k, _, cal = _tomographic_windows(lens_dists, src_dists,
                                                   nuisance, memo)
@@ -1543,24 +1829,48 @@ def _tomographic_ng_block_fn(cosmo, halo_p, model, lens_dists, src_dists,
         kind, i = t
         if kind == "g":
             return wins_g[i], "g", (model[i] if per_bin else model), 1.0
+        if kind == "K":
+            return (_cmb_window(cmb, st, memo), "m",
+                    (model[0] if per_bin else model), 1.0)
         return (wins_k[i], "m", (model[0] if per_bin else model),
                 1.0 if cal is None else _per_bin(cal, i))
 
     def side_model(ts_pair, ms_pair):
         return ms_pair[0] if ts_pair[0] == "g" else ms_pair[1]
 
+    if curved_mask is not None:
+        from chomp_tpu_torch.curved import _curved_probe_code
+
+        def codes(entry_a, entry_b):
+            return dict(mu_i=_curved_probe_code(entry_a[1], entry_a[2]),
+                        mu_j=_curved_probe_code(entry_b[1], entry_b[2]))
     if engine == "ssc":
-        from chomp_tpu_torch.ssc import _ssc_covariance
+        from chomp_tpu_torch.ssc import (_curved_ssc_covariance,
+                                         _ssc_covariance)
 
         fp = mask if mask is not None else omega_s_sr
 
         def block(ws, ts, ms, entry_a, entry_b):
             m_pair = ((side_model(ts[:2], ms[:2]),
                        side_model(ts[2:], ms[2:])) if per_bin else model)
+            if curved_mask is not None:
+                return _curved_ssc_covariance(
+                    cosmo, halo_p, m_pair, lens_dists[0], edges,
+                    curved_mask, windows=ws, tracers=ts,
+                    **codes(entry_a, entry_b), st=st, memo=memo,
+                    **ng_kwargs)
             return _ssc_covariance(cosmo, halo_p, m_pair, lens_dists[0],
                                    edges, fp, windows=ws, tracers=ts,
                                    mu_i=entry_a[1], mu_j=entry_b[1], st=st,
                                    memo=memo, **ng_kwargs)
+    elif curved_mask is not None:
+        from chomp_tpu_torch.curved import _curved_nongaussian_covariance
+
+        def block(ws, ts, ms, entry_a, entry_b):
+            return _curved_nongaussian_covariance(
+                cosmo, halo_p, ms, lens_dists[0], edges, curved_mask,
+                windows=ws, tracers=ts, **codes(entry_a, entry_b), st=st,
+                memo=memo, **ng_kwargs)
     else:
         def block(ws, ts, ms, entry_a, entry_b):
             return _nongaussian_covariance(
@@ -1568,23 +1878,54 @@ def _tomographic_ng_block_fn(cosmo, halo_p, model, lens_dists, src_dists,
                 windows=ws, tracers=ts, mu_i=entry_a[1], mu_j=entry_b[1],
                 mask=mask, st=st, memo=memo, **ng_kwargs)
 
-    def ng(entry_a, entry_b):
-        acc = None
+    def legs(entry_a, entry_b):
+        """(sign, windows, tracers, models, calibrations) of each non-B
+        channel pair of the block."""
         for (a, b), s_a in entry_a[2]:
             if "B" in (a[0], b[0]):
                 continue
             for (c, d), s_b in entry_b[2]:
                 if "B" in (c[0], d[0]):
                     continue
-                ws, ts, ms, fs = zip(*(leg(t) for t in (a, b, c, d)))
-                f_cal = fs[0] * fs[1] * fs[2] * fs[3]
-                blk = (s_a * s_b * _bcast(f_cal, 2)
-                       * block(ws, ts, ms if per_bin else model, entry_a,
-                               entry_b))
-                acc = blk if acc is None else acc + blk
+                yield (s_a * s_b,
+                       *zip(*(leg(t) for t in (a, b, c, d))))
+
+    def ng(entry_a, entry_b):
+        acc = None
+        for sgn, ws, ts, ms, fs in legs(entry_a, entry_b):
+            f_cal = fs[0] * fs[1] * fs[2] * fs[3]
+            blk = (sgn * _bcast(f_cal, 2)
+                   * block(ws, ts, ms if per_bin else model, entry_a,
+                           entry_b))
+            acc = blk if acc is None else acc + blk
         return acc
 
+    ng.legs = legs
     return ng
+
+
+def _prime_block_anchors(cosmo, halo_p, model, sscf, probes, include_ssc,
+                         ssc_kwargs, st, memo: _Memo):
+    """With ``exact_z_anchors`` in ``ssc_kwargs``, fill ``memo`` with
+    every sample's anchor response parts at the anchor span of every
+    super-sample block the builder will take (the ``include_ssc`` probe
+    pairs of ``probes``), so that they come from one kernel A launch
+    (:func:`ssc._prime_anchor_parts`) and not one per span."""
+    n_anchor = ssc_kwargs.get("exact_z_anchors")
+    if sscf is None or not n_anchor:
+        return
+    from chomp_tpu_torch.ssc import _prime_anchor_parts
+
+    spans = {}
+    for pa in range(len(probes)):
+        for pb in range(pa, len(probes)):
+            if include_ssc == "autos" and pb != pa:
+                continue
+            for _, ws, _, _, _ in sscf.legs(probes[pa], probes[pb]):
+                spans[_anchor_span(ws)] = None
+    _prime_anchor_parts(cosmo, halo_p, model, list(spans), n_anchor, st,
+                        memo, **{k: v for k, v in ssc_kwargs.items()
+                                 if k in ("n_k_ssc", "local_counts")})
 
 
 def tomographic_3x2pt_covariance(cosmo, halo_p, model, lens_dists,
@@ -1612,31 +1953,38 @@ def tomographic_3x2pt_covariance(cosmo, halo_p, model, lens_dists,
     :func:`tomographic_lattice_cl_callables`; ``ng_kwargs`` forward to
     :func:`nongaussian_covariance`, ``ssc_kwargs`` to
     :func:`ssc.ssc_covariance`; ``psd_guard="clip"`` :func:`psd_clip`.
-    ``cmb_lensing`` (the kappa_CMB probes) is the next slice's."""
+    ``cmb_lensing`` (True or a :class:`cmblens.CMBLensingSpec`) appends
+    the w_{g_i kappa_CMB} probes: their C_ell from the same lattice
+    evaluation, the spec's N_L as C^KK + (N_L - N_inf) with the white
+    floor N_inf through the noise closure, kappa_CMB a matter leg of the
+    connected and super-sample blocks."""
     st = resolve_statics(cosmo, st, grid, with_bao)
     memo = _Memo()
+    cmb = None
     if cmb_lensing is not None and cmb_lensing is not False:
-        raise deferred("the kappa_CMB covariance blocks (cmb_lensing)")
-    if ng_kwargs.get("exact_z") or ng_kwargs.get("exact_z_anchors") or (
-            ssc_kwargs or {}).get("exact_z_anchors"):
-        raise deferred("the exact-z covariance (exact_z, exact_z_anchors)")
+        from chomp_tpu_torch.cmblens import as_cmb_spec
+
+        cmb = as_cmb_spec(cmb_lensing)
     n_lens, n_src = len(lens_dists), len(src_dists)
     cls = _tomographic_lattice_cl_callables(
         cosmo, halo_p, model, lens_dists, src_dists, nuisance=nuisance,
-        include_magnification=include_magnification,
+        include_magnification=include_magnification, cmb=cmb,
         matter_power=matter_power, st=st, memo=memo)
     n2d, sn = _tomographic_noise_lists(n2d_lens_list, shape_noise_list,
                                        n_lens, n_src)
     edges = theta_edges_deg
     nb = len(np.asarray(edges)) - 1
     cl_zero = _cl_zero(st)
-    pair = _tomographic_pair_fn(cls, n2d, sn, cl_zero)
-    probes = tomographic_probes(n_lens, n_src)
+    pair = _tomographic_pair_fn(cls, n2d, sn, cl_zero,
+                                nl_inf=(cmb.nl_inf if cmb else 0.0))
+    probes = tomographic_probes(n_lens, n_src, cmb_lensing=cmb is not None)
+    _share_anchor_samples(model, memo)
     ng = (_tomographic_ng_block_fn(cosmo, halo_p, model, lens_dists,
                                    src_dists, edges, omega_s_sr, st, mask,
-                                   ng_kwargs, memo, nuisance=nuisance)
+                                   ng_kwargs, memo, nuisance=nuisance,
+                                   cmb=cmb)
           if include_nongaussian else None)
-    if include_ssc:
+    if include_ssc and not (ssc_kwargs or {}).get("exact_z_anchors"):
         from chomp_tpu_torch.ssc import _prime_responses
 
         _prime_responses(cosmo, halo_p, model, st, memo,
@@ -1645,8 +1993,11 @@ def tomographic_3x2pt_covariance(cosmo, halo_p, model, lens_dists,
     sscf = (_tomographic_ng_block_fn(cosmo, halo_p, model, lens_dists,
                                      src_dists, edges, omega_s_sr, st,
                                      mask, ssc_kwargs or {}, memo,
-                                     nuisance=nuisance, engine="ssc")
+                                     nuisance=nuisance, engine="ssc",
+                                     cmb=cmb)
             if include_ssc else None)
+    _prime_block_anchors(cosmo, halo_p, model, sscf, probes, include_ssc,
+                         ssc_kwargs or {}, st, memo)
     n_probe = len(probes)
     blocks = [[None] * n_probe for _ in range(n_probe)]
     for pa in range(n_probe):

@@ -121,6 +121,33 @@ def jacobian(theory_fn, p, chunk: int | None = None):
     return jac[0] if single else jac
 
 
+def _same_device(a, b) -> bool:
+    """Whether devices ``a`` and ``b`` are one: "cuda" without an index is
+    the current card, so it equals "cuda:0" where that is current."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+
+    def index(d):
+        if d.index is None and d.type == "cuda":
+            return torch.cuda.current_device()
+        return d.index
+
+    return index(a) == index(b)
+
+
+def _data_device(data, device):
+    """The device of a likelihood's tensors: that of tensor ``data``,
+    else ``device``, else the package's default, the card (as
+    :class:`grids.Statics`)."""
+    if torch.is_tensor(data):
+        if device is not None and not _same_device(device, data.device):
+            raise ValueError(f"data is on {data.device}, device={device!r}: "
+                             f"move the data or drop device=")
+        return data.device
+    return torch.device("cuda" if device is None else device)
+
+
 def _as64(v, device):
     return None if v is None else torch.as_tensor(
         np.asarray(v, dtype=np.float64) if not torch.is_tensor(v) else v,
@@ -164,9 +191,10 @@ class GaussianLikelihood(_PriorBox):
     (inference.py:125-264) over a leading batch axis.
 
     The covariance is Cholesky-factored once, in float64, on the device
-    of ``data`` (a tensor; numpy data stays on the CPU); every residual
-    is solved in float64, whatever the theory's dtype.  ``prior_sigma``
-    entries that are inf/NaN (or <= 0) leave that parameter unconstrained;
+    of ``data`` (a tensor), or of ``device`` for numpy data (default: the
+    card, as every entry point; CPU callers pass ``device="cpu"``); every
+    residual is solved in float64, whatever the theory's dtype.
+    ``prior_sigma`` entries that are inf/NaN (or <= 0) leave that parameter unconstrained;
     outside ``lower``/``upper`` the negative log posterior gains 1e6 per
     violated bound.  ``templates`` (n_t, n_data) are marginalized in
     closed form (chi2_marg = r C^-1 r - b^T A^-1 b, b = T C^-1 r, A = T
@@ -175,9 +203,9 @@ class GaussianLikelihood(_PriorBox):
 
     def __init__(self, theory_fn, data, cov, prior_mean=None,
                  prior_sigma=None, lower=None, upper=None, templates=None,
-                 template_sigma=None):
+                 template_sigma=None, *, device=None):
         self.theory_fn = theory_fn
-        dev = data.device if torch.is_tensor(data) else torch.device("cpu")
+        dev = _data_device(data, device)
         self.data = _as64(data, dev).reshape(-1)
         n = self.data.numel()
         cov = np.asarray(cov.cpu() if torch.is_tensor(cov) else cov,
@@ -266,12 +294,14 @@ class PoissonLikelihood(_PriorBox):
     for counts data, with the Gaussian priors and box of
     :class:`GaussianLikelihood`: the JAX package's ``PoissonLikelihood``
     over a leading batch axis.  ``theory_fn(p)`` gives the expected
-    counts (n, n_data); a 1e-300 floor keeps the log finite."""
+    counts (n, n_data); a 1e-300 floor keeps the log finite.  Its tensors
+    live on the device of tensor ``data``, or of ``device`` for numpy data
+    (default: the card)."""
 
     def __init__(self, theory_fn, data, prior_mean=None, prior_sigma=None,
-                 lower=None, upper=None):
+                 lower=None, upper=None, *, device=None):
         self.theory_fn = theory_fn
-        dev = data.device if torch.is_tensor(data) else torch.device("cpu")
+        dev = _data_device(data, device)
         self.data = _as64(data, dev).reshape(-1)
         self._set_prior(dev, prior_mean, prior_sigma, lower, upper)
 

@@ -153,17 +153,59 @@ def pixel_mask(src):
     (the map itself is not kept by either class)."""
     from chomp_tpu_torch.mask import PixelMask
 
-    out = PixelMask.__new__(PixelMask)
+    return _copy_state(PixelMask, src)
+
+
+def spherical_cap_mask(src):
+    """SphericalCapMask from a JAX-package SphericalCapMask."""
+    from chomp_tpu_torch.curved import SphericalCapMask
+
+    return SphericalCapMask(float(src.radius_rad))
+
+
+def uniform_sphere_mask(src):
+    """UniformSphereMask from a JAX-package UniformSphereMask."""
+    from chomp_tpu_torch.curved import UniformSphereMask
+
+    return UniformSphereMask()
+
+
+def _copy_state(cls, src):
+    """An instance of ``cls`` carrying ``src``'s attributes (numpy arrays
+    copied): the curved masks keep their numpy geometry and content hash
+    in plain attributes, identical in both packages."""
+    out = cls.__new__(cls)
     out.__dict__.update({k: (np.array(v, dtype=np.float64)
                              if isinstance(v, np.ndarray) else v)
                          for k, v in vars(src).items()})
     return out
 
 
+def profile_curved_mask(src):
+    """ProfileCurvedMask from a JAX-package ProfileCurvedMask: its
+    Legendre coefficients, areas, Parseval scale and hash."""
+    from chomp_tpu_torch.curved import ProfileCurvedMask
+
+    return _copy_state(ProfileCurvedMask, src)
+
+
+def pixel_sphere_mask(src):
+    """PixelSphereMask from a JAX-package PixelSphereMask: the ring-pair
+    pair functions, areas, grid size and content hash (the map itself is
+    not kept by either class)."""
+    from chomp_tpu_torch.curved import PixelSphereMask
+
+    return _copy_state(PixelSphereMask, src)
+
+
 def mask(src):
-    """Any of the JAX package's flat-sky masks, by its class name."""
+    """Any of the JAX package's flat-sky or curved masks, by its class
+    name."""
     conv = {"DiscMask": disc_mask, "UniformMask": uniform_mask,
-            "PixelMask": pixel_mask}.get(type(src).__name__)
+            "PixelMask": pixel_mask, "SphericalCapMask": spherical_cap_mask,
+            "UniformSphereMask": uniform_sphere_mask,
+            "ProfileCurvedMask": profile_curved_mask,
+            "PixelSphereMask": pixel_sphere_mask}.get(type(src).__name__)
     if conv is None:
         raise TypeError(f"no converter for {type(src).__name__}")
     return conv(src)

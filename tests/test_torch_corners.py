@@ -25,6 +25,7 @@ from chomp_tpu_torch.params import GridSpec
 from chomp_tpu_torch.parallel.sweep import make_pipeline
 from chomp_tpu_torch.projection import DNdzGaussian
 from chomp_tpu_torch.utils import corners
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 REF = json.loads((Path(__file__).parent / "data"

@@ -15,6 +15,7 @@ from chomp_tpu.ops.fftlog_pallas import hankel_matmul_pallas
 from chomp_tpu_torch import correlation
 from chomp_tpu_torch.ops import hankel_matmul as hm
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 RTOL = 1e-10

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import torch_cov_cases as C
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
@@ -363,7 +364,13 @@ def test_psd_clip():
     "covariance.joint_wtheta_gammat_covariance",
     "covariance.joint_3x2pt_covariance",
     "covariance.tomographic_3x2pt_covariance", "ssc.projected_ssc",
-    "ssc.ssc_covariance", "trispectrum.trispectrum_parallelogram_tracers"])
+    "ssc.ssc_covariance", "trispectrum.trispectrum_parallelogram_tracers",
+    "ssc.curved_ssc_covariance", "curved.curved_gaussian_block",
+    "curved.curved_gaussian_covariance",
+    "curved.curved_nongaussian_covariance",
+    "curved.curved_joint_wtheta_gammat_covariance",
+    "curved.curved_joint_3x2pt_covariance",
+    "curved.curved_tomographic_3x2pt_covariance"])
 def test_no_cache_outlives_a_call(name):
     """The public functions take no cache (a builder's memo keys entries
     by object identity, so it must not outlive the call): their
@@ -397,36 +404,26 @@ def test_statics_resolution():
 
 
 def test_deferred_routes_raise():
-    """Exact-z (both forms), the kappa_CMB blocks and the curved-sky
-    engines raise NotImplementedError naming ROADMAP item 11."""
+    """The routes that raised NotImplementedError until the exact-z,
+    kappa_CMB and curved-sky slice now give results (their parity cases
+    are tests/test_torch_cov_exactz.py, test_torch_cov_cmb.py and
+    test_torch_curved_cov.py); the argument checks stay: the two exact-z
+    flags exclude each other, the anchors need the lattice route, and the
+    3x2pt builder is lattice-only."""
     from chomp_tpu_torch import covariance
 
     p = C.port_side()
     args = (p.cosmo, p.halo, p.model, p.dist, p.dist, C.EDGES, C.OMEGA_S,
             C.N2D, C.SHAPE_NOISE)
-    for kw in (dict(exact_z=True), dict(exact_z_anchors=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            covariance.joint_wtheta_gammat_covariance(*args, st=p.st, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            covariance.projected_trispectrum(
-                p.cosmo, p.halo, p.model, p.dist, C.ELLS, st=p.st, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            covariance.tomographic_3x2pt_covariance(
-                p.cosmo, p.halo, p.models, p.lens, p.src, C.EDGES,
-                C.OMEGA_S, 3e7, 1e-9, include_nongaussian=True, st=p.st,
-                **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        covariance.tomographic_3x2pt_covariance(
-            p.cosmo, p.halo, p.models, p.lens, p.src, C.EDGES, C.OMEGA_S,
-            3e7, 1e-9, cmb_lensing=True, st=p.st)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        covariance._tomographic_ng_block_fn(
-            p.cosmo, p.halo, p.models, p.lens, p.src, C.EDGES, C.OMEGA_S,
-            p.st, None, {}, covariance._Memo(), curved_mask=object())
     with pytest.raises(ValueError, match="not both"):
         covariance.projected_trispectrum(
             p.cosmo, p.halo, p.model, p.dist, C.ELLS, exact_z=True,
             exact_z_anchors=4, st=p.st)
+    with pytest.raises(ValueError, match="lattice-route"):
+        covariance.projected_trispectrum(
+            p.cosmo, p.halo, p.model, p.dist, C.ELLS, exact_z_anchors=4,
+            method="table", st=p.st)
     with pytest.raises(ValueError, match="lattice-only"):
         covariance.joint_3x2pt_covariance(*args, cl_method="table",
                                           st=p.st)
+    assert not hasattr(covariance, "deferred")

@@ -8,6 +8,7 @@ import torch
 
 from chomp_tpu.ops import df32 as jdf32
 from chomp_tpu_torch.ops import df32
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 
 def _hostile():

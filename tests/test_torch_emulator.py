@@ -37,6 +37,7 @@ import torch
 
 from chomp_tpu_torch import emulator, inference
 from chomp_tpu_torch.utils import convert, io
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 BOUNDS = np.array([[-1.0, 1.0], [-1.0, 1.0]])

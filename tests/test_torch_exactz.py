@@ -44,6 +44,7 @@ from chomp_tpu_torch.parallel import sweep
 from chomp_tpu_torch.utils import convert
 from tests import test_exact_z_lattice as tz
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 REF = json.loads((Path(__file__).parent / "data"

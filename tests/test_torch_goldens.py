@@ -15,6 +15,7 @@ from chomp_tpu_torch import (background, correlation, default_cosmo,
 from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.params import DEFAULT_GRID
 from tests import goldens
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 

@@ -32,6 +32,7 @@ from chomp_tpu_torch.params import default_cosmo
 from chomp_tpu_torch.parallel import sweep
 from chomp_tpu_torch.utils import convert
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 REF = json.loads((Path(__file__).parent / "data"

@@ -21,6 +21,7 @@ from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.ops import halo_contract as hc
 from chomp_tpu_torch.utils import convert
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 

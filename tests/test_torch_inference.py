@@ -25,6 +25,7 @@ from chomp_tpu_torch import inference
 from chomp_tpu_torch.parallel import sweep
 from chomp_tpu_torch.utils import convert
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 
@@ -49,7 +50,7 @@ def test_gaussian_likelihood_chi2_exact():
     row by row of a batch; log_like = -chi2/2."""
     a, b, cov, theory = _toy()
     data = b + 0.3
-    like = inference.GaussianLikelihood(theory, data, cov)
+    like = inference.GaussianLikelihood(theory, data, cov, device="cpu")
     p = torch.tensor([[0.2, -0.5, 1.1], [0.0, 0.3, -0.7]], **KW)
     r = theory(p).numpy() - data
     expect = np.einsum("ni,ni->n", r, np.linalg.solve(cov, r.T).T)
@@ -70,7 +71,8 @@ def test_fisher_matrix_linear_exact():
     got = inference.fisher_matrix(theory, cov, p0).numpy()
     np.testing.assert_allclose(got, expect, rtol=1e-10)
     sig = np.array([0.5, np.inf, 2.0])
-    like = inference.GaussianLikelihood(theory, b, cov, prior_sigma=sig)
+    like = inference.GaussianLikelihood(theory, b, cov, prior_sigma=sig,
+                                        device="cpu")
     np.testing.assert_allclose(
         like.fisher(p0).numpy(), expect + np.diag([1 / 0.25, 0.0, 1 / 4.0]),
         rtol=1e-10)
@@ -87,7 +89,7 @@ def test_neg_log_post_priors_and_box():
     like = inference.GaussianLikelihood(
         theory, b, cov, prior_mean=[0.1, 0.0, 0.0],
         prior_sigma=[0.2, np.inf, np.inf],
-        lower=[-1.0, -1.0, -1.0], upper=[1.0, 1.0, 1.0])
+        lower=[-1.0, -1.0, -1.0], upper=[1.0, 1.0, 1.0], device="cpu")
     p = torch.tensor([[0.3, 0.0, 0.0], [0.3, -1.5, 2.0]], **KW)
     u = like.neg_log_post(p).numpy()
     chi2 = like.chi2(p).numpy()
@@ -105,19 +107,20 @@ def test_templates_marginalize_like_the_inflated_covariance():
     t = rng.normal(size=(2, 7))
     sig = np.array([0.7, 1.3])
     like = inference.GaussianLikelihood(theory, b, cov, templates=t,
-                                        template_sigma=sig)
+                                        template_sigma=sig, device="cpu")
     inflated = inference.GaussianLikelihood(theory, b,
-                                            cov + (t.T * sig**2) @ t)
+                                            cov + (t.T * sig**2) @ t,
+                                            device="cpu")
     p = torch.tensor([[0.2, -0.1, 0.4], [1.0, 0.5, -0.3]], **KW)
     np.testing.assert_allclose(like.chi2(p).numpy(),
                                inflated.chi2(p).numpy(), rtol=1e-10)
     flat = inference.GaussianLikelihood(theory, b, cov, templates=[a[:, 0]],
-                                        template_sigma=[np.inf])
+                                        template_sigma=[np.inf], device="cpu")
     f = flat.fisher(torch.zeros(3, **KW)).numpy()
     np.testing.assert_allclose(f[0], 0.0, atol=1e-10)
     with pytest.raises(ValueError):
         inference.GaussianLikelihood(theory, b, cov, templates=t,
-                                     template_sigma=[0.0, 1.0])
+                                     template_sigma=[0.0, 1.0], device="cpu")
 
 
 def test_map_fit_recovers_gls():
@@ -126,7 +129,7 @@ def test_map_fit_recovers_gls():
     a, b, cov, theory = _toy(seed=3)
     p_true = np.random.default_rng(7).normal(size=a.shape[1])
     data = theory(torch.tensor(p_true))[0].numpy()
-    like = inference.GaussianLikelihood(theory, data, cov)
+    like = inference.GaussianLikelihood(theory, data, cov, device="cpu")
     p_best, info = inference.map_fit(like.neg_log_post,
                                      torch.zeros(a.shape[1], **KW),
                                      n_steps=1500, learning_rate=0.05)
@@ -246,3 +249,37 @@ def test_make_theory_fn_refuses_nuisance_and_unknown_fields(lattice_pipe):
     with pytest.raises(AttributeError):
         inference.make_theory_fn(lattice_pipe, cosmo0,
                                  cosmo_names=("omega_x",))
+
+
+def test_likelihood_device():
+    """numpy data lands on the package's default device, the card, unless
+    ``device=`` names another; tensor data keeps its device (a different
+    ``device=`` raises)."""
+    from chomp_tpu_torch import inference
+
+    assert inference._data_device(np.zeros(3), None) == torch.device("cuda")
+    assert inference._data_device(np.zeros(3), "cpu") == torch.device("cpu")
+    t = torch.zeros(3, dtype=torch.float64)
+    assert inference._data_device(t, None) == t.device
+    like = inference.PoissonLikelihood(lambda p: p, np.ones(2),
+                                       device="cpu")
+    assert like.data.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="device"):
+        inference.GaussianLikelihood(lambda p: p, t, np.eye(3),
+                                     device="meta")
+
+
+@pytest.mark.cuda
+def test_likelihood_device_cuda():
+    """Tensor data on the card is accepted with device="cuda" as with
+    "cuda:0" (the current card), and kept there."""
+    from chomp_tpu_torch import inference
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the data must lie on the card")
+    t = torch.zeros(3, dtype=torch.float64, device="cuda:0")
+    for dev in ("cuda", "cuda:0", torch.device("cuda")):
+        like = inference.GaussianLikelihood(lambda p: p, t, np.eye(3),
+                                            device=dev)
+        assert like.data.device == t.device
+        assert like._chol.device == t.device

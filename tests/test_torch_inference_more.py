@@ -30,6 +30,7 @@ import torch
 
 from chomp_tpu import inference as jinf
 from chomp_tpu_torch import inference
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 F64 = torch.float64
 
@@ -67,7 +68,7 @@ def lam_jax(p):
 
 def poisson_pair(**kw):
     data = np.array([37.0, 410.0, 3950.0, 131.0])
-    return (inference.PoissonLikelihood(lam_port, data, **kw),
+    return (inference.PoissonLikelihood(lam_port, data, **kw, device="cpu"),
             jinf.PoissonLikelihood(lam_jax, data, **kw))
 
 
@@ -102,13 +103,14 @@ def test_poisson_likelihood_exact():
         return p[:, :1] * t
 
     data = lam(t64([[1.3]]))[0]
-    like = inference.PoissonLikelihood(lam, data)
+    like = inference.PoissonLikelihood(lam, data, device="cpu")
     p = t64([[1.3]]).requires_grad_(True)
     (g,) = torch.autograd.grad(like.neg_log_post(p).sum(), p)
     assert abs(g.item()) < 1e-9
     assert abs(like.fisher(t64([1.3]))[0, 0].item()
                - t.sum().item() / 1.3) < 1e-8
-    glike = inference.GaussianLikelihood(lam, data, np.diag(data.numpy()))
+    glike = inference.GaussianLikelihood(lam, data, np.diag(data.numpy()),
+                                         device="cpu")
 
     def hess(fn):
         return torch.autograd.functional.hessian(
@@ -130,8 +132,9 @@ def test_composite_likelihood_sums_and_matches_jax():
         return torch.cat([2.0 * p[:, :1], 3.0 * p[:, :1]], dim=-1)
 
     data_p, data_g = tp_, np.array([2.0, 3.0])
-    lp = inference.PoissonLikelihood(lam, data_p)
-    lg = inference.GaussianLikelihood(gvec, data_g, np.eye(2) * 0.1)
+    lp = inference.PoissonLikelihood(lam, data_p, device="cpu")
+    lg = inference.GaussianLikelihood(gvec, data_g, np.eye(2) * 0.1,
+                                      device="cpu")
     comp = inference.CompositeLikelihood([lp, lg])
     p = t64([[1.07], [0.93]])
     torch.testing.assert_close(comp.neg_log_post(p), lp.neg_log_post(p)
@@ -198,11 +201,11 @@ def test_template_marginalization_woodbury_identity():
     sig = np.array([0.7, 2.3])
     data = b + rng.normal(size=b.size)
     lk_t = inference.GaussianLikelihood(theory, data, cov, templates=t,
-                                        template_sigma=sig)
+                                        template_sigma=sig, device="cpu")
     cov_inf = inference.marginalized_covariance(cov, t, sig)
     np.testing.assert_allclose(cov_inf, jinf.marginalized_covariance(
         cov, t, sig), rtol=1e-15)
-    lk_i = inference.GaussianLikelihood(theory, data, cov_inf)
+    lk_i = inference.GaussianLikelihood(theory, data, cov_inf, device="cpu")
     p = t64(np.random.default_rng(0).normal(size=(2, 3)))
     np.testing.assert_allclose(lk_t.chi2(p).numpy(), lk_i.chi2(p).numpy(),
                                rtol=1e-10)
@@ -226,7 +229,7 @@ def test_template_marginalization_brute_force():
     data = b + 0.4 * t + rng.normal(size=5) * 0.2
     lk = inference.GaussianLikelihood(theory, data, cov,
                                       templates=t[None, :],
-                                      template_sigma=[sig])
+                                      template_sigma=[sig], device="cpu")
     cinv = np.linalg.inv(cov)
 
     def neg2ln_marg(p):
@@ -248,9 +251,9 @@ def test_template_improper_prior_invariance():
     t = a[:, 0]
     data = b + 0.25
     lk0 = inference.GaussianLikelihood(theory, data, cov,
-                                       templates=t[None, :])
+                                       templates=t[None, :], device="cpu")
     lk1 = inference.GaussianLikelihood(theory, data + 17.3 * t, cov,
-                                       templates=t[None, :])
+                                       templates=t[None, :], device="cpu")
     p = t64([[0.4, -1.0, 0.2]])
     np.testing.assert_allclose(lk0.chi2(p).numpy(), lk1.chi2(p).numpy(),
                                rtol=1e-8, atol=1e-8)
@@ -305,11 +308,12 @@ def test_theta_cut_mask_and_apply_match_jax():
     fn2, d2, c2, t2 = inference.apply_scale_cuts(
         keep, theory, data, cov, templates=np.vstack([tpl, dead]))
     assert t2.shape[0] == tpl.shape[0]
-    lk_cut = inference.GaussianLikelihood(fn2, d2, c2, templates=t2)
+    lk_cut = inference.GaussianLikelihood(fn2, d2, c2, templates=t2,
+                                          device="cpu")
     kk = np.nonzero(keep)[0]
     manual = inference.GaussianLikelihood(
         lambda p: theory(p)[:, kk], data[keep], cov[np.ix_(keep, keep)],
-        templates=tpl[:, keep])
+        templates=tpl[:, keep], device="cpu")
     p = t64([[0.3, -0.8], [0.1, 0.2]])
     np.testing.assert_allclose(lk_cut.chi2(p).numpy(), manual.chi2(p).numpy(),
                                rtol=1e-12)
@@ -321,7 +325,7 @@ def test_theta_cut_mask_and_apply_match_jax():
         keep, theory, data, cov, templates=t, template_sigma=[0.7, 1.9])
     assert t3.shape == (1, keep.sum()) and list(s3) == [1.9]
     inference.GaussianLikelihood(fn3, d3, c3, templates=t3,
-                                 template_sigma=s3)
+                                 template_sigma=s3, device="cpu")
     with pytest.raises(ValueError, match="without templates"):
         inference.apply_scale_cuts(keep, theory, data, cov,
                                    template_sigma=[0.7])
@@ -405,7 +409,8 @@ def test_adaptive_hmc_nonfinite_starts():
 def test_external_loglike_contract():
     cov = np.diag([0.5, 2.0])
     like = inference.GaussianLikelihood(lambda p: p,
-                                        torch.zeros(2, dtype=F64), cov)
+                                        torch.zeros(2, dtype=F64), cov,
+                                        device="cpu")
     lp = inference.external_loglike(like)
     p = np.array([0.3, -0.4])
     expect = -0.5 * float(p @ np.linalg.inv(cov) @ p)

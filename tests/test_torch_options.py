@@ -55,6 +55,7 @@ from chomp_tpu_torch.parallel import sweep
 from chomp_tpu_torch.utils import convert
 from tests import test_torch_tomographic as tt
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import torch_slice_reference as tsr  # noqa: E402

@@ -22,6 +22,7 @@ from chomp_tpu_torch.ops import df32, halo_contract as hc
 from chomp_tpu_torch.parallel import sweep
 from chomp_tpu_torch.utils import convert
 from tests import torch_parity as tp
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 KW = dict(device="cpu", dtype=torch.float64)
 

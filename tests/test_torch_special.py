@@ -15,6 +15,7 @@ from chomp_tpu import limber_fft as jlimber
 from chomp_tpu import special as jspecial
 from chomp_tpu_torch import _special_coeffs as coeffs
 from chomp_tpu_torch import correlation, fftlog, grids, limber_fft, special
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 GRID = graft._tiny_grid().replace(lattice_dln=0.04)
 # Every branch of the auxiliary functions: series (x <= 4), both

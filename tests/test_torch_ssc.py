@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import torch_cov_cases as C
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 TOL = 1e-12
 
@@ -160,18 +161,25 @@ def test_ssc_block_gradient():
 
 
 def test_deferred_routes_raise():
-    """The curved sky and exact-z anchors are the next slice's (ROADMAP
-    item 11): each raises NotImplementedError naming it."""
+    """The curved sky and the exact-z anchors, which raised until their
+    slice, now give results (parity: tests/test_torch_curved_cov.py and
+    test_torch_cov_exactz.py): a bare solid angle's curved sigma_b^2 is
+    its polar cap's (1e-15), and the curved block still rejects an
+    unknown estimator code."""
     from chomp_tpu_torch import ssc
+    from chomp_tpu_torch.curved import SphericalCapMask
 
     p = C.port_side()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        ssc.sigma_b2_curved(p.cosmo, None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    chi = torch.tensor([[600.0, 1500.0]], dtype=torch.float64)
+    g = torch.tensor([[0.8, 0.6]], dtype=torch.float64)
+    radius = float(np.arccos(1.0 - C.OMEGA_S / (2.0 * np.pi)))
+    got = ssc.sigma_b2_fn(p.cosmo, C.OMEGA_S, geometry="curved",
+                          st=p.st)(chi, g)
+    want = ssc.sigma_b2_curved(p.cosmo, SphericalCapMask(radius), chi, g,
+                               st=p.st)
+    torch.testing.assert_close(got, want, rtol=1e-15, atol=0)
+    with pytest.raises(ValueError, match="estimator code"):
         ssc.curved_ssc_covariance(p.cosmo, p.halo, p.model, p.dist,
-                                  C.EDGES, C.OMEGA_S)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        ssc.sigma_b2_fn(p.cosmo, C.OMEGA_S, geometry="curved", st=p.st)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        ssc.ssc_covariance(p.cosmo, p.halo, p.model, p.dist, C.EDGES,
-                           C.OMEGA_S, exact_z_anchors=4, st=p.st)
+                                  C.EDGES, C.OMEGA_S, mu_i=3, ell_max=64,
+                                  n_ell_tbl=8, n_k_ssc=16, u_stride=2,
+                                  st=p.st)

@@ -10,6 +10,7 @@ import torch
 from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.ops import build, tiles
 from chomp_tpu_torch.params import DEFAULT_GRID
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 #: (rows, K, T) of the main paths and of chip_smoke.py's ragged cases.
 MAIN = [(512, 1024, 64), (512, 2220, 64)]

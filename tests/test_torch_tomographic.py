@@ -50,6 +50,7 @@ from chomp_tpu_torch import halo, inference, limber_fft, projection
 from chomp_tpu_torch.grids import Statics
 from chomp_tpu_torch.parallel import sweep
 from chomp_tpu_torch.utils import convert
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 # The module, not the function of the same name in chomp_tpu.parallel.
 jsweep = importlib.import_module("chomp_tpu.parallel.sweep")

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import torch_cov_cases as C
+from torch_threads import capped_threads  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

@@ -1,7 +1,9 @@
 """Shared inputs of the covariance-stack parity tests
 (tests/test_torch_trispectrum.py, test_torch_mask.py, test_torch_ssc.py,
-test_torch_covariance.py) and of the ``tiny`` block of
-tests/data/torch_cov_reference.json that holds their JAX values.
+test_torch_covariance.py, and test_torch_cov_exactz.py,
+test_torch_cov_cmb.py, test_torch_curved_cov.py) and of the ``tiny``
+blocks of tests/data/torch_cov_reference.json and
+torch_cov_more_reference.json that hold their JAX values.
 
 One small grid (the JAX covariance tests' ``GridSpec(n_mass=48, n_mu=8,
 ...)`` with the tomographic tests' 0.08 lattice and a 512-node k
@@ -52,6 +54,43 @@ K_TRI = np.geomspace(1e-2, 10.0, 6)
 ELLS = np.logspace(1, 3.5, 8)
 #: The disc of the masked cases: Omega_s's equal-area radius.
 DISC_RADIUS = float(np.sqrt(OMEGA_S / np.pi))
+#: The Chebyshev anchors of the exact-z cases.
+J_ANCHORS = 4
+#: The GL nodes of the per-node exact-z table route.
+N_Z_EXACT = 8
+#: The curved-sky cases: a 30-degree polar cap, a two-cap pixel map on a
+#: 48 x 96 iso-latitude grid, bins of 1-15 degrees, multipoles to 256
+#: with the dense coupling to 64 (one 1280-node quadrature per mask).
+CURVED = dict(cap_deg=30.0, edges_deg=[1.0, 2.5, 6.0, 15.0], ell_max=256,
+              ell_split=64, n_ell_tbl=16, n_k_ssc=32,
+              map_shape=(48, 96), map_cap_deg=25.0, map_center2=(2.0, 1.0))
+#: The kappa_CMB reconstruction noise table of the cmb cases.
+CMB_NL_ELL = np.geomspace(2.0, 5000.0, 24)
+CMB_NL = 1.0e-7 * (1.0 + (CMB_NL_ELL / 800.0) ** 2)
+
+
+def two_cap_map(n_ring, n_phi, radius_deg, center2):
+    """A binary two-cap footprint on the iso-latitude grid (numpy; the
+    map of examples/curved_sky_example.py)."""
+    th = (np.arange(n_ring) + 0.5) * np.pi / n_ring
+    ph = np.arange(n_phi) * 2 * np.pi / n_phi
+    rad = np.radians(radius_deg)
+
+    def cap(center):
+        ct0, st0 = np.cos(center[0]), np.sin(center[0])
+        mu = (ct0 * np.cos(th)[:, None] + st0 * np.sin(th)[:, None]
+              * np.cos(ph[None, :] - center[1]))
+        return mu >= np.cos(rad)
+
+    return (cap((0.0, 0.0)) | cap(center2)).astype(float)
+
+
+def curved_masks(curved_module):
+    """(cap, pixel) masks of CURVED from a package's ``curved`` module."""
+    c = CURVED
+    return (curved_module.SphericalCapMask(np.radians(c["cap_deg"])),
+            curved_module.PixelSphereMask(two_cap_map(
+                *c["map_shape"], c["map_cap_deg"], c["map_center2"])))
 
 
 def cosmo_row(i):
@@ -148,27 +187,33 @@ def port_side():
 
 
 REFERENCE = "torch_cov_reference.json"
+MORE_REFERENCE = "torch_cov_more_reference.json"
 
 
 @lru_cache(maxsize=None)
-def reference():
-    """The ``tiny`` block of tests/data/torch_cov_reference.json: case ->
-    row -> JAX value(s) (written by ``python tools/torch_slice_reference.py
-    torch_cov_reference.json``)."""
+def reference(name=REFERENCE):
+    """The ``tiny`` block of tests/data/``name``: case -> row -> JAX
+    value(s) (written by ``python tools/torch_slice_reference.py
+    <name>``)."""
     import json
     from pathlib import Path
 
-    data = json.loads((Path(__file__).parent / "data" / REFERENCE)
+    data = json.loads((Path(__file__).parent / "data" / name)
                       .read_text())["tiny"]
     assert data["grid"] == __import__("dataclasses").asdict(GRID), \
-        "tests/data/torch_cov_reference.json is stale: regenerate it"
+        f"tests/data/{name} is stale: regenerate it"
     return data["cases"]
 
 
-def ref(case, row, key=None):
+def ref(case, row, key=None, name=REFERENCE):
     """One JAX reference array (float64 numpy)."""
-    val = reference()[case][str(row)]
+    val = reference(name)[case][str(row)]
     return np.asarray(val if key is None else val[key], dtype=np.float64)
+
+
+def ref_more(case, row, key=None):
+    """One JAX reference array of torch_cov_more_reference.json."""
+    return ref(case, row, key, MORE_REFERENCE)
 
 
 def peak_err(got, want):

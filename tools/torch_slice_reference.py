@@ -1730,12 +1730,465 @@ def write_cov_reference():
     print(f"wrote {path}")
 
 
+# ---------------------------------------------------------------------------
+# The rest of the covariance stack: tests/data/torch_cov_more_reference.json
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py phase 29, the curved-sky joint covariances on a footprint
+#: no azimuthal profile can represent: the two 20-degree caps of
+#: examples/curved_sky_example.py (``two_cap_weight_map``, a 256 x 512
+#: PixelSphereMask), its lens and source dN/dz, edges, n2d and shape noise
+#: and its halo-model redshift, on DEFAULT_GRID at ell_max 4096 with the
+#: connected and super-sample terms (raw matrices: the JAX
+#: curved_joint_3x2pt_covariance ignores psd_guard); cosmologies of
+#: bench.py's 64-point linspaces.
+CURVED_CELL = dict(n_ring=256, n_phi=512, cap_radius_deg=20.0,
+                   cap2_center=[2.0, 1.0],
+                   lens=dict(z_min=0.0, z_max=2.0, z0=0.7, sigma_z=0.2),
+                   src=dict(z_min=0.0, z_max=2.5, z0=1.1, sigma_z=0.3),
+                   z_model=0.0, edges_deg=[1.0, 2.0, 4.0, 8.0], n2d=3.0e7,
+                   shape_noise=1.0e-9, ell_max=4096)
+CURVED_INDICES = EXACT_INDICES
+#: chip_smoke.py phase 30: phase 27's JOINT_CELL with exact_z_anchors=6 on
+#: the connected and super-sample terms (at EXACTZ_COV_INDICES), and with
+#: exact_z=True (per-node rebuilds of the table route, the separable SSC
+#: left out) at the first of them.
+EXACTZ_COV_J = 6
+EXACTZ_COV_INDICES = EXACT_INDICES
+#: chip_smoke.py phase 31: phase 28's cell with cmb_lensing=True (the
+#: default CMBLensingSpec), flat and on a SphericalCapMask of DES Y3's
+#: area; the JAX values are of its first TOMO_COV_BINS bins at
+#: TOMO_COV_INDICES, raw.
+CMB_COV_INDICES = TOMO_COV_INDICES
+
+
+def two_cap_weight_map(n_ring=256, n_phi=512, radius_deg=20.0,
+                       center2=(2.0, 1.0)):
+    """Binary two-cap footprint on the iso-latitude grid (the map of
+    examples/curved_sky_example.py)."""
+    th = (np.arange(n_ring) + 0.5) * np.pi / n_ring
+    ph = np.arange(n_phi) * 2 * np.pi / n_phi
+    rad = np.radians(radius_deg)
+
+    def cap(center):
+        ct0, st0 = np.cos(center[0]), np.sin(center[0])
+        mu = (ct0 * np.cos(th)[:, None] + st0 * np.sin(th)[:, None]
+              * np.cos(ph[None, :] - center[1]))
+        return mu >= np.cos(rad)
+
+    return (cap((0.0, 0.0)) | cap(center2)).astype(float)
+
+
+def cap_radius_of_area(area_deg2):
+    """The radius in radians of the polar cap of ``area_deg2``."""
+    omega = area_deg2 * (np.pi / 180.0) ** 2
+    return float(np.arccos(1.0 - omega / (2.0 * np.pi)))
+
+
+def curved_cov_fn(grid, builder, **kw):
+    """The phase-29 builder (``curved.<builder>``) of one JAX cosmology on
+    ``grid``."""
+    from chomp_tpu import curved, default_halo, halo
+    from chomp_tpu.hod import default_hod
+
+    c = CURVED_CELL
+    mask = curved.PixelSphereMask(two_cap_weight_map(
+        c["n_ring"], c["n_phi"], c["cap_radius_deg"], c["cap2_center"]))
+    lens, src = _jax_gauss(c["lens"]), _jax_gauss(c["src"])
+    hp, hod = default_halo(), default_hod()
+    opts = dict(include_nongaussian=True, include_ssc=True, psd_guard=None,
+                ell_max=c["ell_max"])
+    opts.update(kw)
+    fn = getattr(curved, builder)
+
+    def f(cosmo):
+        m = halo.build_halo_model(cosmo, hp, hod, c["z_model"], False, grid)
+        return fn(cosmo, hp, m, lens, src, c["edges_deg"], c["n2d"],
+                  c["shape_noise"], mask, grid=grid, **opts)
+
+    return f
+
+
+def cmb_tomo_cov_fn(grid, n_lens, n_src, curved_sky, **kw):
+    """The phase-31 builder: phase 28's (tomo_cov_fn) with the kappa_CMB
+    probes, flat or on the DES Y3-area polar cap, raw."""
+    if not curved_sky:
+        return tomo_cov_fn(grid, n_lens, n_src, cmb_lensing=True,
+                           psd_guard=None, **kw)
+    import jax.numpy as jnp
+
+    from chomp_tpu import curved, default_halo, halo
+    from chomp_tpu.hod import default_hod
+    from chomp_tpu.parallel.sweep import Nuisance3x2pt
+
+    c = TOMO_CELL
+    nu = json.loads((DATA / "torch_tomo_reference.json").read_text())[
+        "nuisance"]
+    lens = [_jax_gauss(dict(z_min=0.0, z_max=c["lens_z_max"], z0=z0,
+                            sigma_z=c["lens_sigma_z"]))
+            for z0 in c["lens_z0"][:n_lens]]
+    src = [_jax_gauss(dict(z_min=0.0, z_max=c["src_z_max"], z0=z0,
+                           sigma_z=sz))
+           for z0, sz in list(zip(c["src_z0"], c["src_sigma_z"]))[:n_src]]
+    hods = [default_hod(log10_m_min=m, log10_m_0=m,
+                        log10_m_1p=m + c["log10_m_1p_offset"])
+            for m in c["log10_m_min"][:n_lens]]
+    sv = DES_Y3_SURVEY
+    _, n2d, sn = survey_numbers(
+        sv["area_deg2"], sv["lens_n_arcmin2"][:n_lens],
+        sv["src_n_eff_arcmin2"][:n_src], sv["src_sigma_e"][:n_src])
+    nuis = Nuisance3x2pt(
+        dz_lens=jnp.asarray(nu["dz_lens"][:n_lens]),
+        dz_src=jnp.asarray(nu["dz_src"][:n_src]),
+        m=jnp.asarray(nu["m"][:n_src]), a_ia=jnp.asarray(nu["a_ia"]),
+        eta_ia=jnp.asarray(nu["eta_ia"]), z0_ia=jnp.asarray(nu["z0_ia"]),
+        alpha_lens=jnp.asarray(nu["alpha_lens"][:n_lens]))
+    mask = curved.SphericalCapMask(cap_radius_of_area(sv["area_deg2"]))
+    hp = default_halo()
+    opts = dict(include_nongaussian=True, include_ssc=True, psd_guard=None,
+                nuisance=nuis, include_magnification=True, cmb_lensing=True)
+    opts.update(kw)
+
+    def f(cosmo):
+        models = halo.build_halo_models(cosmo, hp, hods, c["z_pivot"],
+                                        False, grid)
+        return curved.curved_tomographic_3x2pt_covariance(
+            cosmo, hp, models, lens, src, DES_THETA_EDGES_DEG,
+            n2d.tolist(), sn.tolist(), mask, grid=grid, **opts)
+
+    return f
+
+
+def _scalar_runs(f, oms, s8s):
+    """Each cosmology's matrix by the eager scalar program, with the
+    seconds each took."""
+    import time
+
+    out, secs = [], []
+    for om, s8 in zip(oms, s8s):
+        t0 = time.perf_counter()
+        out.append(np.asarray(f(_cosmo_at(om, s8))))
+        secs.append(time.perf_counter() - t0)
+        print(f"  scalar cosmology: {secs[-1]:.1f} s", flush=True)
+    return np.stack(out), secs
+
+
+def cov_more_chip_part(name):
+    """One DEFAULT_GRID block of tests/data/torch_cov_more_reference.json:
+    "chip_curved_joint" / "chip_curved_3x2pt" (phase 29),
+    "chip_exactz_anchors_<i>" (phase 30, the i-th of EXACTZ_COV_INDICES),
+    "chip_exactz_pernode" (phase 30's exact_z=True run),
+    "chip_cmb_flat" / "chip_cmb_curved" (phase 31)."""
+    from chomp_tpu.params import DEFAULT_GRID
+
+    if name in ("chip_curved_joint", "chip_curved_3x2pt"):
+        builder = ("curved_joint_wtheta_gammat_covariance"
+                   if name == "chip_curved_joint"
+                   else "curved_joint_3x2pt_covariance")
+        nb = len(CURVED_CELL["edges_deg"]) - 1
+        oms, s8s = cosmologies(CURVED_INDICES, N_COSMO_EXACT)
+        f = curved_cov_fn(DEFAULT_GRID, builder)
+        if name == "chip_curved_joint":
+            raw, info = _scalar_and_batched(f, oms, s8s, nb)
+        else:
+            raw, secs = _scalar_runs(f, oms, s8s)
+            info = dict(scalar_seconds=secs)
+        return {"n_cosmo": N_COSMO_EXACT, "indices": list(CURVED_INDICES),
+                "omega_m0": oms.tolist(), "sigma_8": s8s.tolist(),
+                "cov_raw": raw.tolist(), **info}
+    if name.startswith("chip_exactz_anchors_"):
+        i = int(name.rsplit("_", 1)[1])
+        idx = (EXACTZ_COV_INDICES[i],)
+        oms, s8s = cosmologies(idx, N_COSMO_EXACT)
+        raw, secs = _scalar_runs(joint_cov_fn(
+            DEFAULT_GRID, exact_z_anchors=EXACTZ_COV_J, psd_guard=None),
+            oms, s8s)
+        return {"index": idx[0], "omega_m0": oms.tolist(),
+                "sigma_8": s8s.tolist(), "cov_raw": raw[0].tolist(),
+                "scalar_seconds": secs}
+    if name == "chip_exactz_pernode":
+        idx = EXACTZ_COV_INDICES[:1]
+        oms, s8s = cosmologies(idx, N_COSMO_EXACT)
+        raw, secs = _scalar_runs(joint_cov_fn(
+            DEFAULT_GRID, exact_z=True, include_ssc=False, psd_guard=None),
+            oms, s8s)
+        return {"indices": list(idx), "omega_m0": oms.tolist(),
+                "sigma_8": s8s.tolist(), "cov_raw": raw.tolist(),
+                "scalar_seconds": secs}
+    if name in ("chip_cmb_flat", "chip_cmb_curved"):
+        n_l, n_s = TOMO_COV_BINS
+        oms, s8s = cosmologies(CMB_COV_INDICES, N_COSMO_EXACT)
+        raw, secs = _scalar_runs(cmb_tomo_cov_fn(
+            DEFAULT_GRID, n_l, n_s, name == "chip_cmb_curved"), oms, s8s)
+        return {"indices": list(CMB_COV_INDICES), "omega_m0": oms.tolist(),
+                "sigma_8": s8s.tolist(), "bins": list(TOMO_COV_BINS),
+                "cov_raw": raw.tolist(), "scalar_seconds": secs}
+    raise SystemExit(f"unknown covariance part {name!r}")
+
+
+def cov_more_tiny_part(name):
+    """One third of the ``tiny`` block of
+    tests/data/torch_cov_more_reference.json, on tests/torch_cov_cases.py's
+    grid and cosmology rows (eager JAX, the CPU seconds of each case):
+    "tiny_exactz" (the exact-z connected and super-sample routes and
+    builders), "tiny_cmb" (the kappa_CMB callables and tomographic
+    blocks), "tiny_curved" (the curved-sky blocks and builders)."""
+    import time
+
+    import jax.numpy as jnp
+
+    from chomp_tpu import covariance, curved, projection, ssc
+    from chomp_tpu.cmblens import CMBLensingSpec
+    from tests import torch_cov_cases as C
+
+    out, secs = {}, {}
+
+    def put(case, row, fn):
+        t0 = time.perf_counter()
+        val = fn()
+        val = {k: np.asarray(v).tolist() for k, v in val.items()} \
+            if isinstance(val, dict) else np.asarray(val).tolist()
+        out.setdefault(case, {})[str(row)] = val
+        secs[f"{case}/{row}"] = time.perf_counter() - t0
+        print(f"  {case} row {row}: {secs[f'{case}/{row}']:.1f} s",
+              flush=True)
+
+    grid = C.GRID
+    t = C.TOMO
+    spec = CMBLensingSpec(nl_ell=C.CMB_NL_ELL, nl=C.CMB_NL)
+    cv = C.CURVED
+    for row in (0, 2):
+        J = C.jax_side(row)
+        win_g = projection.WindowGalaxy(dist=J.dist)
+        win_k = projection.WindowConvergence(dist=J.dist)
+        leg = (J.models[0], J.models[1], J.models[1], J.models[0])
+        base = (J.cosmo, J.halo, J.model, J.dist, J.dist, C.EDGES,
+                C.OMEGA_S, C.N2D, C.SHAPE_NOISE)
+        proj_kw = dict(grid=grid, n_k_tri=16, u_stride=2)
+        if name == "tiny_exactz":
+            put("proj_anchors", row, lambda: {
+                "gggg": covariance.projected_trispectrum(
+                    J.cosmo, J.halo, J.model, J.dist, C.ELLS,
+                    exact_z_anchors=C.J_ANCHORS, **proj_kw),
+                "gmgm": covariance.projected_trispectrum(
+                    J.cosmo, J.halo, leg, J.dist, C.ELLS,
+                    windows=(win_g, win_k, win_g, win_k),
+                    tracers=tuple("gmgm"), exact_z_anchors=C.J_ANCHORS,
+                    **proj_kw)})
+            if row != 2:
+                continue
+            put("proj_exact", row, lambda: {
+                "table": covariance.projected_trispectrum(
+                    J.cosmo, J.halo, J.model, J.dist, C.ELLS, exact_z=True,
+                    n_z_tri=C.N_Z_EXACT, **proj_kw),
+                "lattice": covariance.projected_trispectrum(
+                    J.cosmo, J.halo, leg, J.dist, C.ELLS,
+                    windows=(win_g, win_k, win_g, win_k),
+                    tracers=tuple("gmgm"), exact_z=True, method="lattice",
+                    **proj_kw)})
+            put("ssc_anchors", row, lambda: {
+                "pair": ssc.projected_ssc(
+                    J.cosmo, J.halo, (J.models[0], J.models[1]), C.ELLS,
+                    C.ELLS[:5], (win_g, win_g, win_g, win_k),
+                    ("g", "g", "g", "m"),
+                    ssc.sigma_b2_fn(J.cosmo, C.OMEGA_S, grid=grid),
+                    grid=grid, n_k_ssc=32, u_stride=2,
+                    exact_z_anchors=C.J_ANCHORS),
+                "gggm": ssc.ssc_covariance(
+                    J.cosmo, J.halo, J.model, J.dist, C.EDGES, J.disc,
+                    windows=(win_g, win_g, win_g, win_k),
+                    tracers=("g", "g", "g", "m"), mu_i=0, mu_j=2,
+                    grid=grid, n_ell_cov=12, u_stride=2, n_k_ssc=32,
+                    exact_z_anchors=C.J_ANCHORS)})
+            put("joint_anchors", row, lambda: (
+                covariance.joint_wtheta_gammat_covariance(
+                    *base, include_ssc=True, exact_z_anchors=C.J_ANCHORS,
+                    grid=grid, **C.KW)))
+            put("joint_pernode", row, lambda: (
+                covariance.joint_wtheta_gammat_covariance(
+                    *base, exact_z=True, n_z_tri=C.N_Z_EXACT, grid=grid,
+                    **C.KW)))
+            put("tomo_anchors", row, lambda: (
+                covariance.tomographic_3x2pt_covariance(
+                    J.cosmo, J.halo, J.models, J.lens, J.src, C.EDGES,
+                    C.OMEGA_S, t["n2d"], t["shape_noise"], grid=grid,
+                    n_ell_cov_g=C.KW["n_ell_cov_g"],
+                    include_nongaussian="autos", include_ssc="autos",
+                    nuisance=J.nuisance,
+                    ssc_kwargs=dict(n_ell_cov=C.KW["n_ell_cov_ng"],
+                                    u_stride=2, n_k_ssc=32,
+                                    exact_z_anchors=C.J_ANCHORS),
+                    n_ell_cov=C.KW["n_ell_cov_ng"], n_k_tri=16, u_stride=2,
+                    exact_z_anchors=C.J_ANCHORS)))
+        elif name == "tiny_cmb":
+            if row != 2:
+                continue
+
+            def cls():
+                c = covariance.tomographic_lattice_cl_callables(
+                    J.cosmo, J.halo, J.models, J.lens, J.src, False, grid,
+                    J.nuisance, True, cmb=spec)
+                return {"gK0": c[("gK", 0)](C.ELLS),
+                        "gK1": c[("gK", 1)](C.ELLS),
+                        "kK0": c[("kK", 0)](C.ELLS),
+                        "kK1": c[("kK", 1)](C.ELLS),
+                        "KK": c[("KK",)](C.ELLS)}
+
+            put("cmb_cls", row, cls)
+            put("cmb_tomo", row, lambda: (
+                covariance.tomographic_3x2pt_covariance(
+                    J.cosmo, J.halo, J.models, J.lens, J.src, C.EDGES,
+                    C.OMEGA_S, t["n2d"], t["shape_noise"], grid=grid,
+                    n_ell_cov_g=C.KW["n_ell_cov_g"], include_nongaussian=True,
+                    nuisance=J.nuisance, include_magnification=True,
+                    include_ssc=True, cmb_lensing=spec,
+                    ssc_kwargs=dict(n_ell_cov=C.KW["n_ell_cov_ng"],
+                                    u_stride=2, n_k_ssc=32),
+                    n_ell_cov=C.KW["n_ell_cov_ng"], n_k_tri=16,
+                    u_stride=2)))
+        elif name == "tiny_curved":
+            cap, pix = C.curved_masks(curved)
+            ckw = dict(ell_max=cv["ell_max"], ell_split=cv["ell_split"],
+                       grid=grid)
+            ng = dict(n_ell_tbl=cv["n_ell_tbl"], n_k_tri=16, u_stride=2)
+            skw = dict(n_ell_tbl=cv["n_ell_tbl"], u_stride=2,
+                       n_k_ssc=cv["n_k_ssc"])
+            cbase = (J.cosmo, J.halo, J.model, J.dist, J.dist,
+                     cv["edges_deg"], C.N2D, C.SHAPE_NOISE)
+            put("curved_joint", row, lambda: (
+                curved.curved_joint_wtheta_gammat_covariance(
+                    *cbase, pix, include_nongaussian=True, include_ssc=True,
+                    ssc_kwargs=skw, **ckw, **ng)))
+            if row != 2:
+                continue
+
+            def blocks():
+                res = {}
+                for case, (ws, ts, mi, mj) in {
+                        "gggg": ((win_g,) * 4, ("g",) * 4, 0, 0),
+                        "gggm": ((win_g, win_g, win_g, win_k),
+                                 ("g", "g", "g", "m"), 0, 2),
+                        "mmmm": ((win_k,) * 4, ("m",) * 4, "xip",
+                                 "xim")}.items():
+                    res[f"cng.{case}"] = curved.curved_nongaussian_covariance(
+                        J.cosmo, J.halo, J.model, J.dist, cv["edges_deg"],
+                        cap, mi, mj, cv["ell_max"], windows=ws, tracers=ts,
+                        grid=grid, **ng)
+                    res[f"ssc.{case}"] = ssc.curved_ssc_covariance(
+                        J.cosmo, J.halo, J.model, J.dist, cv["edges_deg"],
+                        cap, windows=ws, tracers=ts, mu_i=mi, mu_j=mj,
+                        ell_max=cv["ell_max"], grid=grid, **skw)
+                res["ssc.omega"] = ssc.curved_ssc_covariance(
+                    J.cosmo, J.halo, J.model, J.dist, cv["edges_deg"],
+                    C.OMEGA_S, ell_max=cv["ell_max"], grid=grid,
+                    exact_z_anchors=C.J_ANCHORS, **skw)
+                chi = jnp.asarray(np.geomspace(200.0, 3000.0, 5))
+                g = jnp.asarray(np.linspace(0.9, 0.5, 5))
+                for mname, m in (("cap", cap), ("pixel", pix)):
+                    res[f"sigma_b2.{mname}"] = ssc.sigma_b2_curved(
+                        J.cosmo, m, chi, g, grid=grid)
+                res["sigma_b2.omega"] = ssc.sigma_b2_fn(
+                    J.cosmo, C.OMEGA_S, "curved", grid=grid)(chi, g)
+                return res
+
+            put("curved_blocks", row, blocks)
+            put("curved_3x2pt", row, lambda: (
+                curved.curved_joint_3x2pt_covariance(
+                    *cbase, cap, include_nongaussian=True, include_ssc=True,
+                    ssc_kwargs=skw, **ckw, **ng)))
+            put("curved_tomo", row, lambda: (
+                curved.curved_tomographic_3x2pt_covariance(
+                    J.cosmo, J.halo, J.models, J.lens, J.src,
+                    cv["edges_deg"], t["n2d"], t["shape_noise"], cap,
+                    include_nongaussian=True, nuisance=J.nuisance,
+                    include_magnification=True, include_ssc=True,
+                    cmb_lensing=spec, ssc_kwargs=skw, **ckw, **ng)))
+        else:
+            raise SystemExit(f"unknown covariance part {name!r}")
+    return {"grid": dataclasses.asdict(grid), "cases": out, "seconds": secs}
+
+
+def cov_more_part(name):
+    """The block ``name`` of tests/data/torch_cov_more_reference.json."""
+    if name.startswith("chip_"):
+        return cov_more_chip_part(name)
+    return cov_more_tiny_part(name)
+
+
+COV_MORE_TINY = ("tiny_exactz", "tiny_cmb", "tiny_curved")
+COV_MORE_PARTS = (*COV_MORE_TINY, "chip_curved_joint", "chip_curved_3x2pt",
+                  *(f"chip_exactz_anchors_{i}"
+                    for i in range(len(EXACTZ_COV_INDICES))),
+                  "chip_exactz_pernode", "chip_cmb_flat", "chip_cmb_curved")
+
+
+def write_cov_more_reference():
+    """tests/data/torch_cov_more_reference.json: each block in a process
+    of its own, one after another; a block whose part file
+    (``tests/data/.covmore_<name>.json``, written by ``--cov-more-part
+    <name> <file>``) exists already is taken as it is, so the parts may
+    be made in parallel first.  The chip_exactz_anchors_<i> parts merge
+    into one ``chip_exactz_anchors`` block; a missing
+    ``chip_exactz_pernode`` part (eager JAX's per-node rebuilds at
+    DEFAULT_GRID: skipped where they take too long) is recorded as
+    null."""
+    import subprocess
+
+    blocks = {}
+    for name in COV_MORE_PARTS:
+        part = DATA / f".covmore_{name}.json"
+        if not part.exists():
+            subprocess.run([sys.executable, __file__, "--cov-more-part",
+                            name, str(part)], check=True)
+        blocks[name] = json.loads(part.read_text())
+    tiny = [blocks.pop(name) for name in COV_MORE_TINY]
+    blocks["tiny"] = {"grid": tiny[0]["grid"],
+                      "cases": {k: v for b in tiny
+                                for k, v in b["cases"].items()},
+                      "seconds": {k: v for b in tiny
+                                  for k, v in b["seconds"].items()}}
+    anchors = [blocks.pop(f"chip_exactz_anchors_{i}")
+               for i in range(len(EXACTZ_COV_INDICES))]
+    blocks["chip_exactz_anchors"] = {
+        "indices": [a["index"] for a in anchors],
+        "omega_m0": [a["omega_m0"][0] for a in anchors],
+        "sigma_8": [a["sigma_8"][0] for a in anchors],
+        "cov_raw": [a["cov_raw"] for a in anchors],
+        "scalar_seconds": [a["scalar_seconds"][0] for a in anchors],
+        "j": EXACTZ_COV_J}
+    data = {"config": "the rest of the covariance stack, JAX float64 CPU; "
+                      "'tiny': tests/torch_cov_cases.py's grid, "
+                      "cosmologies and curved masks (the parts "
+                      "COV_MORE_TINY, eager, one cosmology at a time); "
+                      "'chip_curved_joint' / 'chip_curved_3x2pt': "
+                      "chip_smoke.py phase 29 (CURVED_CELL on DEFAULT_GRID,"
+                      " cNG + curved SSC, raw), the joint one with the "
+                      "worst block gap of jax.jit(jax.vmap) to the scalar "
+                      "program; 'chip_exactz_anchors' / "
+                      "'chip_exactz_pernode': phase 30 (JOINT_CELL with "
+                      "exact_z_anchors=EXACTZ_COV_J on cNG and SSC; with "
+                      "exact_z=True and no SSC), raw; 'chip_cmb_flat' / "
+                      "'chip_cmb_curved': phase 31 (bins 0-1 of phase 28's "
+                      "cell with cmb_lensing=True, flat and on the DES "
+                      "Y3-area polar cap), raw",
+            "curved_cell": CURVED_CELL, "joint_cell": JOINT_CELL,
+            "tomo_cell": TOMO_CELL, "des_y3_survey": DES_Y3_SURVEY,
+            "des_theta_edges_deg": DES_THETA_EDGES_DEG, **blocks}
+    path = DATA / "torch_cov_more_reference.json"
+    path.write_text(json.dumps(data) + "\n")
+    for name in COV_MORE_PARTS:
+        part = DATA / f".covmore_{name}.json"
+        if part.exists():
+            part.unlink()
+    print(f"wrote {path}")
+
+
 FILES = ("torch_slice_reference.json", "torch_table_reference.json",
          "torch_grad_reference.json", "torch_exactz_reference.json",
          "torch_tomo_reference.json", "torch_options_reference.json",
          "torch_exactz_tomo_reference.json",
          "torch_families_reference.json", "torch_emulator_reference.json",
-         "torch_cov_reference.json")
+         "torch_cov_reference.json", "torch_cov_more_reference.json")
 
 
 def main():
@@ -1760,6 +2213,11 @@ def main():
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
         Path(args[2]).write_text(json.dumps(cov_part(args[1])))
+        return
+    if args[:1] == ["--cov-more-part"]:
+        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_enable_x64", True)
+        Path(args[2]).write_text(json.dumps(cov_more_part(args[1])))
         return
     if args[:1] == ["--families-part"]:
         jax.config.update("jax_platforms", "cpu")
@@ -1797,6 +2255,8 @@ def main():
         write_emulator_reference()
     if FILES[9] in names:
         write_cov_reference()
+    if FILES[10] in names:
+        write_cov_more_reference()
 
 
 def write_slice_and_table():
